@@ -1,0 +1,162 @@
+"""Index serialization: ``scann_config.json`` + ``scann_assets.npz``.
+
+Port of scann_tpu/utils/serialization.py for the two searchers the port
+serves: TreeXSearcher in residual-int8 mode and the float32
+BruteForceSearcher.  Keys, dtypes and the config/meta blob are the JAX
+package's, so each package loads the other's index: the port searches an
+index built by scann_tpu (the search parity tests), and scann_tpu loads an
+index built by the port.  Loading turns the numpy arrays into tensors on
+the requested device; index dtypes stay those of the files (int32 tables,
+int8 rows, f32 planes and centers).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from scann_torch import config as cfg
+
+_CONFIG_FILE = "scann_config.json"
+_ASSETS_FILE = "scann_assets.npz"
+_DOCIDS_FILE = "scann_docids.json"
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def collect_assets(searcher):
+    """Flatten a searcher into (numpy arrays, JSON-able config+meta)."""
+    arrays: dict = {}
+    dtypes: dict = {}
+    meta: dict = {"type": type(searcher).__name__,
+                  "n_points": searcher.n_points, "dims": searcher.dims}
+
+    def put(key, arr):
+        if arr is None:
+            return
+        a = _to_numpy(arr)
+        arrays[key], dtypes[key] = a, str(a.dtype)
+
+    tname = meta["type"]
+    if tname == "BruteForceSearcher":
+        put("bf_db", searcher._db)
+        put("bf_valid", searcher._valid)
+    elif tname == "TreeXSearcher":
+        put("slot_rows", searcher.slot_rows)
+        put("slot_leaf", searcher.slot_leaf)
+        put("slot_dpid", searcher.slot_dpid)
+        put("tx_sq_norms", searcher._sq_norms)
+        put("datapoint_to_token",
+            np.asarray(searcher.datapoint_to_token, np.int32))
+        meta["num_slots"] = searcher._num_slots
+        meta["chunk"] = searcher._chunk
+        meta["tx_mode"] = "residual_int8"
+        meta["max_ntiles"] = searcher._p_max_ntiles
+        meta["num_tiles"] = searcher._p_num_tiles
+        put("tx_scale", searcher.slot_scale)
+        put("tx_bias2", searcher._bias2)
+        put("tx_tile_start", searcher._p_tile_start)
+        put("tx_ntiles", searcher._p_ntiles)
+        put("centers", searcher.partitioner.centers)
+    else:
+        raise ValueError(f"cannot serialize searcher type {tname}")
+    meta["dtypes"] = dtypes
+    blob = {"config": json.loads(searcher.config.to_json()), "meta": meta}
+    return arrays, blob
+
+
+def save_searcher(searcher, artifacts_dir: str):
+    os.makedirs(artifacts_dir, exist_ok=True)
+    arrays, blob = collect_assets(searcher)
+    with open(os.path.join(artifacts_dir, _CONFIG_FILE), "w") as f:
+        f.write(json.dumps(blob, indent=2))
+    np.savez(os.path.join(artifacts_dir, _ASSETS_FILE), **arrays)
+
+
+def load_searcher(artifacts_dir: str, device):
+    """Reconstruct a searcher on ``device`` without retraining."""
+    from scann_torch import factory
+    from scann_torch.models import base
+    dev = base.resolve_device(device)
+    with open(os.path.join(artifacts_dir, _CONFIG_FILE)) as f:
+        blob = json.load(f)
+    if os.path.exists(os.path.join(artifacts_dir, _DOCIDS_FILE)):
+        base.not_ported("docids", 15)
+    scann_config = cfg._config_from_dict(blob["config"])
+    factory.check_supported(scann_config)
+    meta = blob["meta"]
+    with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
+        arrays = {k: raw[k] for k in raw.files}
+    for key, item in (("mut_vectors", 15), ("proj_matrix", 16),
+                      ("centers_int8", 14), ("upper_centers", 14)):
+        if key in arrays:
+            base.not_ported(f"index asset {key}", item)
+    if meta.get("query_spilling_type", "fixed_number") != "fixed_number":
+        base.not_ported("query spilling types", 14)
+
+    def tensor(key):
+        if key not in arrays:
+            return None
+        tag = meta["dtypes"][key]
+        if tag == "bfloat16":
+            raise ValueError(f"unexpected bfloat16 asset {key}")
+        return torch.from_numpy(np.ascontiguousarray(arrays[key])).to(dev)
+
+    tname = meta["type"]
+    if tname == "BruteForceSearcher":
+        from scann_torch.models import brute_force
+        s = object.__new__(brute_force.BruteForceSearcher)
+        _init_base(s, scann_config, meta, dev)
+        s.quantize_mode = cfg.FLOAT32
+        s._db = tensor("bf_db")
+        s._valid = tensor("bf_valid")
+        if s._valid is None:
+            s._valid = torch.ones((s._db.shape[0],), dtype=torch.bool,
+                                  device=dev)
+        return s
+    if tname == "TreeXSearcher":
+        from scann_torch.models import tree_x
+        from scann_torch.partitioning import kmeans_tree
+        if meta.get("tx_mode") != "residual_int8":
+            base.not_ported("Tree-X float32/bfloat16/global-int8 leaves",
+                             21)
+        s = object.__new__(tree_x.TreeXSearcher)
+        _init_base(s, scann_config, meta, dev)
+        s.part_cfg = scann_config.partitioning
+        s.measure = cfg.internal_measure(scann_config.distance_measure)
+        s.quantize_mode = scann_config.brute_force.quantize
+        s.slot_rows = tensor("slot_rows")
+        tile = s.slot_rows.shape[1]
+        s.slot_leaf = tensor("slot_leaf")
+        s.slot_dpid = tensor("slot_dpid")
+        s._sq_norms = tensor("tx_sq_norms")
+        s._num_slots = meta["num_slots"]
+        s._chunk = meta["chunk"]
+        s._sq_mode = True
+        s.slot_scale = tensor("tx_scale").reshape(-1, tile, 1)
+        s._bias2 = tensor("tx_bias2").reshape(-1, tile, 1)
+        s._p_tile_start = tensor("tx_tile_start")
+        s._p_ntiles = tensor("tx_ntiles")
+        s._p_max_ntiles = meta["max_ntiles"]
+        s._p_num_tiles = meta["num_tiles"]
+        s.datapoint_to_token = arrays["datapoint_to_token"]
+        s.partitioner = kmeans_tree.KMeansTreePartitioner(
+            centers=tensor("centers"),
+            query_distance=cfg.internal_measure(
+                scann_config.distance_measure))
+        return s
+    raise ValueError(f"unknown searcher type in artifacts: {tname}")
+
+
+def _init_base(s, scann_config, meta, dev):
+    s.config = scann_config
+    s.device = dev
+    s.n_points = meta["n_points"]
+    s.dims = meta["dims"]
+    s._build_x_dev = None
