@@ -18,11 +18,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      and the full scan with recall@10, QPS and per-stage times, and a
      16-query cross-check of the CUDA path against the CPU plain path on
      the same (serialized) index;
-  6. the kernels JSON line, the card line, and the final ok line.
+  6. tree-AH (bench.py's tree + AH + reorder config on the same corpus:
+     score_ah(2, anisotropic threshold 0.2), reorder(100)): three builds
+     (int8 lookup with float32 reorder, the same with residual-int8
+     reorder, float32 lookup); K3 and K4 against their plain versions at
+     the main path's inputs (dot and squared L2, 8 and 16 survivors per
+     group, K4 also with 256 centers per block on a small index) with
+     timings and bounds; the sweep leaves 50 / 100 / 150 x pre-reorder
+     100 / 250 on both reorder types (every point must launch K3), one
+     float32-lookup point (must launch K4), the dense LUT16 scan (full
+     scan) over all queries, and the CUDA-vs-CPU cross-check;
+  7. the kernels JSON line, the card line, and the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,15 +47,29 @@ N_DB, N_QUERY, DIM, K = 1_183_514, 10_000, 100, 10
 NUM_LEAVES, LEAVES_TO_SEARCH, TRAIN_SAMPLE = 2000, 100, 250_000
 SWEEP = (50, 80, 100, 150)
 RECALL_FLOOR_AT_100 = 0.935
-# Peaks of one H100 SXM (NVIDIA data sheet; dense tensor-core bf16).
+# tree-AH: leaves x pre-reorder sweep, and the recall@10 floor at leaves
+# 100 with 100 pre-reorder candidates (float32 reorder): the first value
+# measured on the card less 1 pt, the build-to-build spread.
+AH_SWEEP = ((50, 100), (50, 250), (100, 100), (100, 250), (150, 100),
+            (150, 250))
+AH_REORDER = 100
+AH_RECALL_FLOOR_AT_100 = 0.9472   # first card run: 0.9572
+# Peaks of one H100 SXM (NVIDIA data sheet; dense tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 # K1 vs plain version: unpacked values within 2^-14 relative (the 2^-15
 # identity perturbation plus summation order; int8 x bf16 products are
 # exact in f32) with a 1e-6 floor for sums that cancel to near zero, and
 # packed identities equal on >= 99.9% of survivors.
 K1_RTOL, K1_ATOL, K1_MIN_ID_AGREE = 2.0 ** -14, 1e-6, 0.999
+# K3 vs plain version: packed survivors bit-equal (exact products, one
+# rounded sum per LUT entry at two dimensions per block, exact integer
+# sums).  K4 vs plain version: K1's bar, with a 1e-5 floor for squared-L2
+# scores 2 dot - ||x||^2 that cancel to near zero.
+K4_ATOL = 1e-5
 TIMING_REPS = 20
+PLAIN_TIMING_REPS = 5
 
 # The benchmark corpus: a verbatim copy of bench.make_glove_like (and its
 # constants); tests/test_torch_isolation.py holds the two equal.
@@ -130,8 +155,8 @@ class StageTimer:
         return out
 
 
-def k1_inputs(torch, searcher, queries, leaves, measure_l2):
-    """The exact K1 inputs the main path builds for this batch."""
+def pruned_plan(torch, searcher, queries, leaves):
+    """The work plan the main path builds for this batch."""
     from scann_torch.ops import pruned_scan
     part = searcher.partitioner
     nq = queries.shape[0]
@@ -140,9 +165,15 @@ def k1_inputs(torch, searcher, queries, leaves, measure_l2):
     g_pad, w_pad = pruned_scan.plan_capacities(
         nq, leaves, part.num_leaves, searcher._p_num_tiles,
         searcher._p_max_ntiles)
-    plan = pruned_scan.invert(leaf_ids, valid, searcher._p_tile_start,
+    return pruned_scan.invert(leaf_ids, valid, searcher._p_tile_start,
                               searcher._p_ntiles, searcher._p_max_ntiles,
                               g_pad, w_pad)
+
+
+def k1_inputs(torch, searcher, queries, leaves, measure_l2):
+    """The exact K1 inputs the main path builds for this batch."""
+    part = searcher.partitioner
+    plan = pruned_plan(torch, searcher, queries, leaves)
     d_pad = searcher.slot_rows.shape[-1]
     q_bf = torch.nn.functional.pad(
         queries, (0, d_pad - queries.shape[1])).to(torch.bfloat16)
@@ -159,29 +190,93 @@ def k1_inputs(torch, searcher, queries, leaves, measure_l2):
     return plan, qg_rows, bias
 
 
+def plan_counts(plan):
+    """(active items, distinct active tiles, active query groups)."""
+    active = plan.work_active.bool()
+    mnt = plan.work_tile.shape[0] // plan.qg_query.shape[0]
+    return (int(active.sum()), int(plan.work_tile[active].unique().numel()),
+            int(active.reshape(-1, mnt).any(1).sum()))
+
+
+def _bound(nbytes, t_ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def k1_bound(plan, rows3, kpg):
     """Least time (ms) for the K1 work of this plan on one H100: bytes of
     each distinct input read once (active tiles' rows, scale, bias; active
     groups' queries; the work tables) and each active output segment
     written once, vs the bf16 tensor-core time of the active products."""
-    active = plan.work_active.bool()
-    n_active = int(active.sum())
-    tiles = int(plan.work_tile[active].unique().numel())
-    mnt = plan.work_tile.shape[0] // plan.qg_query.shape[0]
-    groups = int(active.reshape(-1, mnt).any(1).sum())
+    n_active, tiles, groups = plan_counts(plan)
     tile, d_pad = rows3.shape[1], rows3.shape[2]
     nbytes = (tiles * tile * (d_pad + 8) + groups * 128 * d_pad * 2
               + plan.work_tile.shape[0] * 8
               + n_active * 128 * kpg * (tile // 32) * 4)
-    flops = 2.0 * n_active * tile * 128 * d_pad
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", n_active)
+    t_ops = 2.0 * n_active * tile * 128 * d_pad / BF16_FLOPS
+    return _bound(nbytes, t_ops) + (n_active,)
 
 
-def compare_k1(torch, got, want, plan):
-    """Hold the kernel's output against the plain version's on active
-    segments; returns (max_abs_err, identity agreement)."""
+def ah_inputs(torch, searcher, queries, leaves, measure_l2):
+    """The exact K3 / K4 inputs of the main path for this batch: (plan,
+    qg_rows, codes, cb_mat, mean, bias).  A squared-L2 case on a
+    dot-product index takes the mean of its decoded rows, as an L2 index
+    has, and centers the queries on it."""
+    searcher._ensure_pruned()
+    plan = pruned_plan(torch, searcher, queries, leaves)
+    d_pad = searcher._p_cb.shape[-1]
+    mean = searcher._p_mean
+    if measure_l2 and searcher._recon_mean is None:
+        mean = torch.zeros_like(mean)
+        mean[:searcher.dims] = searcher._decode_mean()
+    q = queries - mean[None, :searcher.dims]
+    q_bf = torch.nn.functional.pad(q, (0, d_pad - q.shape[1])).to(
+        torch.bfloat16)
+    return (plan, q_bf[plan.qg_query.long()], searcher._p_codes,
+            searcher._p_cb, mean, searcher._p_bias)
+
+
+def k3_bound(plan, codes3p, dpb, kpg):
+    """Least time (ms) for the K3 work of this plan on one H100.  Bytes:
+    each distinct input once (active tiles' packed codes and bias, active
+    groups' bf16 queries, the compact codebook and norms, the work tables)
+    and each active output segment once.  Operations: the LUT product of
+    each active group at the bf16 tensor-core peak plus the one-hot x LUT
+    product of each active item at the int8 peak."""
+    n_active, tiles, groups = plan_counts(plan)
+    tile, b2 = codes3p.shape[1], codes3p.shape[2]
+    w, d_pad = b2 * 2 * 16, b2 * 2 * dpb
+    nbytes = (tiles * tile * (b2 + 4) + groups * 128 * d_pad * 2
+              + w * (dpb + 1) * 4 + plan.work_tile.shape[0] * 8
+              + n_active * 128 * kpg * (tile // 32) * 4)
+    t_ops = (2.0 * groups * w * 128 * dpb / BF16_FLOPS
+             + 2.0 * n_active * tile * w * 128 / INT8_OPS)
+    return _bound(nbytes, t_ops) + (n_active,)
+
+
+def k4_bound(plan, codes3, cpb, dpb, kpg):
+    """Least time (ms) for the K4 work of this plan: bytes as for K3 with
+    one byte per block and slot and the f32 mean; operations: the decoded
+    tile x query-group product of each active item at the bf16 peak (the
+    decode itself is a table read, no arithmetic)."""
+    n_active, tiles, groups = plan_counts(plan)
+    tile, b_pad = codes3.shape[1], codes3.shape[2]
+    d_pad = b_pad * dpb
+    nbytes = (tiles * tile * (b_pad + 4) + groups * 128 * d_pad * 2
+              + b_pad * cpb * dpb * 4 + d_pad * 4
+              + plan.work_tile.shape[0] * 8
+              + n_active * 128 * kpg * (tile // 32) * 4)
+    t_ops = 2.0 * n_active * tile * 128 * d_pad / BF16_FLOPS
+    return _bound(nbytes, t_ops) + (n_active,)
+
+
+def compare_packed(torch, name, got, want, plan, atol=None):
+    """Hold a kernel's packed output against the plain version's on active
+    segments: bit-equal when ``atol`` is None, else unpacked values within
+    K1_RTOL relative plus ``atol`` and identities equal on
+    K1_MIN_ID_AGREE of survivors.  Returns (max_abs_err, identity
+    agreement)."""
     from scann_torch.ops import pruned_scan
     g_pad = plan.qg_query.shape[0]
     mnt = plan.work_tile.shape[0] // g_pad
@@ -192,16 +287,253 @@ def compare_k1(torch, got, want, plan):
     b = want.reshape(g_pad, 128, mnt, seg)[act]
     va, _, _ = pruned_scan._unpack(a)
     vb, _, _ = pruned_scan._unpack(b)
-    err = (va.double() - vb.double()).abs()
-    tol = K1_RTOL * vb.double().abs() + K1_ATOL
-    bad = int((err > tol).sum())
+    live = vb > -1e20            # padded slots carry the -1e30 penalty
+    err = (va.double() - vb.double()).abs()[live]
+    tol = K1_RTOL * vb.double().abs()[live] + (atol or 0.0)
+    bad = int((err > tol).sum()) + int(((va > -1e20) != live).sum())
     ident = float(((a & pruned_scan._ID_MASK)
                    == (b & pruned_scan._ID_MASK)).double().mean())
+    if atol is None:
+        bad += int((a != b).sum())
     if bad or ident < K1_MIN_ID_AGREE or not torch.isfinite(va).all():
         raise AssertionError(
-            f"K1 disagrees with its plain version: {bad} of {a.numel()} "
+            f"{name} disagrees with its plain version: {bad} of {a.numel()} "
             f"survivors out of tolerance, identities agree {ident:.6f}")
-    return float(err.max()), ident
+    return (float(err.max()) if err.numel() else 0.0), ident
+
+
+def ah_config(scann_torch, db, measure, lookup, reorder, hash_type="lut16",
+              dpb=2, **tree):
+    b = scann_torch.builder(db, K, measure).tree(**tree).score_ah(
+        dpb, anisotropic_quantization_threshold=0.2, hash_type=hash_type)
+    if reorder is not None:
+        b = b.reorder(AH_REORDER, quantize=reorder)
+    config = b.create_config()
+    return dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
+        config.asymmetric_hash, lookup_type=lookup))
+
+
+def timed_search(torch, searcher, timer, queries, count, **kw):
+    """One warm-up, then one timed search_batched with stage times and the
+    kernel launches ``count()`` saw during the timed run."""
+    searcher.search_batched(queries, **kw)
+    torch.cuda.synchronize()
+    before = count()
+    timer.start()
+    t0 = time.perf_counter()
+    idx, dist = searcher.search_batched(queries, **kw)
+    wall = time.perf_counter() - t0
+    stages = {k: round(v, 3) for k, v in timer.stage_ms().items()}
+    return idx, dist, wall, stages, count() - before
+
+
+def check_results(queries, db, idx, dist, what, exact_distances):
+    if idx.shape != (len(queries), K) or not np.isfinite(dist).all():
+        raise AssertionError(f"bad results at {what}: shape {idx.shape}, "
+                             f"finite {np.isfinite(dist).mean()}")
+    if exact_distances:
+        exact = np.einsum("qd,qkd->qk", queries, db[idx])
+        if np.abs(exact - dist).max() > 2e-2:
+            raise AssertionError(f"distances at {what} are not the dot "
+                                 f"products of the returned rows")
+
+
+def cross_check(scann_torch, searcher, queries, what):
+    """The same index, serialized and searched on the CPU plain path,
+    returns what the CUDA path returns for a few queries."""
+    with tempfile.TemporaryDirectory() as tmp:
+        searcher.serialize(tmp)
+        cpu = scann_torch.load_searcher(tmp, device="cpu")
+        i_cpu, d_cpu = cpu.search_batched(queries[:16],
+                                          leaves_to_search=LEAVES_TO_SEARCH)
+    i_gpu, d_gpu = searcher.search_batched(queries[:16],
+                                           leaves_to_search=LEAVES_TO_SEARCH)
+    same = i_cpu == i_gpu
+    agree = float(np.mean(same))
+    if agree < 0.99 or not np.allclose(d_cpu[same], d_gpu[same], rtol=1e-4):
+        raise AssertionError(f"{what}: CUDA and CPU paths disagree: ids "
+                             f"{agree:.4f}")
+    log(f"{what}: CUDA vs CPU plain path on 16 queries: ids agree "
+        f"{agree:.4f}")
+
+
+def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
+    """Phase 6; returns (K3 record, K4 record, summary dict)."""
+    from scann_torch.ops import pruned_lut
+    tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
+                training_sample_size=TRAIN_SAMPLE)
+    searchers, build_s = {}, {}
+    for name, lookup, reorder in (("int8_f32", "int8", "float32"),
+                                  ("int8_int8", "int8", "int8"),
+                                  ("float_f32", "float32", "float32")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searchers[name] = scann_torch.create_searcher(
+            db, ah_config(scann_torch, db, "dot_product", lookup, reorder,
+                          **tree), "cuda")
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        s = searchers[name]
+        s._ensure_pruned()
+        rh = s.reorder_helper
+        code_b = s._p_codes.numel() + s._p_bias.numel() * 4 \
+            + s._p_dpid.numel() * 4
+        reorder_b = sum(t.numel() * t.element_size() for t in (
+            rh._db, rh._sq_norms, rh._leaf, rh._row_scale) if t is not None)
+        log(f"tree-AH build {name}: {build_s[name]:.1f} s, "
+            f"{s.partitioner.num_leaves} leaves, max_ntiles "
+            f"{s._p_max_ntiles}, {s._p_num_tiles} tiles, codes "
+            f"{code_b / N_DB:.1f} B/vector, reorder {reorder_b / N_DB:.1f} "
+            f"B/vector, quantization error "
+            f"{s._quantization_error_sq ** 0.5:.4f}")
+    main, main_i8, main_f = (searchers[n] for n in
+                             ("int8_f32", "int8_int8", "float_f32"))
+    dpb = main.model.dims_per_block
+
+    # Kernel phase: K3 and K4 at the main path's inputs.
+    k3, k4 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for measure_l2 in (False, True):
+        for kpg in (8, 16):
+            tag = f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}"
+            a3 = ah_inputs(torch, main, q_dev, LEAVES_TO_SEARCH, measure_l2)
+            got = pruned_lut.score_work_lut(
+                *a3, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+            want = pruned_lut.score_work_torch_lut(
+                *a3, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+            torch.cuda.synchronize()
+            err, ident = compare_packed(torch, "K3", got, want, a3[0])
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+            log(f"K3 vs plain ({tag}): bit-equal, w_pad "
+                f"{a3[0].work_tile.shape[0]}, active "
+                f"{int(a3[0].work_active.sum())}")
+            del got, want
+            a4 = ah_inputs(torch, main_f, q_dev, LEAVES_TO_SEARCH,
+                           measure_l2)
+            got = pruned_lut.score_work_codes(
+                *a4, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+            want = pruned_lut.score_work_torch_codes(
+                *a4, measure_l2=measure_l2, kpg=kpg)
+            torch.cuda.synchronize()
+            err, ident = compare_packed(torch, "K4", got, want, a4[0],
+                                        atol=K4_ATOL)
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            log(f"K4 vs plain ({tag}): max |err| {err:.3g}, identities "
+                f"agree {ident:.6f}")
+            del got, want
+            if not measure_l2 and kpg == 8:    # the main path's case
+                for rec, fn, plain, args, kw, bound in (
+                        (k3, pruned_lut.score_work_lut,
+                         pruned_lut.score_work_torch_lut, a3,
+                         dict(dims_per_block=dpb),
+                         k3_bound(a3[0], a3[2], dpb, kpg)),
+                        (k4, pruned_lut.score_work_codes,
+                         pruned_lut.score_work_torch_codes, a4, {},
+                         k4_bound(a4[0], a4[2], 16, dpb, kpg))):
+                    rec["ms"] = time_ms(torch, lambda: fn(
+                        *args, dims_per_block=dpb, measure_l2=False,
+                        kpg=kpg))
+                    rec["plain_ms"] = time_ms(torch, lambda: plain(
+                        *args, measure_l2=False, kpg=kpg, **kw),
+                        reps=PLAIN_TIMING_REPS)
+                    rec["bound_ms"], rec["bound_by"], n_act = bound
+                    log(f"{fn.__name__} at leaves={LEAVES_TO_SEARCH}, "
+                        f"{N_QUERY} queries, kpg {kpg}: {rec['ms']:.3f} ms "
+                        f"(plain {rec['plain_ms']:.3f} ms), bound "
+                        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                        f"({n_act} active items)")
+            del a3, a4
+            torch.cuda.empty_cache()
+    # K4 with 256 centers per block (lut256, 4 dims per block), small index.
+    small = scann_torch.create_searcher(
+        db[:60_000], ah_config(scann_torch, db[:60_000], "squared_l2",
+                               "int8", None, hash_type="lut256", dpb=4,
+                               num_leaves=100, num_leaves_to_search=10,
+                               training_sample_size=60_000), "cuda")
+    a4 = ah_inputs(torch, small, q_dev[:2000], 10, True)
+    got = pruned_lut.score_work_codes(*a4, dims_per_block=4, measure_l2=True,
+                                      kpg=8)
+    want = pruned_lut.score_work_torch_codes(*a4, measure_l2=True, kpg=8)
+    torch.cuda.synchronize()
+    err, ident = compare_packed(torch, "K4 (256 centers)", got, want, a4[0],
+                                atol=K4_ATOL)
+    k4["max_abs_err"] = max(k4["max_abs_err"], err)
+    log(f"K4 vs plain (256 centers per block, l2, kpg 8, "
+        f"{int(a4[0].work_active.sum())} active items): max |err| "
+        f"{err:.3g}, identities agree {ident:.6f}")
+    idx, _ = small.search_batched(queries[:2000], leaves_to_search=10)
+    if idx.shape != (2000, K) or (idx < 0).any():
+        raise AssertionError("lut256 search returned invalid ids")
+    del small, got, want, a4
+    torch.cuda.empty_cache()
+
+    # Main path through the public entry points.
+    timer = StageTimer(torch)
+    pruned_lut.launches_lut = pruned_lut.launches_codes = 0
+    points = []
+    for name, s in (("int8_f32", main), ("int8_int8", main_i8)):
+        s.stage_hook = timer
+        for leaves, pre in AH_SWEEP:
+            idx, dist, wall, stages, launched = timed_search(
+                torch, s, timer, queries, lambda: pruned_lut.launches_lut,
+                leaves_to_search=leaves, pre_reorder_num_neighbors=pre)
+            check_results(queries, db, idx, dist,
+                          f"tree-AH {name} leaves={leaves} pre={pre}",
+                          exact_distances=name == "int8_f32")
+            if launched == 0:
+                raise AssertionError(f"tree-AH {name} leaves={leaves} "
+                                     f"pre={pre} did not launch K3")
+            points.append({"index": name, "leaves": leaves, "pre": pre,
+                           "recall": recall_at_k(idx, truth),
+                           "qps": N_QUERY / wall, "k3_launches": launched,
+                           "stage_ms": stages})
+            log(f"tree-AH {name} leaves={leaves} pre={pre}: recall@10 "
+                f"{points[-1]['recall']:.4f}, qps {N_QUERY / wall:.0f}, K3 "
+                f"launches {launched}, stage ms {stages}")
+        s.stage_hook = None
+    k3["launches"] = pruned_lut.launches_lut
+    if pruned_lut.launches_codes:
+        raise AssertionError("an int8-lookup point launched K4")
+    main_f.stage_hook = timer
+    idx, dist, wall, stages, launched = timed_search(
+        torch, main_f, timer, queries, lambda: pruned_lut.launches_codes,
+        leaves_to_search=LEAVES_TO_SEARCH)
+    main_f.stage_hook = None
+    check_results(queries, db, idx, dist, "tree-AH float32 lookup", True)
+    k4["launches"] = pruned_lut.launches_codes
+    if launched == 0:
+        raise AssertionError("the float32-lookup point did not launch K4")
+    points.append({"index": "float_f32", "leaves": LEAVES_TO_SEARCH,
+                   "pre": AH_REORDER, "recall": recall_at_k(idx, truth),
+                   "qps": N_QUERY / wall, "k4_launches": launched,
+                   "stage_ms": stages})
+    log(f"tree-AH float32 lookup leaves={LEAVES_TO_SEARCH}: recall@10 "
+        f"{points[-1]['recall']:.4f}, qps {N_QUERY / wall:.0f}, K4 launches "
+        f"{launched}, stage ms {stages}")
+    at100 = next(p for p in points if (p["index"], p["leaves"], p["pre"])
+                 == ("int8_f32", 100, 100))["recall"]
+    if at100 < AH_RECALL_FLOOR_AT_100:
+        raise AssertionError(f"tree-AH recall@10 {at100:.4f} at leaves=100, "
+                             f"pre-reorder 100 is under "
+                             f"{AH_RECALL_FLOOR_AT_100}")
+
+    # Dense LUT16 scan: the full scan over all queries launches no kernel.
+    main.stage_hook = timer
+    idx, dist, wall, stages, launched = timed_search(
+        torch, main, timer, queries,
+        lambda: pruned_lut.launches_lut + pruned_lut.launches_codes,
+        leaves_to_search=main.partitioner.num_leaves)
+    main.stage_hook = None
+    check_results(queries, db, idx, dist, "tree-AH dense", True)
+    if launched:
+        raise AssertionError("the full scan launched a pruned scorer")
+    dense = {"recall": recall_at_k(idx, truth), "qps": N_QUERY / wall,
+             "stage_ms": stages}
+    log(f"tree-AH dense scan (full scan): recall@10 {dense['recall']:.4f}, "
+        f"qps {dense['qps']:.0f}, stage ms {stages}")
+    main.index = main.index._replace(codes=None)   # free the dense layout
+
+    cross_check(scann_torch, main, queries, "tree-AH")
+    return k3, k4, {"build_s": build_s, "points": points, "dense": dense}
 
 
 def main():
@@ -270,7 +602,8 @@ def main():
         want = pruned_sq.score_work_torch_sq(*args, measure_l2=measure_l2,
                                              kpg=kpg)
         torch.cuda.synchronize()
-        err, ident = compare_k1(torch, got, want, plan)
+        err, ident = compare_packed(torch, "K1", got, want, plan,
+                                    atol=K1_ATOL)
         k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), err)
         log(f"K1 vs plain ({'l2' if measure_l2 else 'dot'}, kpg {kpg}): "
             f"max |err| {err:.3g}, identities agree {ident:.6f}, "
@@ -297,31 +630,18 @@ def main():
     pruned_sq.launches = 0
     points = []
     for leaves in SWEEP + (nl,):
-        searcher.search_batched(queries, leaves_to_search=leaves)  # warm-up
-        before = pruned_sq.launches
-        torch.cuda.synchronize()
-        timer.start()
-        t0 = time.perf_counter()
-        idx, dist = searcher.search_batched(queries, leaves_to_search=leaves)
-        wall = time.perf_counter() - t0
-        stages = timer.stage_ms()
-        r = recall_at_k(idx, truth)
-        if idx.shape != (N_QUERY, K) or not np.isfinite(dist).all():
-            raise AssertionError(f"bad results at leaves={leaves}: shape "
-                                 f"{idx.shape}, finite "
-                                 f"{np.isfinite(dist).mean()}")
-        exact = np.einsum("qd,qkd->qk", queries, db[idx])
-        if np.abs(exact - dist).max() > 2e-2:
-            raise AssertionError(f"distances at leaves={leaves} are not the "
-                                 f"dot products of the returned rows")
-        launched = pruned_sq.launches - before
+        idx, dist, wall, stages, launched = timed_search(
+            torch, searcher, timer, queries, lambda: pruned_sq.launches,
+            leaves_to_search=leaves)
+        check_results(queries, db, idx, dist, f"leaves={leaves}", True)
         if leaves < nl and launched == 0:
             raise AssertionError(f"leaves={leaves} did not launch K1")
-        points.append({"leaves": leaves, "recall": r, "qps": N_QUERY / wall,
-                       "k1_launches": launched,
-                       "stage_ms": {k: round(v, 3) for k, v in stages.items()}})
-        log(f"leaves={leaves}: recall@10 {r:.4f}, qps {N_QUERY / wall:.0f}, "
-            f"K1 launches {launched}, stage ms {points[-1]['stage_ms']}")
+        points.append({"leaves": leaves, "recall": recall_at_k(idx, truth),
+                       "qps": N_QUERY / wall, "k1_launches": launched,
+                       "stage_ms": stages})
+        log(f"leaves={leaves}: recall@10 {points[-1]['recall']:.4f}, qps "
+            f"{N_QUERY / wall:.0f}, K1 launches {launched}, stage ms "
+            f"{stages}")
     searcher.stage_hook = None
     k1["launches"] = pruned_sq.launches
     if k1["launches"] == 0:
@@ -331,33 +651,31 @@ def main():
         raise AssertionError(f"recall@10 {at100:.4f} at leaves=100 is under "
                              f"{RECALL_FLOOR_AT_100}")
 
-    # Cross-check: the same index, serialized and searched on the CPU plain
-    # path, returns what the CUDA path returns for a few queries.
-    with tempfile.TemporaryDirectory() as tmp:
-        searcher.serialize(tmp)
-        cpu = scann_torch.load_searcher(tmp, device="cpu")
-        i_cpu, d_cpu = cpu.search_batched(queries[:16],
-                                          leaves_to_search=LEAVES_TO_SEARCH)
-    i_gpu, d_gpu = searcher.search_batched(queries[:16],
-                                           leaves_to_search=LEAVES_TO_SEARCH)
-    agree = float(np.mean(i_cpu == i_gpu))
-    same = i_cpu == i_gpu
-    if agree < 0.99 or not np.allclose(d_cpu[same], d_gpu[same], rtol=1e-4):
-        raise AssertionError(f"CUDA and CPU paths disagree: ids {agree:.4f}")
-    log(f"CUDA vs CPU plain path on 16 queries: ids agree {agree:.4f}")
+    cross_check(scann_torch, searcher, queries, "tree-SQ")
+    del searcher
+    torch.cuda.empty_cache()
+
+    # 6. tree-AH
+    k3, k4, ah_summary = tree_ah_phase(torch, scann_torch, db, queries,
+                                       truth, q_dev)
 
     summary = {"build_s": build_s, "num_leaves": nl,
                "index_bytes_per_vector": index_bytes / N_DB,
-               "points": points}
+               "points": points, "tree_ah": ah_summary}
     log("summary " + json.dumps(summary))
-    log(json.dumps({"kernels": [{
-        "name": "pruned_sq", "route": "cuda",
-        "source": "scann_torch/csrc/pruned_sq.cu",
-        "replaces": "scann_tpu/ops/pruned_sq.py:43",
-        "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}]}))
+    # library_ms is None for all three: no single PyTorch call computes a
+    # gathered tile x query-group score with a packed per-32-slot top-k.
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"scann_torch/csrc/{name}.cu", "replaces": replaces,
+         "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+         "library_ms": None}
+        for name, replaces, rec in (
+            ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1),
+            ("pruned_lut", "scann_tpu/ops/pruned_lut.py:225", k3),
+            ("pruned_codes", "scann_tpu/ops/pruned_lut.py:75", k4))]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc into ``_build/lib<name>.so``
 (a plain C interface, loaded with ctypes) the first time a kernel of it is
-launched, or ahead of time through ``build_all``.  Nothing here runs at
+launched, or ahead of time through ``build_all``; a library is rebuilt
+when its source or a header under ``csrc/`` is newer.  Nothing here runs at
 import time, so the CPU-only tests import every module without nvcc.
 """
 
@@ -28,6 +29,12 @@ SIGNATURES = {
     "pruned_sq": {
         "pruned_sq_score": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
     },
+    "pruned_lut": {
+        "pruned_lut_score": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
+    },
+    "pruned_codes": {
+        "pruned_codes_score": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()
@@ -49,17 +56,39 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
 def compile_command(name: str, output: str) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-o", output,
-            os.path.join(CSRC, f"{name}.cu")]
+            source_path(name)]
+
+
+def source_files(name: str) -> list:
+    """csrc/<name>.cu and every header under csrc/ (any kernel may include
+    any of them)."""
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith((".cuh", ".h")))
+    return [source_path(name)] + headers
+
+
+def is_stale(name: str) -> bool:
+    """True when lib<name>.so is missing or older than its source or a
+    header under csrc/."""
+    out = library_path(name)
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(f) > built for f in source_files(name))
 
 
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns
     the compiler's messages (empty when nothing was built)."""
     out = library_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    src = source_path(name)
+    if not is_stale(name):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

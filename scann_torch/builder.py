@@ -1,6 +1,6 @@
-"""Fluent builder (port of the tree + score_brute_force surface of
-scann_tpu/builder.py).  The methods for parts not ported yet raise
-NotImplementedError naming their ROADMAP item.
+"""Fluent builder (port of the tree, score_ah, score_brute_force and
+reorder surface of scann_tpu/builder.py).  The methods for parts not
+ported yet raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ class ScannBuilder:
         self.distance_measure = distance_measure
         self._partitioning: Optional[cfg.PartitioningConfig] = None
         self._bf: Optional[cfg.BruteForceConfig] = None
+        self._ah: Optional[cfg.AsymmetricHashConfig] = None
+        self._reorder: Optional[cfg.ReorderConfig] = None
         self.seed = 42
 
     def set_seed(self, seed: int) -> "ScannBuilder":
@@ -98,11 +100,42 @@ class ScannBuilder:
     def upper_tree(self, *args, **kwargs):
         base.not_ported("upper_tree", 14)
 
-    def score_ah(self, *args, **kwargs):
-        base.not_ported("score_ah (tree-AH)", 13)
+    def score_ah(self, dimensions_per_block,
+                 anisotropic_quantization_threshold=float("nan"),
+                 training_sample_size=100000, min_cluster_size=100,
+                 hash_type="lut16", training_iterations=10,
+                 quantization_scheme="product",
+                 variable_dims_per_block=None) -> "ScannBuilder":
+        """Configure asymmetric hashing (same arguments as the JAX
+        package; the factory raises for the settings not ported yet)."""
+        del min_cluster_size  # deprecated
+        if self._ah is not None:
+            raise ValueError("score_ah has already been configured")
+        self._ah = cfg.AsymmetricHashConfig(
+            dimensions_per_block=dimensions_per_block,
+            variable_dims_per_block=(
+                None if variable_dims_per_block is None
+                else tuple(int(w) for w in variable_dims_per_block)),
+            anisotropic_quantization_threshold=(
+                anisotropic_quantization_threshold),
+            training_sample_size=training_sample_size,
+            hash_type=hash_type,
+            training_iterations=training_iterations,
+            quantization_scheme=quantization_scheme)
+        return self
 
-    def reorder(self, *args, **kwargs):
-        base.not_ported("reorder", 12)
+    def reorder(self, reordering_num_neighbors, quantize=cfg.FLOAT32,
+                anisotropic_quantization_threshold=float("nan")
+                ) -> "ScannBuilder":
+        """Configure exact reordering of the best candidates."""
+        if self._reorder is not None:
+            raise ValueError("reorder has already been configured")
+        self._reorder = cfg.ReorderConfig(
+            reordering_num_neighbors=reordering_num_neighbors,
+            quantize=_quantize_name(quantize),
+            anisotropic_quantization_threshold=(
+                anisotropic_quantization_threshold))
+        return self
 
     def pca(self, *args, **kwargs):
         base.not_ported("pca projection", 16)
@@ -123,11 +156,21 @@ class ScannBuilder:
             raise ValueError(
                 "distance_measure must be one of ['dot_product',"
                 " 'squared_l2', 'cosine', 'l1']")
+        ah = self._ah
+        if ah is not None and ah.residual_quantization is None:
+            # Residual quantization is on for partitioned dot product.
+            residual = (self._partitioning is not None
+                        and cfg.internal_measure(self.distance_measure)
+                        == cfg.DOT_PRODUCT)
+            ah = cfg.AsymmetricHashConfig(
+                **{**ah.__dict__, "residual_quantization": residual})
         return cfg.ScannConfig(
             num_neighbors=self.num_neighbors,
             distance_measure=self.distance_measure,
             partitioning=self._partitioning,
+            asymmetric_hash=ah,
             brute_force=self._bf,
+            reordering=self._reorder,
             seed=self.seed)
 
     def build(self, docids=None):

@@ -33,15 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "survivors.cuh"
+
 namespace {
 
-constexpr int kQG = 128;      // queries per work group
+using survivors::kQG;
+using survivors::kSubp;
+
 constexpr int kTile = 256;    // slots per leaf tile (= threads per block)
-constexpr int kSubp = 32;     // slots per candidate group (= warp)
 constexpr int kGroups = kTile / kSubp;
 constexpr int kQChunk = 32;   // query columns accumulated per pass
-constexpr int kIdxBits = 5;
-constexpr int kIdMask = (1 << 9) - 1;
 
 __host__ __device__ inline int row_words(int d_pad) {
   return d_pad / 4 + 1;       // d_pad % 8 == 0, so this is odd
@@ -87,7 +88,7 @@ pruned_sq_kernel(const int32_t* __restrict__ work_tile,
   const int slot = threadIdx.x;
   const float sc = scale[static_cast<size_t>(tile) * kTile + slot] * smult;
   const float b = bias[static_cast<size_t>(tile) * kTile + slot];
-  const int ident = (t << kIdxBits) | lane;
+  const int ident = survivors::identity(t, lane);
   const int seg = kpg * kGroups;
   const size_t width = static_cast<size_t>(mnt) * seg;
   int32_t* obase = out + static_cast<size_t>(g) * kQG * width + t * seg + warp;
@@ -119,19 +120,10 @@ pruned_sq_kernel(const int32_t* __restrict__ work_tile,
     }
 #pragma unroll
     for (int j = 0; j < kQChunk; ++j) {
-      // Rounded multiply then add, never contracted to an fma: the low
-      // bits feed the identity packing and the selection.
-      const float s = __fadd_rn(__fmul_rn(acc[j], sc), b);
-      float pv = __int_as_float((__float_as_int(s) & ~kIdMask) | ident);
-      int32_t* o = obase + static_cast<size_t>(q0 + j) * width;
-      for (int p = 0; p < kpg; ++p) {
-        float m = pv;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (lane == 0) o[p * kGroups] = __float_as_int(m);
-        if (pv == m) pv = -INFINITY;  // values are distinct: one lane
-      }
+      const float pv =
+          survivors::pack(survivors::scale_bias(acc[j], sc, b), ident);
+      survivors::warp_top_kpg(pv, kpg, kGroups, lane,
+                              obase + static_cast<size_t>(q0 + j) * width);
     }
   }
 }

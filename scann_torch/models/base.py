@@ -1,8 +1,9 @@
 """Searcher base: the search pipeline (port of scann_tpu/models/base.py).
 
-``search_batched`` -> ``_select_candidates`` (per engine) -> final top-k,
-conversion to user distance, and INVALID / NaN padding.  Torch runs
-eagerly: a batch is enqueued on the device stream and ``PendingSearch``
+``search_batched`` -> ``_select_candidates`` (per engine) -> optional exact
+reordering of the best ``pre_reorder_num_neighbors`` (``ReorderHelper``) ->
+final top-k, conversion to user distance, and INVALID / NaN padding.  Torch
+runs eagerly: a batch is enqueued on the device stream and ``PendingSearch``
 copies the result to the host when asked.  Batches are not padded to
 power-of-two buckets (that bounded JAX recompilation); per-query results
 never depend on the batch they ride in.
@@ -65,6 +66,69 @@ def _row_quantize(delta):
     return q8, scale
 
 
+class ReorderHelper:
+    """Rescoring of candidate lists against a compressed copy of the
+    dataset: float32, bfloat16, or residual int8 (rows stored as per-row
+    int8 of x - c_primary_leaf; the exact f32 q.c_leaf is added back at
+    rescore time).  Non-residual int8 rows (per-dimension multipliers,
+    optionally noise-shaped) are not ported yet."""
+
+    def __init__(self, database, measure: str,
+                 reorder_cfg: cfg.ReorderConfig, residual_tokens=None,
+                 centers=None):
+        self.measure = measure
+        self.config = reorder_cfg
+        self._leaf = None
+        self._centers = None
+        self._row_scale = None
+        x = database.float()
+        if reorder_cfg.quantize == cfg.INT8:
+            if residual_tokens is None or centers is None:
+                not_ported("non-residual int8 reordering", 12)
+            tokens = torch.as_tensor(residual_tokens, device=x.device).to(
+                torch.int32)
+            c_rows = centers[tokens.long()]
+            q8, scale = _row_quantize(x - c_rows)
+            self._db = q8
+            self._row_scale = scale
+            self._leaf = tokens
+            self._centers = centers
+            # ||x_hat||^2 of the reconstructed row c + delta_hat (L2 path).
+            deq = q8.float() * scale[:, None] + c_rows
+            self._sq_norms = (deq * deq).sum(-1)
+        elif reorder_cfg.quantize == cfg.BFLOAT16:
+            self._db = x.to(torch.bfloat16)
+            self._sq_norms = (x * x).sum(-1)
+        else:
+            self._db = x
+            self._sq_norms = None
+
+    def rescore(self, queries, candidate_idx):
+        """(q, d) x (q, k_pre) -> (q, k_pre) exact similarities."""
+        if self._leaf is not None:
+            valid = candidate_idx >= 0
+            safe = torch.where(valid, candidate_idx, 0).long()
+            qd = dist_ops.one_to_many_gathered(
+                queries, self._db, candidate_idx, cfg.DOT_PRODUCT)
+            qd = qd * self._row_scale[safe]
+            qc = queries @ self._centers.T                   # (q, L)
+            bias = torch.gather(qc, 1, self._leaf[safe].long())
+            dots = torch.where(valid, qd + bias, float("-inf"))
+            if self.measure == cfg.DOT_PRODUCT:
+                return dots
+            q_sq = (queries * queries).sum(-1, keepdim=True)
+            sim = -torch.clamp_min(
+                q_sq - 2.0 * dots + self._sq_norms[safe], 0.0)
+            return torch.where(valid, sim, float("-inf"))
+        q, q_sq = queries, None
+        if self._db.dtype == torch.bfloat16:
+            q = queries.to(torch.bfloat16)
+            q_sq = (queries * queries).sum(-1)
+        return dist_ops.one_to_many_gathered(
+            q, self._db, candidate_idx, self.measure,
+            db_sq_norms=self._sq_norms, query_sq_norms=q_sq)
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for an entry point.  CUDA must be present when asked
     for: there is no silent fallback to the CPU."""
@@ -97,7 +161,8 @@ class Searcher:
     # Optional callable(stage_name), called on the host right after each
     # search stage has been enqueued ("tokenize", "plan", "score",
     # "merge" on the pruned path, "tokenize", "scan" on the dense scan,
-    # then "finish"); chip_smoke.py records CUDA events with it.
+    # then "reorder" when a reorder helper is set, then "finish");
+    # chip_smoke.py records CUDA events with it.
     stage_hook = None
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
@@ -107,6 +172,30 @@ class Searcher:
         self.n_points, self.dims = database.shape
         self._build_x_dev = torch.as_tensor(
             np.asarray(database, np.float32), device=device)
+        self.reorder_helper = None
+        self._reorder_deferred = False
+        ro = scann_config.reordering
+        if ro is not None:
+            if (ro.quantize == cfg.INT8 and ro.residual
+                    and scann_config.partitioning is not None):
+                # Residual int8 rows need the final primary tokens: the
+                # subclass build calls _finish_deferred_reorder.
+                self._reorder_deferred = True
+            else:
+                self.reorder_helper = ReorderHelper(
+                    self._build_x_dev,
+                    cfg.internal_measure(scann_config.distance_measure), ro)
+
+    def _finish_deferred_reorder(self, x_dev, tokens):
+        """Create the residual int8 reorder helper once the primary
+        tokenization exists."""
+        if not self._reorder_deferred:
+            return
+        self.reorder_helper = ReorderHelper(
+            x_dev, cfg.internal_measure(self.config.distance_measure),
+            self.config.reordering, residual_tokens=tokens,
+            centers=self.partitioner.centers)
+        self._reorder_deferred = False
 
     def _stage(self, name: str):
         if self.stage_hook is not None:
@@ -132,6 +221,9 @@ class Searcher:
         self.partitioner = self.partitioner._replace(
             centers=torch.as_tensor(centers_np, dtype=torch.float32,
                                     device=self.device))
+        if (self.reorder_helper is not None
+                and self.reorder_helper._leaf is not None):
+            self.reorder_helper._centers = self.partitioner.centers
         self.part_cfg = dataclasses.replace(
             self.part_cfg, num_leaves=centers_np.shape[0])
         self.config = dataclasses.replace(self.config,
@@ -143,6 +235,13 @@ class Searcher:
         sim, idx = self._select_candidates(queries, k_pre, leaves,
                                            full_scan=full_scan,
                                            restrict=restrict)
+        if self.reorder_helper is not None:
+            # Keep the best k_pre, rescore exactly, then take the final k.
+            if sim.shape[-1] > k_pre:
+                sim, pos = topk_ops.top_k(sim, k_pre)
+                idx = torch.gather(idx, -1, pos.long())
+            sim = self.reorder_helper.rescore(queries, idx)
+            self._stage("reorder")
         kk = min(k, sim.shape[-1])
         vals, pos = topk_ops.top_k(sim, kk)
         idx = torch.gather(idx, -1, pos.long())
@@ -164,7 +263,10 @@ class Searcher:
         k = self.config.num_neighbors
         if final_num_neighbors is not None and final_num_neighbors > 0:
             k = final_num_neighbors
-        k_pre = k
+        if self.reorder_helper is not None:
+            k_pre = self.reorder_helper.config.reordering_num_neighbors
+        else:
+            k_pre = k
         if (pre_reorder_num_neighbors is not None
                 and pre_reorder_num_neighbors > 0):
             k_pre = pre_reorder_num_neighbors

@@ -46,3 +46,34 @@ def similarity_to_user_distance(sim, measure):
     if measure == cfg.COSINE:
         return 1.0 - sim
     return -sim
+
+
+def one_to_many_gathered(queries, database, candidate_idx, measure,
+                         db_sq_norms=None, query_sq_norms=None):
+    """Exact scores of per-query candidate lists (the reordering product).
+
+    queries: (q, d); database: (n, d) of any float or int dtype;
+    candidate_idx: (q, k) int32, -1 = invalid (-inf similarity).  Rows are
+    gathered, converted to float32 and multiplied with their query in
+    float32."""
+    valid = candidate_idx >= 0
+    safe = torch.where(valid, candidate_idx, 0).long()
+    rows_f = database[safe.reshape(-1)].reshape(
+        candidate_idx.shape + (database.shape[-1],)).float()
+    q_f = queries.float()
+    dots = torch.bmm(rows_f, q_f[:, :, None])[:, :, 0]      # (q, k)
+    if measure == cfg.DOT_PRODUCT:
+        sim = dots
+    elif measure == cfg.SQUARED_L2:
+        if db_sq_norms is None:
+            row_sq = (rows_f * rows_f).sum(-1)
+        else:
+            row_sq = db_sq_norms[safe]
+        if query_sq_norms is None:
+            q_sq = (q_f * q_f).sum(-1, keepdim=True)
+        else:
+            q_sq = query_sq_norms[:, None]
+        sim = -torch.clamp_min(q_sq - 2.0 * dots + row_sq, 0.0)
+    else:
+        raise ValueError(f"unsupported distance measure: {measure}")
+    return torch.where(valid, sim, float("-inf"))

@@ -1,13 +1,15 @@
 """Index serialization: ``scann_config.json`` + ``scann_assets.npz``.
 
-Port of scann_tpu/utils/serialization.py for the two searchers the port
-serves: TreeXSearcher in residual-int8 mode and the float32
-BruteForceSearcher.  Keys, dtypes and the config/meta blob are the JAX
-package's, so each package loads the other's index: the port searches an
-index built by scann_tpu (the search parity tests), and scann_tpu loads an
-index built by the port.  Loading turns the numpy arrays into tensors on
-the requested device; index dtypes stay those of the files (int32 tables,
-int8 rows, f32 planes and centers).
+Port of scann_tpu/utils/serialization.py for the searchers the port
+serves: TreeAHSearcher (product codes with int8 / float32 lookup, with
+float32, bfloat16 or residual-int8 reordering), TreeXSearcher in
+residual-int8 mode and the float32 BruteForceSearcher.  Keys, dtypes and
+the config/meta blob are the JAX package's, so each package loads the
+other's index: the port searches an index built by scann_tpu (the search
+parity tests), and scann_tpu loads an index built by the port.  Loading
+turns the numpy arrays into tensors on the requested device; index dtypes
+stay those of the files (int32 tables, int8 rows, f32 planes and centers;
+bfloat16 reorder rows travel as their uint16 bit patterns).
 """
 
 from __future__ import annotations
@@ -40,13 +42,52 @@ def collect_assets(searcher):
     def put(key, arr):
         if arr is None:
             return
+        if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
+            # No numpy bfloat16: store the bit patterns.
+            arrays[key] = _to_numpy(arr.view(torch.int16)).view(np.uint16)
+            dtypes[key] = "bfloat16"
+            return
         a = _to_numpy(arr)
         arrays[key], dtypes[key] = a, str(a.dtype)
+
+    rh = getattr(searcher, "reorder_helper", None)
+    if rh is not None:
+        put("reorder_db", rh._db)
+        put("reorder_sq_norms", rh._sq_norms)
+        if rh._leaf is not None:
+            # Residual int8 reordering: the primary-leaf table and per-row
+            # dequant scales (centers reload from the partitioner assets).
+            put("reorder_leaf", rh._leaf)
+            put("reorder_row_scale", rh._row_scale)
+            meta["reorder_residual"] = True
 
     tname = meta["type"]
     if tname == "BruteForceSearcher":
         put("bf_db", searcher._db)
         put("bf_valid", searcher._valid)
+    elif tname == "TreeAHSearcher":
+        from scann_torch.utils import native
+        codes_np = searcher._host["codes"]
+        if searcher.ah_cfg.clusters_per_block == 16:
+            # 4-bit pair-packed on disk.
+            put("codes_packed", native.pack4(codes_np))
+        else:
+            put("codes", codes_np)
+        meta["num_blocks"] = int(codes_np.shape[1])
+        put("slot_dpid", searcher.index.slot_dpid)
+        put("slot_leaf", searcher.index.slot_leaf)
+        put("codebook", searcher.model.codebook)
+        put("datapoint_to_token",
+            np.asarray(searcher.datapoint_to_token, np.int32))
+        meta["model_dims"] = searcher.model.dims
+        meta["num_slots"] = searcher._num_slots
+        meta["chunk"] = searcher._chunk
+        meta["quantization_error_sq"] = searcher._quantization_error_sq
+        meta["encoded_slots"] = searcher._encoded_slots
+        put("centers", searcher.partitioner.centers)
+        meta["query_spilling_type"] = "fixed_number"
+        meta["query_spilling_threshold"] = 0.0
+        meta["upper_leaves_to_search"] = 1
     elif tname == "TreeXSearcher":
         put("slot_rows", searcher.slot_rows)
         put("slot_leaf", searcher.slot_leaf)
@@ -94,7 +135,8 @@ def load_searcher(artifacts_dir: str, device):
     with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
         arrays = {k: raw[k] for k in raw.files}
     for key, item in (("mut_vectors", 15), ("proj_matrix", 16),
-                      ("centers_int8", 14), ("upper_centers", 14)):
+                      ("centers_int8", 14), ("upper_centers", 14),
+                      ("block_dims", 16), ("reorder_inv_mult", 12)):
         if key in arrays:
             base.not_ported(f"index asset {key}", item)
     if meta.get("query_spilling_type", "fixed_number") != "fixed_number":
@@ -103,16 +145,24 @@ def load_searcher(artifacts_dir: str, device):
     def tensor(key):
         if key not in arrays:
             return None
-        tag = meta["dtypes"][key]
-        if tag == "bfloat16":
-            raise ValueError(f"unexpected bfloat16 asset {key}")
-        return torch.from_numpy(np.ascontiguousarray(arrays[key])).to(dev)
+        a = np.ascontiguousarray(arrays[key])
+        if meta["dtypes"][key] == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).to(dev).view(
+                torch.bfloat16)
+        return torch.from_numpy(a).to(dev)
+
+    def partitioner():
+        from scann_torch.partitioning import kmeans_tree
+        return kmeans_tree.KMeansTreePartitioner(
+            centers=tensor("centers"),
+            query_distance=cfg.internal_measure(
+                scann_config.distance_measure))
 
     tname = meta["type"]
     if tname == "BruteForceSearcher":
         from scann_torch.models import brute_force
         s = object.__new__(brute_force.BruteForceSearcher)
-        _init_base(s, scann_config, meta, dev)
+        _init_base(s, scann_config, meta, dev, tensor)
         s.quantize_mode = cfg.FLOAT32
         s._db = tensor("bf_db")
         s._valid = tensor("bf_valid")
@@ -120,14 +170,43 @@ def load_searcher(artifacts_dir: str, device):
             s._valid = torch.ones((s._db.shape[0],), dtype=torch.bool,
                                   device=dev)
         return s
+    if tname == "TreeAHSearcher":
+        from scann_torch.models import tree_ah
+        from scann_torch.ops import ah as ah_ops
+        from scann_torch.utils import native
+        s = object.__new__(tree_ah.TreeAHSearcher)
+        _init_base(s, scann_config, meta, dev, tensor)
+        s._init_config(scann_config)
+        if "codes_packed" in arrays:
+            codes_np = native.unpack4(arrays["codes_packed"],
+                                      meta["num_blocks"])
+        else:
+            codes_np = np.ascontiguousarray(arrays["codes"], np.uint8)
+        s.index = tree_ah.TreeAHIndex(codes=None,
+                                      slot_dpid=tensor("slot_dpid"),
+                                      slot_leaf=tensor("slot_leaf"))
+        s.model = ah_ops.AHModel(codebook=tensor("codebook"),
+                                 dims=meta["model_dims"])
+        s._num_slots = meta["num_slots"]
+        s._chunk = meta["chunk"]
+        s._quantization_error_sq = meta.get("quantization_error_sq", 0.0)
+        s._encoded_slots = meta.get("encoded_slots", 0)
+        s.datapoint_to_token = arrays["datapoint_to_token"]
+        s.partitioner = partitioner()
+        if s.reorder_helper is not None and s.reorder_helper._leaf is not None:
+            s.reorder_helper._centers = s.partitioner.centers
+        s._host = {"codes": codes_np,
+                   "leaf": np.asarray(arrays["slot_leaf"], np.int32),
+                   "dpid": np.asarray(arrays["slot_dpid"], np.int32)}
+        s._invalidate_pruned()
+        return s
     if tname == "TreeXSearcher":
         from scann_torch.models import tree_x
-        from scann_torch.partitioning import kmeans_tree
         if meta.get("tx_mode") != "residual_int8":
             base.not_ported("Tree-X float32/bfloat16/global-int8 leaves",
                              21)
         s = object.__new__(tree_x.TreeXSearcher)
-        _init_base(s, scann_config, meta, dev)
+        _init_base(s, scann_config, meta, dev, tensor)
         s.part_cfg = scann_config.partitioning
         s.measure = cfg.internal_measure(scann_config.distance_measure)
         s.quantize_mode = scann_config.brute_force.quantize
@@ -146,17 +225,29 @@ def load_searcher(artifacts_dir: str, device):
         s._p_max_ntiles = meta["max_ntiles"]
         s._p_num_tiles = meta["num_tiles"]
         s.datapoint_to_token = arrays["datapoint_to_token"]
-        s.partitioner = kmeans_tree.KMeansTreePartitioner(
-            centers=tensor("centers"),
-            query_distance=cfg.internal_measure(
-                scann_config.distance_measure))
+        s.partitioner = partitioner()
         return s
     raise ValueError(f"unknown searcher type in artifacts: {tname}")
 
 
-def _init_base(s, scann_config, meta, dev):
+def _init_base(s, scann_config, meta, dev, tensor):
+    from scann_torch.models import base
     s.config = scann_config
     s.device = dev
     s.n_points = meta["n_points"]
     s.dims = meta["dims"]
     s._build_x_dev = None
+    s._reorder_deferred = False
+    s.reorder_helper = None
+    if scann_config.reordering is not None:
+        rh = object.__new__(base.ReorderHelper)
+        rh.measure = cfg.internal_measure(scann_config.distance_measure)
+        rh.config = scann_config.reordering
+        rh._db = tensor("reorder_db")
+        rh._sq_norms = tensor("reorder_sq_norms")
+        rh._leaf = tensor("reorder_leaf")
+        rh._row_scale = tensor("reorder_row_scale")
+        # Residual mode biases against the partitioner centers, which the
+        # searcher branch sets once the partitioner is loaded.
+        rh._centers = None
+        s.reorder_helper = rh

@@ -22,6 +22,15 @@ def _configs():
                 quantize="int8").create_config(),
         "brute_force": b(db, 10, "dot_product").score_brute_force()
         .create_config(),
+        "tree_ah": b(db, 10, "dot_product").tree(
+            num_leaves=2000, num_leaves_to_search=100,
+            training_sample_size=250_000).score_ah(
+                2, anisotropic_quantization_threshold=0.2).reorder(
+                    100).create_config(),
+        "tree_ah_l2_int8": b(db, 10, "squared_l2").tree(
+            num_leaves=32, num_leaves_to_search=4).score_ah(
+                4, hash_type="lut256", training_sample_size=5000).reorder(
+                    50, quantize="int8").create_config(),
         "tree_ah_reorder": b(db, 10, "dot_product").tree(
             num_leaves=16, num_leaves_to_search=2, soar_lambda=1.5,
             query_spilling_type="additive").score_ah(
@@ -39,7 +48,7 @@ def _configs():
 
 @pytest.mark.parametrize("name", ["tree_sq", "tree_sq_l2", "brute_force",
                                   "tree_ah_reorder", "upper_tree_pca",
-                                  "autopilot"])
+                                  "autopilot", "tree_ah", "tree_ah_l2_int8"])
 def test_json_round_trip_both_ways(name):
     jax_cfg = _configs()[name]
     text = jax_cfg.to_json()
@@ -60,3 +69,24 @@ def test_port_builder_config_matches_jax_builder():
                   training_sample_size=250_000)
             .score_brute_force(quantize="int8").create_config())
     assert port.to_json() == _configs()["tree_sq"].to_json()
+
+
+def test_port_builder_tree_ah_config_matches_jax_builder():
+    """score_ah / reorder and the residual auto-on rule (on for partitioned
+    dot product, off under squared L2)."""
+    import numpy as np
+    import scann_torch
+    db = np.zeros((4, 8), np.float32)
+    port = (scann_torch.builder(db, 10, "dot_product", device="cpu")
+            .tree(num_leaves=2000, num_leaves_to_search=100,
+                  training_sample_size=250_000)
+            .score_ah(2, anisotropic_quantization_threshold=0.2)
+            .reorder(100).create_config())
+    assert port.to_json() == _configs()["tree_ah"].to_json()
+    assert port.asymmetric_hash.residual_quantization is True
+    port = (scann_torch.builder(db, 10, "squared_l2", device="cpu")
+            .tree(num_leaves=32, num_leaves_to_search=4)
+            .score_ah(4, hash_type="lut256", training_sample_size=5000)
+            .reorder(50, quantize="int8").create_config())
+    assert port.to_json() == _configs()["tree_ah_l2_int8"].to_json()
+    assert port.asymmetric_hash.residual_quantization is False

@@ -108,7 +108,7 @@ _UNPORTED = {
     "float32_leaves": lambda b: _tree(b).score_brute_force(),
     "int8_brute_force": lambda b: b.score_brute_force("int8"),
     "score_ah": lambda b: b.score_ah(2),
-    "reorder": lambda b: b.reorder(10),
+    "reorder": lambda b: b.score_brute_force().reorder(10),
     "pca": lambda b: b.pca(2),
     "autopilot": lambda b: b.autopilot(),
     "upper_tree": lambda b: b.upper_tree(2, 1),
