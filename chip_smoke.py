@@ -220,21 +220,29 @@ def k1_bound(plan, rows3, kpg):
 
 def ah_inputs(torch, searcher, queries, leaves, measure_l2):
     """The exact K3 / K4 inputs of the main path for this batch: (plan,
-    qg_rows, codes, cb_mat, mean, bias).  A squared-L2 case on a
-    dot-product index takes the mean of its decoded rows, as an L2 index
-    has, and centers the queries on it."""
+    qg_rows, codes, codebook table, squared norms (K3) or mean (K4),
+    bias).  A squared-L2 case on a dot-product index takes the mean of
+    its decoded rows, as an L2 index has, centers the queries on it and
+    derives the tables for it, as the searcher does once per index."""
+    from scann_torch.ops import pruned_lut
     searcher._ensure_pruned()
     plan = pruned_plan(torch, searcher, queries, leaves)
-    d_pad = searcher._p_cb.shape[-1]
     mean = searcher._p_mean
+    d_pad = mean.shape[0]
     if measure_l2 and searcher._recon_mean is None:
         mean = torch.zeros_like(mean)
         mean[:searcher.dims] = searcher._decode_mean()
     q = queries - mean[None, :searcher.dims]
     q_bf = torch.nn.functional.pad(q, (0, d_pad - q.shape[1])).to(
         torch.bfloat16)
-    return (plan, q_bf[plan.qg_query.long()], searcher._p_codes,
-            searcher._p_cb, mean, searcher._p_bias)
+    if searcher._int8_lut:
+        tables = pruned_lut.lut_tables(
+            searcher.model.codebook.to(mean.device), mean,
+            d_pad // searcher.model.dims_per_block, measure_l2=measure_l2)
+    else:
+        tables = (searcher._p_cb, mean)
+    return (plan, q_bf[plan.qg_query.long()], searcher._p_codes, *tables,
+            searcher._p_bias)
 
 
 def k3_bound(plan, codes3p, dpb, kpg):
@@ -242,8 +250,10 @@ def k3_bound(plan, codes3p, dpb, kpg):
     each distinct input once (active tiles' packed codes and bias, active
     groups' bf16 queries, the compact codebook and norms, the work tables)
     and each active output segment once.  Operations: the LUT product of
-    each active group at the bf16 tensor-core peak plus the one-hot x LUT
-    product of each active item at the int8 peak."""
+    each active group at the bf16 tensor-core peak plus one int8 LUT entry
+    added per (slot, block, query) of each active item at the int8 peak.
+    The lookup itself is a table read, no arithmetic: the one-hot matmul
+    the TPU kernel spends on it is not work the function needs."""
     n_active, tiles, groups = plan_counts(plan)
     tile, b2 = codes3p.shape[1], codes3p.shape[2]
     w, d_pad = b2 * 2 * 16, b2 * 2 * dpb
@@ -251,7 +261,7 @@ def k3_bound(plan, codes3p, dpb, kpg):
               + w * (dpb + 1) * 4 + plan.work_tile.shape[0] * 8
               + n_active * 128 * kpg * (tile // 32) * 4)
     t_ops = (2.0 * groups * w * 128 * dpb / BF16_FLOPS
-             + 2.0 * n_active * tile * w * 128 / INT8_OPS)
+             + 1.0 * n_active * tile * b2 * 2 * 128 / INT8_OPS)
     return _bound(nbytes, t_ops) + (n_active,)
 
 
@@ -397,9 +407,9 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
             tag = f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}"
             a3 = ah_inputs(torch, main, q_dev, LEAVES_TO_SEARCH, measure_l2)
             got = pruned_lut.score_work_lut(
-                *a3, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+                *a3, measure_l2=measure_l2, kpg=kpg)
             want = pruned_lut.score_work_torch_lut(
-                *a3, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+                *a3, measure_l2=measure_l2, kpg=kpg)
             torch.cuda.synchronize()
             err, ident = compare_packed(torch, "K3", got, want, a3[0])
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
@@ -410,7 +420,7 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
             a4 = ah_inputs(torch, main_f, q_dev, LEAVES_TO_SEARCH,
                            measure_l2)
             got = pruned_lut.score_work_codes(
-                *a4, dims_per_block=dpb, measure_l2=measure_l2, kpg=kpg)
+                *a4, measure_l2=measure_l2, kpg=kpg)
             want = pruned_lut.score_work_torch_codes(
                 *a4, measure_l2=measure_l2, kpg=kpg)
             torch.cuda.synchronize()
@@ -421,19 +431,17 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
                 f"agree {ident:.6f}")
             del got, want
             if not measure_l2 and kpg == 8:    # the main path's case
-                for rec, fn, plain, args, kw, bound in (
+                for rec, fn, plain, args, bound in (
                         (k3, pruned_lut.score_work_lut,
                          pruned_lut.score_work_torch_lut, a3,
-                         dict(dims_per_block=dpb),
                          k3_bound(a3[0], a3[2], dpb, kpg)),
                         (k4, pruned_lut.score_work_codes,
-                         pruned_lut.score_work_torch_codes, a4, {},
+                         pruned_lut.score_work_torch_codes, a4,
                          k4_bound(a4[0], a4[2], 16, dpb, kpg))):
                     rec["ms"] = time_ms(torch, lambda: fn(
-                        *args, dims_per_block=dpb, measure_l2=False,
-                        kpg=kpg))
+                        *args, measure_l2=False, kpg=kpg))
                     rec["plain_ms"] = time_ms(torch, lambda: plain(
-                        *args, measure_l2=False, kpg=kpg, **kw),
+                        *args, measure_l2=False, kpg=kpg),
                         reps=PLAIN_TIMING_REPS)
                     rec["bound_ms"], rec["bound_by"], n_act = bound
                     log(f"{fn.__name__} at leaves={LEAVES_TO_SEARCH}, "
@@ -450,8 +458,7 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
                                num_leaves=100, num_leaves_to_search=10,
                                training_sample_size=60_000), "cuda")
     a4 = ah_inputs(torch, small, q_dev[:2000], 10, True)
-    got = pruned_lut.score_work_codes(*a4, dims_per_block=4, measure_l2=True,
-                                      kpg=8)
+    got = pruned_lut.score_work_codes(*a4, measure_l2=True, kpg=8)
     want = pruned_lut.score_work_torch_codes(*a4, measure_l2=True, kpg=8)
     torch.cuda.synchronize()
     err, ident = compare_packed(torch, "K4 (256 centers)", got, want, a4[0],

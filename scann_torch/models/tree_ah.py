@@ -225,6 +225,7 @@ class TreeAHSearcher(base.Searcher):
         self._p_bias = None
         self._p_codes = None
         self._p_cb = None
+        self._p_csq = None
         self._p_mean = None
         self._p_dpid = None
         self._p_tile_start = None
@@ -255,8 +256,9 @@ class TreeAHSearcher(base.Searcher):
     def _ensure_pruned(self):
         """Build the tile-major per-leaf code layout of the pruned scorers
         on first use: pair-packed 4-bit codes for K3, one byte per block
-        (255 = padding) for K4, plus the expanded codebook, the pad-penalty
-        bias plane and the mean."""
+        (255 = padding) for K4, plus the scorer's compact codebook table
+        (centered, with its squared norms, for K3), the pad-penalty bias
+        plane and the mean."""
         if self._p_codes is not None:
             return
         h = self._host
@@ -286,8 +288,6 @@ class TreeAHSearcher(base.Searcher):
             codes3 = pruned_lut.pack_codes_tiles(
                 np.where((src >= 0)[:, None], rows,
                          pruned_lut._PAD_CODE).astype(np.uint8), num_tiles)
-        self._p_cb = torch.from_numpy(pruned_lut.expand_codebook(
-            self.model.codebook.cpu().numpy(), d_pad, b_pad)).to(dev)
         bias = np.where(dpid >= 0, 0.0, _PAD_PENALTY).astype(np.float32)
         self._p_bias = torch.from_numpy(
             bias.reshape(num_tiles, pruned_scan.TILE, 1)).to(dev)
@@ -295,6 +295,13 @@ class TreeAHSearcher(base.Searcher):
         if self._recon_mean is not None:
             mean[:self._recon_mean.shape[0]] = self._recon_mean
         self._p_mean = mean
+        codebook = self.model.codebook.to(dev)
+        if self._int8_lut:
+            self._p_cb, self._p_csq = pruned_lut.lut_tables(
+                codebook, mean, b_pad,
+                measure_l2=self.measure == cfg.SQUARED_L2)
+        else:
+            self._p_cb = pruned_lut.codes_table(codebook, b_pad)
         self._p_dpid = torch.from_numpy(dpid.astype(np.int32)).to(dev)
         self._p_tile_start = torch.from_numpy(tile_start).to(dev)
         self._p_ntiles = torch.from_numpy(ntiles).to(dev)
@@ -402,7 +409,7 @@ class TreeAHSearcher(base.Searcher):
         q_c = queries
         if self._recon_mean is not None:
             q_c = queries - self._recon_mean[None, :]
-        d_pad = self._p_cb.shape[-1]
+        d_pad = self._p_mean.shape[0]
         q_bf = torch.nn.functional.pad(
             q_c, (0, d_pad - q_c.shape[1])).to(torch.bfloat16)
         merge_hot = pruned_scan.HOT_LEAVES
@@ -442,15 +449,14 @@ class TreeAHSearcher(base.Searcher):
         if self._kpg_override:
             kpg = self._kpg_override
         self._stage("plan")
-        dpb = self.model.dims_per_block
         if self._int8_lut:
             packed = pruned_lut.score_work_lut(
-                plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
-                p_bias, dims_per_block=dpb, measure_l2=l2, kpg=kpg)
+                plan, qg_rows, self._p_codes, self._p_cb, self._p_csq,
+                p_bias, measure_l2=l2, kpg=kpg)
         else:
             packed = pruned_lut.score_work_codes(
                 plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
-                p_bias, dims_per_block=dpb, measure_l2=l2, kpg=kpg)
+                p_bias, measure_l2=l2, kpg=kpg)
         self._stage("score")
         cand_vals, cand_slots = pruned_scan.merge_candidates(
             plan, packed, leaf_ids, valid_sel, self._p_tile_start,

@@ -84,28 +84,35 @@ def expand_codebook(codebook, d_pad: int, b_pad: int) -> np.ndarray:
     return out
 
 
-def _centered_cb(cb_mat, mean, dims_per_block: int):
-    """Centered decode matrix and its per-row squared norms: row (j, c) is
-    center c of block j minus the mean on block j's dimensions.  Pad-block
-    rows stay exactly zero (the mean is zero on their dimensions)."""
-    w, d_pad = cb_mat.shape
-    dev = cb_mat.device
-    row_block = torch.arange(w, device=dev) // _LUT_CENTERS
-    dim_block = torch.arange(d_pad, device=dev) // dims_per_block
-    mask = row_block[:, None] == dim_block[None, :]
-    cb_c = cb_mat - torch.where(mask, mean[None, :], 0.0)
-    csq = (cb_c * cb_c).sum(dim=1, keepdim=True)
-    return cb_c, csq
+def _padded_blocks(codebook, b_pad: int):
+    """(B, C, dpb) codebook -> (b_pad, C, dpb) f32 with zero tail blocks."""
+    cb = codebook.to(torch.float32)
+    return torch.nn.functional.pad(cb, (0, 0, 0, 0, 0, b_pad - cb.shape[0]))
 
 
-def _compact(cb_mat, cpb: int, dims_per_block: int):
-    """(b_pad*cpb, d_pad) decode matrix -> (b_pad*cpb, dpb): each row's own
-    block of dimensions (everything else in the row is zero)."""
-    w = cb_mat.shape[0]
-    dev = cb_mat.device
-    cols = ((torch.arange(w, device=dev) // cpb) * dims_per_block)[:, None] \
-        + torch.arange(dims_per_block, device=dev)[None, :]
-    return torch.gather(cb_mat, 1, cols).contiguous()
+def lut_tables(codebook, mean, b_pad: int, *, measure_l2: bool):
+    """The K3 tables of one index, computed once when its layout is built:
+    the compact centered codebook (b_pad*16, dpb) f32 holding bf16 values
+    (row j*16 + c is center c of block j minus the mean on block j's
+    dimensions) and the squared norms (b_pad*16,) of the unrounded centered
+    rows (zero under dot product, where the LUT has no norm term).
+    Pad-block rows stay exactly zero: the mean is zero on their
+    dimensions.  The same values as the JAX package's _centered_cb on the
+    expanded codebook, without its zero columns."""
+    cb = _padded_blocks(codebook, b_pad)
+    cb_c = cb - mean.reshape(b_pad, 1, cb.shape[2])
+    csq = (cb_c * cb_c).sum(dim=2).reshape(-1)
+    if not measure_l2:
+        csq = torch.zeros_like(csq)
+    cb_k = cb_c.to(torch.bfloat16).float().reshape(-1, cb.shape[2])
+    return cb_k.contiguous(), csq.contiguous()
+
+
+def codes_table(codebook, b_pad: int):
+    """The K4 table of one index: the compact bf16-rounded codebook
+    (b_pad*cpb, dpb) f32, row j*cpb + c = center c of block j."""
+    cb = _padded_blocks(codebook, b_pad)
+    return cb.to(torch.bfloat16).float().reshape(-1, cb.shape[2]).contiguous()
 
 
 def _finish(out, w_pad: int, mnt: int, kpg: int):
@@ -114,13 +121,13 @@ def _finish(out, w_pad: int, mnt: int, kpg: int):
             .reshape(g, ps.QG, mnt * kpg * ps.GP))
 
 
-def score_work_torch_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
-                         dims_per_block: int, measure_l2: bool,
-                         kpg: int = ps.KPG, work_chunk: int = _WORK_CHUNK):
+def score_work_torch_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
+                         measure_l2: bool, kpg: int = ps.KPG,
+                         work_chunk: int = _WORK_CHUNK):
     """Plain torch version of the K3 scorer (twin of the JAX package's
-    score_work_xla_lut, which takes the query groups transposed).
-    qg_rows: (G_pad, QG, d_pad) bf16; codes3p: (num_tiles, TILE, b_pad/2)
-    uint8; cb_mat: (b_pad*16, d_pad) f32; mean: (d_pad,) f32; bias:
+    score_work_xla_lut, which takes the query groups transposed and the
+    expanded codebook).  qg_rows: (G_pad, QG, d_pad) bf16; codes3p:
+    (num_tiles, TILE, b_pad/2) uint8; cb_k, csq: lut_tables(); bias:
     (num_tiles, TILE[, 1]) f32.  The LUT sums bf16 x bf16 products, exact
     in f32; with two dimensions per block a LUT entry is one rounded sum
     and order-free, so the int8 LUT and the packed output are bit-equal to
@@ -131,12 +138,10 @@ def score_work_torch_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
     mnt = w_pad // plan.qg_query.shape[0]
     scale = 2.0 if measure_l2 else 1.0
     b_pad = codes3p.shape[-1] * 2
+    dpb = cb_k.shape[1]
     dev = codes3p.device
     bias2 = bias.reshape(bias.shape[0], -1)
-    cb_c, csq = _centered_cb(cb_mat, mean, dims_per_block)
-    if not measure_l2:
-        csq = torch.zeros_like(csq)
-    cb_bf = cb_c.to(torch.bfloat16).float()
+    cb3 = cb_k.reshape(b_pad, _LUT_CENTERS, dpb)
     centers = torch.arange(_LUT_CENTERS, dtype=torch.int32, device=dev)
     c127 = torch.tensor(127.0, device=dev)
     out = torch.empty((w_pad, ps.QG, kpg * ps.GP), dtype=torch.int32,
@@ -146,9 +151,10 @@ def score_work_torch_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
         wt = plan.work_tile[s0:s0 + work_chunk].long()
         wq = plan.work_qg[s0:s0 + work_chunk].long()
         c = wt.shape[0]
-        q = qg_rows[wq].float()                          # (C, QG, d)
-        lutf = torch.matmul(cb_bf, q.transpose(1, 2))    # (C, W, QG)
-        lutf = scale * lutf - csq[None]
+        q = qg_rows[wq].float().reshape(c, ps.QG, b_pad, dpb)
+        lutf = torch.einsum("bkd,nqbd->nbkq", cb3, q).reshape(
+            c, b_pad * _LUT_CENTERS, ps.QG)              # (C, W, QG)
+        lutf = scale * lutf - csq[None, :, None]
         m = torch.clamp_min(lutf.abs().amax(dim=1, keepdim=True), 1e-20)
         # A true division: torch evaluates scalar / tensor as a reciprocal
         # times the scalar, which rounds differently.
@@ -167,26 +173,25 @@ def score_work_torch_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
     return _finish(out, w_pad, mnt, kpg)
 
 
-def score_work_torch_codes(plan, qg_rows, codes3, cb_mat, mean, bias, *,
+def score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
                            measure_l2: bool, kpg: int = ps.KPG,
                            work_chunk: int = _WORK_CHUNK):
     """Plain torch version of the K4 scorer (twin of the JAX package's
-    score_work_xla_codes).  codes3: (num_tiles, TILE, b_pad) uint8; cb_mat:
-    (b_pad*cpb, d_pad) f32 (cpb 16 or 256); the rest as for K3.  A row is
-    the sum of its blocks' bf16 codebook rows (disjoint dimensions, so the
-    sum is exact) minus the mean; the f32 sum over d_pad of the scores is
+    score_work_xla_codes).  codes3: (num_tiles, TILE, b_pad) uint8; cb_k:
+    codes_table() (16 or 256 centers per block); mean: (d_pad,) f32; the
+    rest as for K3.  A row is its blocks' bf16 codebook rows side by side
+    minus the mean; the f32 sum over d_pad of the scores is
     order-dependent, so values agree with the kernel and with the JAX
     package to ~2^-14 relative, not bit for bit."""
     w_pad = plan.work_tile.shape[0]
     mnt = w_pad // plan.qg_query.shape[0]
     b_pad = codes3.shape[-1]
-    w = cb_mat.shape[0]
+    w, dpb = cb_k.shape
     cpb = w // b_pad
     dev = codes3.device
     bias2 = bias.reshape(bias.shape[0], -1)
     # One extra zero row: what a code >= cpb (padding) decodes to.
-    table = torch.cat([cb_mat.to(torch.bfloat16).float(),
-                       torch.zeros((1, cb_mat.shape[1]), device=dev)])
+    table = torch.cat([cb_k, torch.zeros((1, dpb), device=dev)])
     block0 = torch.arange(b_pad, dtype=torch.int64, device=dev) * cpb
     out = torch.empty((w_pad, ps.QG, kpg * ps.GP), dtype=torch.int32,
                       device=dev)
@@ -195,11 +200,9 @@ def score_work_torch_codes(plan, qg_rows, codes3, cb_mat, mean, bias, *,
         wt = plan.work_tile[s0:s0 + work_chunk].long()
         wq = plan.work_qg[s0:s0 + work_chunk].long()
         c = wt.shape[0]
-        codes = codes3[wt].long().reshape(c * ps.TILE, b_pad)
-        rows = torch.where(codes < cpb, block0[None, :] + codes, w)
-        recon = torch.nn.functional.embedding_bag(
-            rows, table, mode="sum").reshape(c, ps.TILE, -1)
-        recon = recon - mean[None, None, :]
+        codes = codes3[wt].long()                        # (C, TILE, b_pad)
+        rows = torch.where(codes < cpb, block0 + codes, w)
+        recon = table[rows].reshape(c, ps.TILE, b_pad * dpb) - mean
         q = qg_rows[wq].float()
         s = torch.bmm(recon.to(torch.bfloat16).float(), q.transpose(1, 2))
         if measure_l2:
@@ -244,16 +247,15 @@ def codes_smem_bytes(d_pad: int) -> int:
     return ps.QG * d_pad * 4 + ps.TILE * (d_pad // 2 + 1) * 4
 
 
-def score_work_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
-                   dims_per_block: int, measure_l2: bool,
-                   kpg: int = ps.KPG):
+def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
+                   measure_l2: bool, kpg: int = ps.KPG):
     """K3 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU).  Centering
-    the codebook and its squared norms are wrapper work here as in the JAX
-    package; the LUT product itself runs inside the kernel."""
+    the CUDA kernel (or raise: there is no fallback on the GPU).  cb_k and
+    csq are the index's lut_tables() (centering the codebook is done once
+    per index; the JAX package does it per call, outside its kernel); the
+    LUT product itself runs inside the kernel."""
     if codes3p.device.type == "cpu":
-        return score_work_torch_lut(plan, qg_rows, codes3p, cb_mat, mean,
-                                    bias, dims_per_block=dims_per_block,
+        return score_work_torch_lut(plan, qg_rows, codes3p, cb_k, csq, bias,
                                     measure_l2=measure_l2, kpg=kpg)
     if codes3p.device.type != "cuda":
         raise ValueError(f"unsupported device {codes3p.device}")
@@ -262,7 +264,6 @@ def score_work_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
     dev = codes3p.device
     num_tiles, tile, b2 = codes3p.shape
     b_pad = b2 * 2
-    d_pad = b_pad * dims_per_block
     if b_pad % _BLK:
         raise ValueError(f"b_pad {b_pad} must be a multiple of {_BLK}")
     if lut_smem_bytes(b_pad) > _SMEM_LIMIT:
@@ -270,18 +271,14 @@ def score_work_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
             f"{b_pad} code blocks need {lut_smem_bytes(b_pad)} B of shared "
             f"memory for the int8 LUT, over the {_SMEM_LIMIT} B a block may "
             f"use")
+    dims_per_block = cb_k.shape[1]
+    d_pad = b_pad * dims_per_block
     g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3p, bias, kpg,
                                        d_pad, dev)
     _check("codes3p", codes3p, torch.uint8, (num_tiles, tile, b2), dev)
-    _check("cb_mat", cb_mat, torch.float32, (b_pad * _LUT_CENTERS, d_pad),
-           dev)
-    _check("mean", mean, torch.float32, (d_pad,), dev)
-    cb_c, csq = _centered_cb(cb_mat, mean, dims_per_block)
-    if not measure_l2:
-        csq = torch.zeros_like(csq)
-    cb_k = _compact(cb_c.to(torch.bfloat16).float(), _LUT_CENTERS,
-                    dims_per_block)
-    csq = csq.reshape(-1).contiguous()
+    _check("cb_k", cb_k, torch.float32,
+           (b_pad * _LUT_CENTERS, dims_per_block), dev)
+    _check("csq", csq, torch.float32, (b_pad * _LUT_CENTERS,), dev)
     out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     lib = _cuda.library("pruned_lut")
@@ -300,13 +297,13 @@ def score_work_lut(plan, qg_rows, codes3p, cb_mat, mean, bias, *,
     return out
 
 
-def score_work_codes(plan, qg_rows, codes3, cb_mat, mean, bias, *,
-                     dims_per_block: int, measure_l2: bool,
-                     kpg: int = ps.KPG):
+def score_work_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
+                     measure_l2: bool, kpg: int = ps.KPG):
     """K4 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU)."""
+    the CUDA kernel (or raise: there is no fallback on the GPU).  cb_k is
+    the index's codes_table()."""
     if codes3.device.type == "cpu":
-        return score_work_torch_codes(plan, qg_rows, codes3, cb_mat, mean,
+        return score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean,
                                       bias, measure_l2=measure_l2, kpg=kpg)
     if codes3.device.type != "cuda":
         raise ValueError(f"unsupported device {codes3.device}")
@@ -314,8 +311,8 @@ def score_work_codes(plan, qg_rows, codes3, cb_mat, mean, bias, *,
     from scann_torch import _cuda
     dev = codes3.device
     num_tiles, tile, b_pad = codes3.shape
+    w, dims_per_block = cb_k.shape
     d_pad = b_pad * dims_per_block
-    w = cb_mat.shape[0]
     cpb = w // b_pad
     if b_pad % _BLK or cpb not in (16, 256) or cpb * b_pad != w:
         raise ValueError(f"unsupported codes: b_pad {b_pad} (needs a "
@@ -328,9 +325,8 @@ def score_work_codes(plan, qg_rows, codes3, cb_mat, mean, bias, *,
     g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3, bias, kpg,
                                        d_pad, dev)
     _check("codes3", codes3, torch.uint8, (num_tiles, tile, b_pad), dev)
-    _check("cb_mat", cb_mat, torch.float32, (w, d_pad), dev)
+    _check("cb_k", cb_k, torch.float32, (w, dims_per_block), dev)
     _check("mean", mean, torch.float32, (d_pad,), dev)
-    cb_k = _compact(cb_mat.to(torch.bfloat16).float(), cpb, dims_per_block)
     out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     lib = _cuda.library("pruned_codes")

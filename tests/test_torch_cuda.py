@@ -140,8 +140,7 @@ def _ah_case(dev, seed, cpb, dpb, l2, b=50, nl=40, nq=300, l=6):
     q = np.zeros((nq, d_pad), np.float32)
     q[:, :b * dpb] = r.standard_normal((nq, b * dpb))
     qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
-    cb_mat = t(pruned_lut.expand_codebook(cb, d_pad, b_pad))
-    return plan, qg, codes, pad_slot, cb_mat, t(mean), t(bias), num_tiles
+    return plan, qg, codes, pad_slot, t(cb), t(mean), t(bias), num_tiles
 
 
 def _active_pair(plan, got, want, kpg):
@@ -155,17 +154,18 @@ def _active_pair(plan, got, want, kpg):
 @pytest.mark.parametrize("measure_l2", [False, True])
 @pytest.mark.parametrize("kpg", [8, 16])
 def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg):
-    plan, qg, codes, pad, cb_mat, mean, bias, nt = _ah_case(
+    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(
         cuda, 20 + kpg + measure_l2, 16, 2, measure_l2)
     codes3p = torch.as_tensor(pruned_lut.pack_codes_nibble(
         np.where(pad[:, None], 0, codes).astype(np.uint8), nt), device=cuda)
-    args = (plan, qg, codes3p, cb_mat, mean, bias)
+    cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3p.shape[-1] * 2,
+                                      measure_l2=measure_l2)
+    args = (plan, qg, codes3p, cb_k, csq, bias)
     before = pruned_lut.launches_lut
-    got = pruned_lut.score_work_lut(*args, dims_per_block=2,
-                                    measure_l2=measure_l2, kpg=kpg)
+    got = pruned_lut.score_work_lut(*args, measure_l2=measure_l2, kpg=kpg)
     assert pruned_lut.launches_lut == before + 1
-    want = pruned_lut.score_work_torch_lut(*args, dims_per_block=2,
-                                           measure_l2=measure_l2, kpg=kpg)
+    want = pruned_lut.score_work_torch_lut(*args, measure_l2=measure_l2,
+                                           kpg=kpg)
     torch.cuda.synchronize()
     a, b = _active_pair(plan, got, want, kpg)
     assert a.numel() and torch.equal(a, b)
@@ -175,15 +175,15 @@ def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg):
 @pytest.mark.parametrize("cpb,dpb,b,kpg", [(16, 2, 50, 8), (16, 2, 50, 16),
                                             (256, 4, 25, 8)])
 def test_k4_kernel_matches_plain_version(cuda, measure_l2, cpb, dpb, b, kpg):
-    plan, qg, codes, pad, cb_mat, mean, bias, nt = _ah_case(
+    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(
         cuda, 40 + cpb + kpg + measure_l2, cpb, dpb, measure_l2, b=b)
     codes3 = torch.as_tensor(pruned_lut.pack_codes_tiles(
         np.where(pad[:, None], 255, codes).astype(np.uint8), nt),
         device=cuda)
-    args = (plan, qg, codes3, cb_mat, mean, bias)
+    args = (plan, qg, codes3,
+            pruned_lut.codes_table(cb, codes3.shape[-1]), mean, bias)
     before = pruned_lut.launches_codes
-    got = pruned_lut.score_work_codes(*args, dims_per_block=dpb,
-                                      measure_l2=measure_l2, kpg=kpg)
+    got = pruned_lut.score_work_codes(*args, measure_l2=measure_l2, kpg=kpg)
     assert pruned_lut.launches_codes == before + 1
     want = pruned_lut.score_work_torch_codes(*args, measure_l2=measure_l2,
                                              kpg=kpg)
@@ -195,17 +195,21 @@ def test_k4_kernel_matches_plain_version(cuda, measure_l2, cpb, dpb, b, kpg):
 
 
 def test_k3_k4_wrappers_reject_bad_inputs(cuda):
-    plan, qg, codes, pad, cb_mat, mean, bias, nt = _ah_case(cuda, 7, 16, 2,
-                                                            False)
+    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(cuda, 7, 16, 2,
+                                                        False)
     codes3 = torch.as_tensor(pruned_lut.pack_codes_tiles(codes, nt),
                              device=cuda)
     with pytest.raises(ValueError, match="qg_rows"):
-        pruned_lut.score_work_codes(plan, qg.float(), codes3, cb_mat, mean,
-                                    bias, dims_per_block=2, measure_l2=False)
+        pruned_lut.score_work_codes(
+            plan, qg.float(), codes3,
+            pruned_lut.codes_table(cb, codes3.shape[-1]), mean, bias,
+            measure_l2=False)
     wide = torch.zeros((1, 512, 104 // 2), dtype=torch.uint8, device=cuda)
+    cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3.shape[-1],
+                                      measure_l2=False)
     with pytest.raises(ValueError, match="shared memory"):
-        pruned_lut.score_work_lut(plan, qg, wide, cb_mat, mean, bias,
-                                  dims_per_block=2, measure_l2=False)
+        pruned_lut.score_work_lut(plan, qg, wide, cb_k, csq, bias,
+                                  measure_l2=False)
 
 
 @pytest.mark.parametrize("measure,lookup,reorder", [

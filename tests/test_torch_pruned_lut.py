@@ -10,8 +10,12 @@ set aside: a score of exactly 0 becomes a denormal once its identity is
 packed, and XLA's CPU backend flushes denormals to zero, which drops the
 identity and masks every such slot of the group at once; torch and the
 CUDA kernel keep denormals.  Candidate groups that hold such a survivor
-(a few percent of the random cases here, whose
-integer sums cluster around zero) are left out of the comparison.  K4: unpacked
+(2 to 8 percent of the random cases here, whose integer sums cluster
+around zero) are left out of the comparison with the JAX package.  That
+the fault is the reference's is shown, not assumed: a numpy recomputation
+that selects by integer comparison (_k3_numpy) equals the port on every
+group, those included, and wherever the JAX package differs from it the
+JAX output holds an all-zero word, the flushed survivor.  K4: unpacked
 values within rtol 2^-14 (the <= 2^-15 identity perturbation plus the
 order of the f32 sum over the dimensions; atol 1e-5 for squared-L2 scores
 2 dot - ||x||^2 that cancel to near zero from terms of order 10) and
@@ -59,14 +63,23 @@ def test_expand_and_centered_codebook_equal(cpb, dpb):
         mean = np.zeros(d_pad, np.float32)
         mean[:b * dpb] = r.standard_normal(b * dpb)
         wc, ws = jpl._centered_cb(jnp.asarray(want), jnp.asarray(mean), dpb)
-        gc, gs = tpl._centered_cb(torch.from_numpy(got),
-                                  torch.from_numpy(mean), dpb)
-        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
-        np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-6)
-        compact = tpl._compact(gc, 16, dpb).numpy().reshape(b_pad, 16, dpb)
-        np.testing.assert_array_equal(compact[:b], cb - mean[:b * dpb]
-                                      .reshape(b, 1, dpb))
-        assert not compact[b:].any()
+        wc = np.asarray(wc.astype(jnp.bfloat16).astype(jnp.float32))
+        for l2 in (False, True):
+            cb_k, csq = tpl.lut_tables(torch.from_numpy(cb),
+                                       torch.from_numpy(mean), b_pad,
+                                       measure_l2=l2)
+            # The compact table is the expanded one without its zeros.
+            np.testing.assert_array_equal(
+                tpl.expand_codebook(cb_k.numpy().reshape(b_pad, 16, dpb),
+                                    d_pad, b_pad), wc)
+            np.testing.assert_allclose(
+                csq.numpy(), np.asarray(ws)[:, 0] if l2 else 0.0, rtol=1e-6)
+        assert not cb_k.numpy()[b * 16:].any()
+    table = tpl.codes_table(torch.from_numpy(cb), b_pad).numpy()
+    np.testing.assert_array_equal(
+        tpl.expand_codebook(table.reshape(b_pad, cpb, dpb), d_pad, b_pad),
+        np.asarray(jnp.asarray(want).astype(jnp.bfloat16)
+                   .astype(jnp.float32)))
 
 
 def _case(seed, small, cpb, dpb, l2):
@@ -114,7 +127,8 @@ def _case(seed, small, cpb, dpb, l2):
     return dict(tplan=tplan, jplan=jplan, qg_t=qg_t, qg_j=qg_j,
                 codes=codes, pad_slot=pad_slot,
                 bias=bias.reshape(num_tiles, TILE, 1), cb_mat=cb_mat,
-                mean=mean, num_tiles=num_tiles)
+                cb=torch.from_numpy(cb), b_pad=b_pad, mean=mean,
+                num_tiles=num_tiles)
 
 
 def _active(packed, plan, kpg):
@@ -131,11 +145,64 @@ def _by_group(active, kpg):
     return active.reshape(n, qg, kpg, 16).transpose(0, 1, 3, 2)
 
 
-def _no_zero_scores(active, kpg):
-    """(n, QG, 16) mask of candidate groups none of whose survivors has a
-    score of exactly zero (see the module note)."""
-    return ((_by_group(active, kpg) & ~np.int32(511)
-             & np.int32(0x7FFFFFFF)) != 0).all(-1)
+def _bf16(x):
+    """float32 -> nearest-even bfloat16 value, held in float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _k3_numpy(c, codes, l2, kpg):
+    """K3 at two dimensions per block recomputed in numpy float32 from the
+    raw codebook and codes, every rounding step written out, and the top
+    kpg of each 32-slot group chosen by integer comparison of the packed
+    bits, so no floating-point mode (such as a flush of denormals) can
+    touch an identity.  Returns the active survivors as
+    (n, QG, 16 groups, kpg)."""
+    f32 = np.float32
+    plan, b_pad = c["tplan"], c["b_pad"]
+    cb = np.zeros((b_pad, 16, 2), f32)
+    cb[:c["cb"].shape[0]] = c["cb"].numpy()
+    cb_c = cb - c["mean"].reshape(b_pad, 1, 2)
+    csq = (cb_c[..., 0] * cb_c[..., 0] + cb_c[..., 1] * cb_c[..., 1]
+           if l2 else np.zeros((b_pad, 16), f32))
+    cb_bf = _bf16(cb_c)
+    full = np.zeros((codes.shape[0], b_pad), np.int64)
+    full[:, :codes.shape[1]] = codes
+    full = full.reshape(c["num_tiles"], TILE, b_pad)
+    bias = c["bias"].reshape(c["num_tiles"], TILE)
+    q = c["qg_t"].float().numpy()
+    work_tile, work_qg, work_active = (
+        np.asarray(a) for a in (plan.work_tile, plan.work_qg,
+                                plan.work_active))
+    mnt = work_tile.shape[0] // q.shape[0]
+    sub = np.arange(TILE, dtype=np.int32) % 32
+    out = []
+    for w in np.nonzero(work_active == 1)[0]:
+        qq = q[work_qg[w]].reshape(128, b_pad, 1, 2)
+        lutf = cb_bf[None, ..., 0] * qq[..., 0] + cb_bf[None, ..., 1] * qq[
+            ..., 1]                                       # (QG, b_pad, 16)
+        lutf = f32(2.0 if l2 else 1.0) * lutf - csq[None]
+        m = np.maximum(np.abs(lutf).max(axis=(1, 2)), f32(1e-20))
+        lut = np.clip(np.rint(lutf * (f32(127.0) / m)[:, None, None]),
+                      -127, 127).astype(np.int32)
+        ct = full[work_tile[w]]                           # (TILE, b_pad)
+        acc = lut[:, np.arange(b_pad)[None, :], ct].sum(-1)   # (QG, TILE)
+        s = acc.astype(f32) * (m * f32(1.0 / 127.0))[:, None] \
+            + bias[work_tile[w]][None, :]
+        assert lutf.dtype == f32 and s.dtype == f32
+        bits = (s.view(np.int32) & ~np.int32(511)) | (
+            np.int32((w % mnt) << 5) | sub)[None, :]
+        bits = bits.reshape(128, 16, 32)
+        key = (bits ^ ((bits >> 31) & np.int32(0x7FFFFFFF))).astype(np.int64)
+        top = np.argsort(-key, axis=-1)[..., :kpg]
+        out.append(np.take_along_axis(bits, top, axis=-1))
+    return np.stack(out)
+
+
+# Least share of candidate groups without a zero-score survivor over the
+# cases below (observed 0.9183 to 0.9912); a growing exclusion fails.
+K3_MIN_KEPT = 0.91
 
 
 @pytest.mark.parametrize("l2", [False, True], ids=["dot", "l2"])
@@ -143,14 +210,13 @@ def _no_zero_scores(active, kpg):
 @pytest.mark.parametrize("small", [False, True], ids=["invert", "small"])
 def test_k3_plain_version_bit_equal(l2, kpg, small):
     c = _case(11 + kpg + 2 * l2 + small, small, 16, 2, l2)
-    codes3p = jpl.pack_codes_nibble(
-        np.where(c["pad_slot"][:, None], 0, c["codes"]).astype(np.uint8),
-        c["num_tiles"])
+    codes = np.where(c["pad_slot"][:, None], 0, c["codes"]).astype(np.uint8)
+    codes3p = jpl.pack_codes_nibble(codes, c["num_tiles"])
     got = tpl.score_work_lut(
         c["tplan"], c["qg_t"], torch.from_numpy(codes3p),
-        torch.from_numpy(c["cb_mat"]), torch.from_numpy(c["mean"]),
-        torch.from_numpy(c["bias"]), dims_per_block=2, measure_l2=l2,
-        kpg=kpg)
+        *tpl.lut_tables(c["cb"], torch.from_numpy(c["mean"]), c["b_pad"],
+                        measure_l2=l2),
+        torch.from_numpy(c["bias"]), measure_l2=l2, kpg=kpg)
     assert got.dtype == torch.int32
     jargs = (c["jplan"], jnp.swapaxes(c["qg_j"], 1, 2), jnp.asarray(codes3p),
              jnp.asarray(c["cb_mat"]), jnp.asarray(c["mean"]),
@@ -161,14 +227,22 @@ def test_k3_plain_version_bit_equal(l2, kpg, small):
                                             measure_l2=l2, interpret=True,
                                             kpg=kpg)
     assert got.shape == tuple(want_xla.shape)
-    g = _active(got.numpy(), c["tplan"], kpg)
+    g = _by_group(_active(got.numpy(), c["tplan"], kpg), kpg)
     assert g.size
+    # The witness: the port is bit-equal to the numpy recomputation on
+    # every group, the zero-score ones included.
+    ref = _k3_numpy(c, codes, l2, kpg)
+    np.testing.assert_array_equal(g, ref)
+    keep = ((ref & ~np.int32(511) & np.int32(0x7FFFFFFF)) != 0).all(-1)
+    assert keep.mean() >= K3_MIN_KEPT
     for want in (want_xla, want_pallas):
-        w = _active(want, c["jplan"], kpg)
-        keep = _no_zero_scores(g, kpg) & _no_zero_scores(w, kpg)
-        assert keep.mean() > 0.85
-        np.testing.assert_array_equal(_by_group(g, kpg)[keep],
-                                      _by_group(w, kpg)[keep])
+        w = _by_group(_active(want, c["jplan"], kpg), kpg)
+        # The JAX package agrees wherever no survivor scores exactly zero,
+        # and where it differs it shows the flush: a survivor whose bits
+        # are all zero (score 0, identity lost).
+        np.testing.assert_array_equal(w[keep], ref[keep])
+        differs = (w != ref).any(-1)
+        assert ((w[differs] & np.int32(0x7FFFFFFF)) == 0).any(-1).all()
 
 
 def _assert_k4_close(got, want):
@@ -193,9 +267,8 @@ def test_k4_plain_version_close(l2, cpb, dpb, kpg, small):
         c["num_tiles"])
     got = tpl.score_work_codes(
         c["tplan"], c["qg_t"], torch.from_numpy(codes3),
-        torch.from_numpy(c["cb_mat"]), torch.from_numpy(c["mean"]),
-        torch.from_numpy(c["bias"]), dims_per_block=dpb, measure_l2=l2,
-        kpg=kpg)
+        tpl.codes_table(c["cb"], c["b_pad"]), torch.from_numpy(c["mean"]),
+        torch.from_numpy(c["bias"]), measure_l2=l2, kpg=kpg)
     jargs = (c["jplan"], c["qg_j"], jnp.asarray(codes3),
              jnp.asarray(c["cb_mat"]), jnp.asarray(c["mean"]),
              jnp.asarray(c["bias"]))
@@ -217,14 +290,13 @@ def test_cuda_entry_points_refuse_other_devices():
     codes3 = torch.from_numpy(jpl.pack_codes_tiles(c["codes"],
                                                    c["num_tiles"]))
     tpl.score_work_codes(c["tplan"], c["qg_t"], codes3,
-                         torch.from_numpy(c["cb_mat"]),
+                         tpl.codes_table(c["cb"], c["b_pad"]),
                          torch.from_numpy(c["mean"]),
-                         torch.from_numpy(c["bias"]), dims_per_block=2,
-                         measure_l2=False)
+                         torch.from_numpy(c["bias"]), measure_l2=False)
     assert (tpl.launches_lut, tpl.launches_codes) == before
     with pytest.raises(ValueError, match="unsupported device"):
         tpl.score_work_lut(c["tplan"], c["qg_t"], codes3.to("meta"), None,
-                           None, None, dims_per_block=2, measure_l2=False)
+                           None, None, measure_l2=False)
     # Shared-memory limits the wrappers state for the kernels.
     assert tpl.lut_smem_bytes(56) == 56 * 16 * 128 + 3584 + 512 * 28
     assert tpl.lut_smem_bytes(96) <= 232_448 < tpl.lut_smem_bytes(104)

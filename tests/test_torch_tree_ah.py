@@ -13,9 +13,11 @@ the 16-survivor width.  The pre-reorder budget stays under 32: from there
 on the JAX merge selects with approx_max_k, whose choice among the exactly
 tied int8-LUT scores at the cut is not lax.top_k's lower-index-first, and
 the port's selection is exact.  One known difference stays inside the
-0.1%: a residual score of exactly 0 packs to a denormal, which XLA's CPU
-backend flushes to zero, so the JAX package reports slot 0 of the group
-for it while the port keeps the right slot (ROADMAP section 3).
+0.1% except under a restrict: a score of exactly 0 packs to a denormal,
+which XLA's CPU backend flushes to zero, so the JAX package reports slot
+0 of the group for it while the port keeps the right slot (ROADMAP
+section 3).  The restrict case sets aside only the rows that carry that
+signature (_flush_fault_rows) and bounds their share.
 
 Build, statistically: the port's k-means draws differ from jax.random's,
 so a port-built index is held to the JAX-built index's recall@10 (within
@@ -99,7 +101,9 @@ def _assert_same(want, got, measure="dot_product", count=None,
                  id_agree=ID_AGREE):
     """Each id the JAX package returns is held by membership in the port's
     top-k of that query (one differing candidate shifts every later
-    position of its row), and its distance against that entry's.
+    position of its row), and its distance against that entry's; on the
+    rows whose id sets agree, the ids are also held position by position
+    (two ids whose distances tie within the tolerance may swap).
     ``count``: optional mask of the JAX entries that are held."""
     (wi, wd), (gi, gd) = want, got
     assert gi.shape == wi.shape and gi.dtype == np.int32
@@ -107,9 +111,14 @@ def _assert_same(want, got, measure="dot_product", count=None,
     found = match.any(-1)
     held = np.ones_like(found) if count is None else count
     assert found[held].mean() >= id_agree, found[held].mean()
+    terms = 2.0 if measure == "squared_l2" else 0.0   # unit q and x
+    rows = (found & held).all(1)
+    in_place = (wi == gi) | (
+        np.abs(gd - wd) <= DIST_RTOL * (np.abs(wd) + terms) + 1e-6)
+    assert rows.any() and in_place[rows].mean() >= id_agree, \
+        in_place[rows].mean()
     gd_of = np.take_along_axis(gd, match.argmax(-1), axis=1)
     same = found & held & (wi >= 0)
-    terms = 2.0 if measure == "squared_l2" else 0.0   # unit q and x
     err = np.abs(gd_of[same] - wd[same])
     assert np.all(err <= DIST_RTOL * (np.abs(wd[same]) + terms) + 1e-6), \
         err.max()
@@ -152,6 +161,51 @@ def test_search_parity_plan_overflow(pair, data, monkeypatch):
     js._compiled = {}
 
 
+def _candidates(searcher, q, allow, k):
+    """The pre-reorder candidates: the search with its reorder stage off."""
+    rh, searcher.reorder_helper = searcher.reorder_helper, None
+    searcher._compiled = {}
+    try:
+        return searcher.search_batched(
+            q, leaves_to_search=6, restrict_allowlist=allow,
+            final_num_neighbors=k)[0]
+    finally:
+        searcher.reorder_helper = rh
+        searcher._compiled = {}
+
+
+def _flush_fault_rows(ts, jax_cand, port_cand):
+    """Rows whose JAX candidates show the denormal flush (module note) and
+    nothing else: every id the JAX package holds and the port does not,
+    or holds twice, sits at identity 0 of a 32-slot group (first tile of its leaf, first
+    slot of the group), what a flushed survivor unpacks to, and the port
+    holds in its place another slot of that same group of that leaf.  A
+    disagreement of any other kind leaves its row held."""
+    dpid = ts._p_dpid.numpy()
+    live = np.nonzero(dpid >= 0)[0]
+    pos = np.full(int(dpid.max()) + 1, -1, np.int64)
+    pos[dpid[live]] = live
+    ntiles = ts._p_ntiles.numpy()
+    tile_leaf = np.repeat(np.arange(len(ntiles)), ntiles)
+    tile0 = ts._p_tile_start.numpy()
+
+    def identity(i):
+        tile, slot = divmod(pos[i], tps.TILE)
+        leaf = tile_leaf[tile]
+        return leaf, slot // tps.SUBP, tile - tile0[leaf], slot % tps.SUBP
+
+    fault = np.zeros(len(jax_cand), bool)
+    for r, (jrow, prow) in enumerate(zip(jax_cand, port_cand)):
+        ids, times = np.unique(jrow[jrow >= 0], return_counts=True)
+        jax_only = (set(ids) - set(prow)) | set(ids[times > 1])
+        port_groups = {identity(i)[:2]
+                       for i in set(prow[prow >= 0]) - set(jrow)}
+        fault[r] = bool(jax_only) and all(
+            identity(i)[2:] == (0, 0) and identity(i)[:2] in port_groups
+            for i in jax_only)
+    return fault
+
+
 def test_search_parity_restrict_and_wide_survivors(pair, data):
     js, ts, measure = pair
     db, q = data
@@ -159,29 +213,20 @@ def test_search_parity_restrict_and_wide_survivors(pair, data):
     allow[::3] = True
     want = js.search_batched(q, leaves_to_search=6, restrict_allowlist=allow)
     got = ts.search_batched(q, leaves_to_search=6, restrict_allowlist=allow)
-    # The denormal flush (module note) makes the JAX package name slot 0
-    # of a group, allowed or not.  A row whose pre-reorder candidates hold
-    # an id against the allowlist shows that fault (the id stands where a
-    # rightful candidate should) and is not held against the port, which
-    # returns none.
-    rh, js.reorder_helper = js.reorder_helper, None
-    js._compiled = {}
-    try:
-        stage = js.search_batched(
-            q, leaves_to_search=6, restrict_allowlist=allow,
-            final_num_neighbors=10 if rh is None else 30)[0]
-    finally:
-        js.reorder_helper = rh
-        js._compiled = {}
-    legal = ((stage < 0) | allow[np.maximum(stage, 0)]).all(1)
-    assert legal.mean() > 0.8
-    legal = np.broadcast_to(legal[:, None], want[0].shape)
-    # One time in three the wrongly named slot is an allowed row and the
-    # fault cannot be seen this way.  Under squared L2 the best scores lie
-    # around zero, where it strikes often (over a tenth of the rows here
-    # show it), so those cases are held to 99% instead of 99.9%.
-    bar = 0.99 if measure == "squared_l2" else ID_AGREE
-    _assert_same(want, got, measure, count=legal, id_agree=bar)
+    # The denormal flush makes the JAX package name slot 0 of a group,
+    # allowed or not, in place of a candidate that scores exactly 0.  Rows
+    # whose candidates carry that signature are not held against the port;
+    # under squared L2 the best scores lie around zero and it strikes
+    # often (35 of the 200 rows with int8 lookup), under dot product
+    # hardly ever (at most 1 row).  A growing exclusion fails.
+    k_cand = 10 if js.reorder_helper is None else 30
+    port_cand = _candidates(ts, q, allow, k_cand)
+    fault = _flush_fault_rows(ts, _candidates(js, q, allow, k_cand),
+                              port_cand)
+    assert fault.mean() <= (0.18 if measure == "squared_l2" else 0.01)
+    assert allow[port_cand[port_cand >= 0]].all()
+    held = np.broadcast_to(~fault[:, None], want[0].shape)
+    _assert_same(want, got, measure, count=held)
     live = got[0][got[0] >= 0]
     assert live.size and np.all(live % 3 == 0)
     js._kpg_override = ts._kpg_override = 16
