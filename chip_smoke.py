@@ -28,7 +28,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      100 / 250 on both reorder types (every point must launch K3), one
      float32-lookup point (must launch K4), the dense LUT16 scan (full
      scan) over all queries, and the CUDA-vs-CPU cross-check;
-  7. the kernels JSON line, the card line, and the final ok line.
+  7. tree-AH in reconstruct mode (the same config with
+     asymmetric_hash.lookup_type = "reconstruct", float32 reorder rows):
+     build, the CUDA-vs-CPU cross-check on its own serialization; K2
+     against its plain version at the main path's inputs (dot and squared
+     L2, 8 and 16 survivors per group) and K5 against its chunked plain
+     version on all 10,000 queries (dot and squared L2), timed beside the
+     bf16 torch.matmul + amax / argmax composition; the sweep leaves 50 /
+     100 / 150 with 100 pre-reorder candidates (every point must launch
+     K2) and the full scan (must launch K5); and the same scorer with no
+     tree (score_ah + reorder alone), whose every search is a K5 scan;
+  8. the fused merge: K6 against its plain version, bit for bit, on
+     tree-SQ's packed block at leaves=100 (k 10, in phase 5) and on
+     tree-AH's (k 30, in phase 6), and one search at leaves=100 on each
+     engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
+     lose no more than 0.002 of recall@10);
+  9. the kernels JSON line, the card line, and the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -54,6 +69,14 @@ AH_SWEEP = ((50, 100), (50, 250), (100, 100), (100, 250), (150, 100),
             (150, 250))
 AH_REORDER = 100
 AH_RECALL_FLOOR_AT_100 = 0.9472   # first card run: 0.9572
+# Reconstruct mode: the same codes, tree and exact reorder, so the same
+# floor at leaves 100 / 100 candidates; the full scan through K5 loses only
+# group collisions (about k^2 * 256 / (2 S) of the 100 candidates), with a
+# tree and without one (first card run without a tree: 0.9951).
+RECON_SWEEP = (50, 100, 150)
+RECON_FULL_SCAN_FLOOR = 0.985
+FUSED_MERGE_PRE = 30            # tree-AH budget of the fused-merge points
+FUSED_MERGE_MAX_RECALL_LOSS = 0.002
 # Peaks of one H100 SXM (NVIDIA data sheet; dense tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -68,6 +91,15 @@ K1_RTOL, K1_ATOL, K1_MIN_ID_AGREE = 2.0 ** -14, 1e-6, 0.999
 # sums).  K4 vs plain version: K1's bar, with a 1e-5 floor for squared-L2
 # scores 2 dot - ||x||^2 that cancel to near zero.
 K4_ATOL = 1e-5
+# K2 vs plain version: K4's bar (bf16 x bf16 products at differing
+# exponents, so the f32 sums depend on their order), identities equal on
+# >= 99.99% of live survivors.  K5 vs plain version: values within 1e-5
+# relative plus 1e-5 (exact products, f32 sums in another order), slot ids
+# equal on >= 99.9% of groups, and where they differ the plain score of the
+# kernel's slot within that tolerance of the plain maximum (a tie up to
+# summation order).  K6 vs plain version: bit-equal.
+K2_MIN_ID_AGREE = 0.9999
+K5_RTOL, K5_ATOL, K5_MIN_ID_AGREE = 1e-5, 1e-5, 0.999
 TIMING_REPS = 20
 PLAIN_TIMING_REPS = 5
 
@@ -281,12 +313,12 @@ def k4_bound(plan, codes3, cpb, dpb, kpg):
     return _bound(nbytes, t_ops) + (n_active,)
 
 
-def compare_packed(torch, name, got, want, plan, atol=None):
+def compare_packed(torch, name, got, want, plan, atol=None,
+                   min_id=K1_MIN_ID_AGREE):
     """Hold a kernel's packed output against the plain version's on active
     segments: bit-equal when ``atol`` is None, else unpacked values within
-    K1_RTOL relative plus ``atol`` and identities equal on
-    K1_MIN_ID_AGREE of survivors.  Returns (max_abs_err, identity
-    agreement)."""
+    K1_RTOL relative plus ``atol`` and identities equal on ``min_id`` of
+    survivors.  Returns (max_abs_err, identity agreement)."""
     from scann_torch.ops import pruned_scan
     g_pad = plan.qg_query.shape[0]
     mnt = plan.work_tile.shape[0] // g_pad
@@ -305,17 +337,176 @@ def compare_packed(torch, name, got, want, plan, atol=None):
                    == (b & pruned_scan._ID_MASK)).double().mean())
     if atol is None:
         bad += int((a != b).sum())
-    if bad or ident < K1_MIN_ID_AGREE or not torch.isfinite(va).all():
+    if bad or ident < min_id or not torch.isfinite(va).all():
         raise AssertionError(
             f"{name} disagrees with its plain version: {bad} of {a.numel()} "
             f"survivors out of tolerance, identities agree {ident:.6f}")
     return (float(err.max()) if err.numel() else 0.0), ident
 
 
+def k2_bound(plan, rows3, kpg):
+    """Least time (ms) for the K2 work of this plan on one H100.  Bytes:
+    each distinct input once (active tiles' bf16 rows and bias, active
+    groups' bf16 queries, the work tables) and each active output segment
+    once; operations: the tile x query-group product of each active item
+    at the bf16 tensor-core peak."""
+    n_active, tiles, groups = plan_counts(plan)
+    tile, d_pad = rows3.shape[1], rows3.shape[2]
+    nbytes = (tiles * tile * (d_pad * 2 + 4) + groups * 128 * d_pad * 2
+              + plan.work_tile.shape[0] * 8
+              + n_active * 128 * kpg * (tile // 32) * 4)
+    t_ops = 2.0 * n_active * tile * 128 * d_pad / BF16_FLOPS
+    return _bound(nbytes, t_ops) + (n_active,)
+
+
+def k5_bound(nq, rows):
+    """Least time (ms) for one K5 call: the bf16 products of every (query,
+    slot) pair at the tensor-core peak, vs the rows, bias and queries read
+    once and the two (Q, S/256) outputs written once."""
+    s, d = rows.shape
+    nbytes = s * (d * 2 + 4) + nq * d * 2 + nq * (s // 256) * 8
+    return _bound(nbytes, 2.0 * nq * s * d / BF16_FLOPS)
+
+
+def k6_bound(plan, packed, k):
+    """Least time (ms) for the K6 work of this plan: the packed rows of the
+    active groups read once, 2k words a row written; no arithmetic to
+    speak of, so bytes bind."""
+    groups = plan_counts(plan)[2]
+    w = packed.shape[-1]
+    return _bound(groups * (128 * (w + 2 * k) * 4 + 4), 0.0) + (groups,)
+
+
+def recon_k2_inputs(torch, searcher, queries, leaves, measure_l2):
+    """The exact K2 inputs of the main path for this batch: (plan, qg_rows,
+    rows, bias).  The squared-L2 case runs on the same plan and rows with
+    the bias plane an L2 index has: -||x_hat||^2 on live slots."""
+    searcher._ensure_pruned()
+    plan = pruned_plan(torch, searcher, queries, leaves)
+    rows = searcher._p_rows
+    _, q_bf = searcher._recon_queries(queries, rows.shape[-1])
+    bias = searcher._p_bias
+    if measure_l2:
+        sq = (rows.float() ** 2).sum(-1, keepdim=True)
+        bias = torch.where(bias > -1e20, -sq, bias).contiguous()
+    return plan, q_bf[plan.qg_query.long()], rows, bias
+
+
+def compare_groupmax(torch, got, want, q_bf, rows, bias, scale):
+    """Hold K5's (vals, idx) against the plain version's (see K5_RTOL).
+    Returns (max_abs_err, slot agreement)."""
+    (gv, gi), (wv, wi) = got, want
+    tol = K5_RTOL * wv.abs() + K5_ATOL
+    err = (gv - wv).abs()
+    same = gi == wi
+    agree = float(same.double().mean())
+    qi = (~same).nonzero()[:, 0]
+    alt_slot = gi[~same].long()
+    alt = scale * (q_bf[qi].float() * rows[alt_slot].float()).sum(-1) \
+        + bias[alt_slot]
+    bad = int((err > tol).sum()) + int(
+        ((alt - wv[~same]).abs() > tol[~same]).sum())
+    if bad or agree < K5_MIN_ID_AGREE or gv.shape != wv.shape:
+        raise AssertionError(
+            f"K5 disagrees with its plain version: {bad} of {gv.numel()} "
+            f"groups out of tolerance, slots agree {agree:.6f}")
+    return float(err[wv > -1e20].max()), agree
+
+
+def groupmax_composition(torch, q_bf, rows, bias, scale, chunk=65536):
+    """The PyTorch composition that computes K5's function with library
+    calls: a chunked bf16 torch.matmul (bf16 scores), then amax and argmax
+    over the reshaped groups.  Timed beside K5; the port never calls it."""
+    vals, idx = [], []
+    for s0 in range(0, rows.shape[0], chunk):
+        sim = scale * torch.matmul(q_bf, rows[s0:s0 + chunk].T).float() \
+            + bias[s0:s0 + chunk][None, :]
+        g = sim.reshape(q_bf.shape[0], -1, 256)
+        vals.append(g.amax(-1))
+        idx.append(g.argmax(-1))
+    return torch.cat(vals, 1), torch.cat(idx, 1)
+
+
+def k6_check(torch, rec, what, plan, packed, ntiles, tile, k, mnt):
+    """K6 against its plain version on one packed block, bit for bit on
+    the rows of active groups (max_abs_err is the largest difference of
+    the output words, selected keys and tiles, as integers), with timings
+    and the bound."""
+    from scann_torch.ops import pruned_scan
+    kgp = packed.shape[-1] // mnt
+    qg_nt = ntiles[torch.clamp(plan.qg_leaf, 0,
+                               ntiles.shape[0] - 1).long()].contiguous()
+    run = lambda: pruned_scan.merge_groups(       # noqa: E731
+        packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    plain = lambda: pruned_scan.merge_groups_torch(   # noqa: E731
+        packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    live = plan.work_active.reshape(-1, mnt)[:, 0] == 1
+    if not bool(live.any()):
+        raise AssertionError(f"K6 ({what}): the plan has no active group")
+    gaps = [(a[live].long() - b[live].long()).abs()
+            for a, b in zip(got, want)]
+    diff = sum(int((g != 0).sum()) for g in gaps)
+    err = float(max(int(g.max()) for g in gaps))
+    if diff:
+        raise AssertionError(f"K6 ({what}) differs from its plain version "
+                             f"in {diff} words (largest gap {err:.0f})")
+    del got, want, gaps
+    point = {"max_abs_err": err, "ms": time_ms(torch, run),
+             "plain_ms": time_ms(torch, plain, reps=PLAIN_TIMING_REPS)}
+    point["bound_ms"], point["bound_by"], groups = k6_bound(plan, packed, k)
+    rec[what] = point
+    log(f"K6 vs plain ({what}: {tuple(packed.shape)} packed, k {k}): "
+        f"max word difference {err:.0f} on {groups} active groups; "
+        f"{point['ms']:.3f} ms (plain "
+        f"{point['plain_ms']:.3f} ms), bound {point['bound_ms']:.4f} ms by "
+        f"{point['bound_by']}")
+
+
+def fused_merge_points(torch, searcher, timer, queries, db, truth, what,
+                       exact_distances, **kw):
+    """One search with the stratified merge and one with the fused merge
+    (SCANN_TORCH_FUSED_MERGE=1) on the same index in the same run; the
+    fused one must launch K6 and keep recall@10.  Returns the two points;
+    K6's launch count is left in pruned_scan.launches_merge."""
+    from scann_torch.ops import pruned_scan
+    searcher.stage_hook = timer
+    out = {}
+    for mode in ("stratified", "fused"):
+        os.environ["SCANN_TORCH_FUSED_MERGE"] = "1" if mode == "fused" else "0"
+        try:
+            idx, dist, wall, stages, launched = timed_search(
+                torch, searcher, timer, queries,
+                lambda: pruned_scan.launches_merge, **kw)
+        finally:
+            os.environ.pop("SCANN_TORCH_FUSED_MERGE")
+        check_results(queries, db, idx, dist, f"{what} {mode} merge",
+                      exact_distances)
+        if launched != (1 if mode == "fused" else 0):
+            raise AssertionError(f"{what}: the {mode} merge launched K6 "
+                                 f"{launched} times")
+        out[mode] = {"recall": recall_at_k(idx, truth), "qps": N_QUERY / wall,
+                     "merge_ms": stages["merge"], "k6_launches": launched,
+                     "stage_ms": stages}
+        log(f"{what} {mode} merge {kw}: recall@10 {out[mode]['recall']:.4f}, "
+            f"qps {N_QUERY / wall:.0f}, K6 launches {launched}, stage ms "
+            f"{stages}")
+    searcher.stage_hook = None
+    loss = out["stratified"]["recall"] - out["fused"]["recall"]
+    if loss > FUSED_MERGE_MAX_RECALL_LOSS:
+        raise AssertionError(f"{what}: the fused merge loses {loss:.4f} of "
+                             f"recall@10")
+    return out
+
+
 def ah_config(scann_torch, db, measure, lookup, reorder, hash_type="lut16",
               dpb=2, **tree):
-    b = scann_torch.builder(db, K, measure).tree(**tree).score_ah(
-        dpb, anisotropic_quantization_threshold=0.2, hash_type=hash_type)
+    b = scann_torch.builder(db, K, measure)
+    if tree:
+        b = b.tree(**tree)
+    b = b.score_ah(dpb, anisotropic_quantization_threshold=0.2,
+                   hash_type=hash_type)
     if reorder is not None:
         b = b.reorder(AH_REORDER, quantize=reorder)
     config = b.create_config()
@@ -348,16 +539,16 @@ def check_results(queries, db, idx, dist, what, exact_distances):
                                  f"products of the returned rows")
 
 
-def cross_check(scann_torch, searcher, queries, what):
+def cross_check(scann_torch, searcher, queries, what, **kw):
     """The same index, serialized and searched on the CPU plain path,
-    returns what the CUDA path returns for a few queries."""
+    returns what the CUDA path returns for a few queries (at leaves=100
+    unless ``kw`` says otherwise)."""
+    kw = kw or {"leaves_to_search": LEAVES_TO_SEARCH}
     with tempfile.TemporaryDirectory() as tmp:
         searcher.serialize(tmp)
         cpu = scann_torch.load_searcher(tmp, device="cpu")
-        i_cpu, d_cpu = cpu.search_batched(queries[:16],
-                                          leaves_to_search=LEAVES_TO_SEARCH)
-    i_gpu, d_gpu = searcher.search_batched(queries[:16],
-                                           leaves_to_search=LEAVES_TO_SEARCH)
+        i_cpu, d_cpu = cpu.search_batched(queries[:16], **kw)
+    i_gpu, d_gpu = searcher.search_batched(queries[:16], **kw)
     same = i_cpu == i_gpu
     agree = float(np.mean(same))
     if agree < 0.99 or not np.allclose(d_cpu[same], d_gpu[same], rtol=1e-4):
@@ -367,9 +558,11 @@ def cross_check(scann_torch, searcher, queries, what):
         f"{agree:.4f}")
 
 
-def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
-    """Phase 6; returns (K3 record, K4 record, summary dict)."""
+def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
+    """Phase 6; returns (K3 record, K4 record, summary dict) and adds the
+    tree-AH part of K6's record to ``k6``."""
     from scann_torch.ops import pruned_lut
+    from scann_torch.ops import pruned_scan
     tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
                 training_sample_size=TRAIN_SAMPLE)
     searchers, build_s = {}, {}
@@ -416,6 +609,10 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
             log(f"K3 vs plain ({tag}): bit-equal, w_pad "
                 f"{a3[0].work_tile.shape[0]}, active "
                 f"{int(a3[0].work_active.sum())}")
+            if not measure_l2 and kpg == 8:    # the main path's block
+                k6_check(torch, k6, "tree_ah", a3[0], got, main._p_ntiles,
+                         pruned_scan.TILE, FUSED_MERGE_PRE,
+                         main._p_max_ntiles)
             del got, want
             a4 = ah_inputs(torch, main_f, q_dev, LEAVES_TO_SEARCH,
                            measure_l2)
@@ -539,8 +736,209 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev):
         f"qps {dense['qps']:.0f}, stage ms {stages}")
     main.index = main.index._replace(codes=None)   # free the dense layout
 
+    pruned_scan.launches_merge = 0
+    merges = fused_merge_points(
+        torch, main, timer, queries, db, truth, "tree-AH", True,
+        leaves_to_search=LEAVES_TO_SEARCH,
+        pre_reorder_num_neighbors=FUSED_MERGE_PRE)
+    k6["launches"] += pruned_scan.launches_merge
+
     cross_check(scann_torch, main, queries, "tree-AH")
-    return k3, k4, {"build_s": build_s, "points": points, "dense": dense}
+    return k3, k4, {"build_s": build_s, "points": points, "dense": dense,
+                    "merge": merges}
+
+
+def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
+    """Phase 7; returns (K2 record, K5 record, summary dict)."""
+    from scann_torch.ops import fused_scan
+    from scann_torch.ops import pruned_scan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = scann_torch.create_searcher(
+        db, ah_config(scann_torch, db, "dot_product", "reconstruct",
+                      "float32", num_leaves=NUM_LEAVES,
+                      num_leaves_to_search=LEAVES_TO_SEARCH,
+                      training_sample_size=TRAIN_SAMPLE), "cuda")
+    s._ensure_pruned()
+    s._ensure_recon_rows()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    pruned_b = nbytes(s._p_rows, s._p_bias, s._p_dpid)
+    scan_b = nbytes(s._recon_rows, s._recon_bias, s._recon_sq)
+    reorder_b = nbytes(s.reorder_helper._db)
+    log(f"reconstruct build: {build_s:.1f} s (both layouts), "
+        f"{s.partitioner.num_leaves} leaves, max_ntiles {s._p_max_ntiles}, "
+        f"{s._p_num_tiles} tiles; resident on the card: pruned rows "
+        f"{pruned_b / 1e6:.0f} MB ({pruned_b / N_DB:.1f} B/vector), "
+        f"full-scan rows {scan_b / 1e6:.0f} MB ({scan_b / N_DB:.1f} "
+        f"B/vector, {s._recon_rows.shape[0]} slots), reorder rows "
+        f"{reorder_b / 1e6:.0f} MB; quantization error "
+        f"{s._quantization_error_sq ** 0.5:.4f}")
+    cross_check(scann_torch, s, queries, "reconstruct")
+
+    # Kernel phase: K2 at the main path's inputs.
+    k2 = {"max_abs_err": 0.0}
+    for measure_l2 in (False, True):
+        for kpg in (8, 16):
+            args = recon_k2_inputs(torch, s, q_dev, LEAVES_TO_SEARCH,
+                                   measure_l2)
+            got = pruned_scan.score_work(*args, measure_l2=measure_l2,
+                                         kpg=kpg)
+            want = pruned_scan.score_work_torch(*args, measure_l2=measure_l2,
+                                                kpg=kpg)
+            torch.cuda.synchronize()
+            err, ident = compare_packed(torch, "K2", got, want, args[0],
+                                        atol=K4_ATOL, min_id=K2_MIN_ID_AGREE)
+            k2["max_abs_err"] = max(k2["max_abs_err"], err)
+            log(f"K2 vs plain ({'l2' if measure_l2 else 'dot'}, kpg {kpg}): "
+                f"max |err| {err:.3g}, identities agree {ident:.6f}, w_pad "
+                f"{args[0].work_tile.shape[0]}, active "
+                f"{int(args[0].work_active.sum())}")
+            del got, want
+            if not measure_l2 and kpg == 8:    # the main path's case
+                k2["ms"] = time_ms(torch, lambda: pruned_scan.score_work(
+                    *args, measure_l2=False, kpg=kpg))
+                k2["plain_ms"] = time_ms(
+                    torch, lambda: pruned_scan.score_work_torch(
+                        *args, measure_l2=False, kpg=kpg),
+                    reps=PLAIN_TIMING_REPS)
+                k2["bound_ms"], k2["bound_by"], n_act = k2_bound(
+                    args[0], args[2], kpg)
+                log(f"K2 at leaves={LEAVES_TO_SEARCH}, {N_QUERY} queries, "
+                    f"kpg {kpg}: {k2['ms']:.3f} ms (plain "
+                    f"{k2['plain_ms']:.3f} ms), bound {k2['bound_ms']:.4f} "
+                    f"ms by {k2['bound_by']} ({n_act} active items)")
+            del args
+            torch.cuda.empty_cache()
+
+    # K5 on the full-scan layout, at the main path's shape.
+    k5 = {}
+    rows, bias = s._recon_rows, s._recon_bias
+    _, q_bf = s._recon_queries(q_dev, rows.shape[1])
+    for measure_l2 in (False, True):
+        # Squared L2 on the same rows: the bias plane an L2 index has.
+        b = bias if not measure_l2 else torch.where(
+            bias > -1e20, -(rows.float() ** 2).sum(-1), bias)
+        got = fused_scan.fused_scan_groupmax(q_bf, rows, b,
+                                             measure_l2=measure_l2)
+        want = fused_scan.fused_scan_groupmax_torch(q_bf, rows, b,
+                                                    measure_l2=measure_l2)
+        torch.cuda.synchronize()
+        err, agree = compare_groupmax(torch, got, want, q_bf, rows, b,
+                                      2.0 if measure_l2 else 1.0)
+        k5["max_abs_err"] = max(k5.get("max_abs_err", 0.0), err)
+        log(f"K5 vs plain ({'l2' if measure_l2 else 'dot'}, "
+            f"{q_bf.shape[0]} queries x {rows.shape[0]} slots): max |err| "
+            f"{err:.3g}, slots agree {agree:.6f}")
+        del got, want, b
+        torch.cuda.empty_cache()
+    k5["ms"] = time_ms(torch, lambda: fused_scan.fused_scan_groupmax(
+        q_bf, rows, bias))
+    k5["plain_ms"] = time_ms(
+        torch, lambda: fused_scan.fused_scan_groupmax_torch(q_bf, rows, bias),
+        reps=PLAIN_TIMING_REPS)
+    composition_ms = time_ms(torch, lambda: groupmax_composition(
+        torch, q_bf, rows, bias, 1.0), reps=PLAIN_TIMING_REPS)
+    k5["bound_ms"], k5["bound_by"] = k5_bound(N_QUERY, rows)
+    log(f"K5 at {N_QUERY} queries x {rows.shape[0]} slots x "
+        f"{rows.shape[1]}: {k5['ms']:.3f} ms (plain {k5['plain_ms']:.3f} ms;"
+        f" bf16 torch.matmul + amax/argmax composition "
+        f"{composition_ms:.3f} ms), bound {k5['bound_ms']:.4f} ms by "
+        f"{k5['bound_by']}")
+    del q_bf
+    torch.cuda.empty_cache()
+
+    # Main path through the public entry points.
+    timer = StageTimer(torch)
+    s.stage_hook = timer
+    pruned_scan.launches = fused_scan.launches = 0
+    points = []
+    for leaves in RECON_SWEEP:
+        idx, dist, wall, stages, launched = timed_search(
+            torch, s, timer, queries, lambda: pruned_scan.launches,
+            leaves_to_search=leaves, pre_reorder_num_neighbors=AH_REORDER)
+        check_results(queries, db, idx, dist, f"reconstruct leaves={leaves}",
+                      True)
+        if launched == 0:
+            raise AssertionError(f"reconstruct leaves={leaves} did not "
+                                 f"launch K2")
+        points.append({"leaves": leaves, "pre": AH_REORDER,
+                       "recall": recall_at_k(idx, truth),
+                       "qps": N_QUERY / wall, "k2_launches": launched,
+                       "stage_ms": stages})
+        log(f"reconstruct leaves={leaves} pre={AH_REORDER}: recall@10 "
+            f"{points[-1]['recall']:.4f}, qps {N_QUERY / wall:.0f}, K2 "
+            f"launches {launched}, stage ms {stages}")
+    k2["launches"] = pruned_scan.launches
+    if fused_scan.launches:
+        raise AssertionError("a pruned reconstruct point launched K5")
+    idx, dist, wall, stages, launched = timed_search(
+        torch, s, timer, queries, lambda: fused_scan.launches,
+        leaves_to_search=s.partitioner.num_leaves)
+    s.stage_hook = None
+    check_results(queries, db, idx, dist, "reconstruct full scan", True)
+    k5["launches"] = fused_scan.launches
+    if launched == 0 or pruned_scan.launches != k2["launches"]:
+        raise AssertionError("the reconstruct full scan did not go through "
+                             "K5 alone")
+    full = {"recall": recall_at_k(idx, truth), "qps": N_QUERY / wall,
+            "k5_launches": launched, "stage_ms": stages}
+    log(f"reconstruct full scan (K5): recall@10 {full['recall']:.4f}, qps "
+        f"{full['qps']:.0f}, K5 launches {launched}, stage ms {stages}")
+    at100 = next(p for p in points
+                 if p["leaves"] == LEAVES_TO_SEARCH)["recall"]
+    if at100 < AH_RECALL_FLOOR_AT_100:
+        raise AssertionError(f"reconstruct recall@10 {at100:.4f} at "
+                             f"leaves=100 is under {AH_RECALL_FLOOR_AT_100}")
+    if full["recall"] < RECON_FULL_SCAN_FLOOR:
+        raise AssertionError(f"reconstruct full-scan recall@10 "
+                             f"{full['recall']:.4f} is under "
+                             f"{RECON_FULL_SCAN_FLOOR}")
+    s = None
+    torch.cuda.empty_cache()
+
+    # The same scorer with no tree: every search is a K5 scan.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = scann_torch.create_searcher(
+        db, ah_config(scann_torch, db, "dot_product", "reconstruct",
+                      "float32"), "cuda")
+    torch.cuda.synchronize()
+    flat_build_s = time.perf_counter() - t0
+    if flat.partitioner is not None or flat._recon_rows is None:
+        raise AssertionError("the no-tree searcher has a tree, or its "
+                             "full-scan rows were not built with it")
+    flat.stage_hook = timer
+    idx, dist, wall, stages, launched = timed_search(
+        torch, flat, timer, queries, lambda: fused_scan.launches)
+    flat.stage_hook = None
+    check_results(queries, db, idx, dist, "reconstruct without a tree", True)
+    k5["launches"] = fused_scan.launches
+    if launched == 0 or pruned_scan.launches != k2["launches"]:
+        raise AssertionError("the no-tree reconstruct search did not go "
+                             "through K5 alone")
+    no_tree = {"build_s": flat_build_s, "recall": recall_at_k(idx, truth),
+               "qps": N_QUERY / wall, "k5_launches": launched,
+               "slots": flat._recon_rows.shape[0], "stage_ms": stages}
+    log(f"reconstruct without a tree (build {flat_build_s:.1f} s, "
+        f"{no_tree['slots']} slots): recall@10 {no_tree['recall']:.4f}, qps "
+        f"{no_tree['qps']:.0f}, K5 launches {launched}, stage ms {stages}")
+    if no_tree["recall"] < RECON_FULL_SCAN_FLOOR:
+        raise AssertionError(f"no-tree reconstruct recall@10 "
+                             f"{no_tree['recall']:.4f} is under "
+                             f"{RECON_FULL_SCAN_FLOOR}")
+    # leaves_to_search=0 is the searcher's own default: a full scan.
+    cross_check(scann_torch, flat, queries, "reconstruct without a tree",
+                leaves_to_search=0)
+    return k2, k5, {"build_s": build_s, "points": points, "full_scan": full,
+                    "no_tree": no_tree,
+                    "k5_composition_ms": composition_ms,
+                    "pruned_rows_mb": pruned_b / 1e6,
+                    "full_scan_rows_mb": scan_b / 1e6}
 
 
 def main():
@@ -551,6 +949,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scann_torch
     from scann_torch import _cuda
+    from scann_torch.ops import pruned_scan
     from scann_torch.ops import pruned_sq
 
     # 1. card
@@ -601,6 +1000,7 @@ def main():
     # 4. kernel phase: K1 against its plain version at main-path inputs
     q_dev = torch.as_tensor(queries, device="cuda")
     k1 = {}
+    k6 = {"launches": 0}
     for measure_l2, kpg in ((False, 4), (True, 4), (False, 8), (True, 8)):
         plan, qg_rows, bias = k1_inputs(torch, searcher, q_dev,
                                         LEAVES_TO_SEARCH, measure_l2)
@@ -628,6 +1028,8 @@ def main():
                 f"{k1['ms']:.3f} ms (plain {k1['plain_ms']:.3f} ms), bound "
                 f"{k1['bound_ms']:.4f} ms by {k1['bound_by']} "
                 f"({n_act} active items)")
+            k6_check(torch, k6, "tree_sq", plan, got, searcher._p_ntiles,
+                     searcher.slot_rows.shape[1], K, searcher._p_max_ntiles)
         del got, want, plan, qg_rows, bias, args
     torch.cuda.empty_cache()
 
@@ -658,20 +1060,38 @@ def main():
         raise AssertionError(f"recall@10 {at100:.4f} at leaves=100 is under "
                              f"{RECALL_FLOOR_AT_100}")
 
+    pruned_scan.launches_merge = 0
+    sq_merges = fused_merge_points(
+        torch, searcher, timer, queries, db, truth, "tree-SQ", True,
+        leaves_to_search=LEAVES_TO_SEARCH)
+    k6["launches"] += pruned_scan.launches_merge
+
     cross_check(scann_torch, searcher, queries, "tree-SQ")
     del searcher
     torch.cuda.empty_cache()
 
     # 6. tree-AH
     k3, k4, ah_summary = tree_ah_phase(torch, scann_torch, db, queries,
-                                       truth, q_dev)
+                                       truth, q_dev, k6)
 
+    # 7. tree-AH in reconstruct mode
+    k2, k5, recon_summary = recon_phase(torch, scann_torch, db, queries,
+                                        truth, q_dev)
+
+    # K6's line: the tree-AH block (the wider rows, k 30); both blocks'
+    # numbers are in the summary.
+    k6.update(k6["tree_ah"])
     summary = {"build_s": build_s, "num_leaves": nl,
                "index_bytes_per_vector": index_bytes / N_DB,
-               "points": points, "tree_ah": ah_summary}
+               "points": points, "merge": sq_merges, "tree_ah": ah_summary,
+               "reconstruct": recon_summary,
+               "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")}}
     log("summary " + json.dumps(summary))
-    # library_ms is None for all three: no single PyTorch call computes a
-    # gathered tile x query-group score with a packed per-32-slot top-k.
+    # library_ms is None for all six: no single PyTorch call computes a
+    # gathered tile x query-group score with a packed per-32-slot top-k
+    # (K1-K4), a product reduced to per-group maxima without the score
+    # matrix (K5: the matmul + amax / argmax composition is timed above),
+    # or k masked-maximum passes over rewritten keys (K6).
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"scann_torch/csrc/{name}.cu", "replaces": replaces,
@@ -681,8 +1101,11 @@ def main():
          "library_ms": None}
         for name, replaces, rec in (
             ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1),
+            ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2),
             ("pruned_lut", "scann_tpu/ops/pruned_lut.py:225", k3),
-            ("pruned_codes", "scann_tpu/ops/pruned_lut.py:75", k4))]}))
+            ("pruned_codes", "scann_tpu/ops/pruned_lut.py:75", k4),
+            ("fused_scan", "scann_tpu/ops/fused_scan.py:58", k5),
+            ("merge_groups", "scann_tpu/ops/pruned_scan.py:705", k6))]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

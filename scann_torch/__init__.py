@@ -5,9 +5,12 @@ by tests/test_torch_*.py).  It serves two engines end to end, each with
 build, serialization and batched search through hand-written CUDA kernels:
 tree-SQ (k-means tree, tile-major residual int8 leaves, the pruned int8
 scorer csrc/pruned_sq.cu) and tree-AH (product codes with anisotropic
-encoding, the int8-LUT scorer csrc/pruned_lut.cu and the decode scorer
-csrc/pruned_codes.cu, then float32 / bfloat16 / residual-int8
-reordering), plus the float32 brute force used for ground truth.  Entry
+encoding, with or without a tree; the int8-LUT scorer csrc/pruned_lut.cu,
+the decode scorer csrc/pruned_codes.cu, and in reconstruct mode the
+decoded-row scorer csrc/pruned_rows.cu and the fused full scan
+csrc/fused_scan.cu; then float32 / bfloat16 / residual-int8 reordering),
+plus the float32 brute force used for ground truth.  Both engines can
+merge through csrc/merge_groups.cu (SCANN_TORCH_FUSED_MERGE=1).  Entry
 points run on CUDA unless the caller asks for the CPU::
 
     import scann_torch

@@ -35,6 +35,15 @@ SIGNATURES = {
     "pruned_codes": {
         "pruned_codes_score": ([_P] * 8 + [_I] * 7 + [_P], _I),
     },
+    "pruned_rows": {
+        "pruned_rows_score": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
+    },
+    "fused_scan": {
+        "fused_scan_groupmax": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
+    },
+    "merge_groups": {
+        "merge_groups_topk": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Searcher factory: config -> searcher (port of scann_tpu/factory.py).
 
-partitioning + asymmetric_hash -> TreeAHSearcher (with optional
-reordering); partitioning + brute_force(int8) -> TreeXSearcher
+asymmetric_hash, with or without partitioning -> TreeAHSearcher (with
+optional reordering); partitioning + brute_force(int8) -> TreeXSearcher
 (residual-int8 tree-SQ); brute_force(float32) alone -> BruteForceSearcher.
 Every other composition raises NotImplementedError naming the ROADMAP item
 that will port it; no setting is silently dropped.
@@ -41,6 +41,8 @@ def check_supported(scann_config: cfg.ScannConfig):
         if c.partitioning.num_leaves <= 1:
             base.not_ported("single-leaf Tree-X (dense global-int8 leaves)",
                              21)
+    if c.partitioning is None:
+        return      # the non-partitioned AH searcher
     bad = kmeans_tree.unsupported_partitioning(c.partitioning)
     if bad is not None:
         base.not_ported(f"partitioning {bad}", 14)

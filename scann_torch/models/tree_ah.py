@@ -1,20 +1,34 @@
 """Tree-AH searcher: partition + asymmetric-hashing scoring + reorder.
 
-Port of the product-quantization, int8 / float32 lookup modes of
-scann_tpu/models/tree_ah.py.  Rows are stored as AH codes of the residual
-x - c_leaf (dot product) or of x (squared L2), 16 or 256 centers per
-block.  A batch scores only its selected leaves through the pruned path:
-tokenize -> plan (pruned_scan.invert) -> score (K3, the int8-LUT scorer
-over pair-packed 4-bit codes, or K4, the decode scorer, for float32
-lookup and 256 centers; ops/pruned_lut.py) -> merge
-(pruned_scan.merge_candidates, which adds q.c_leaf per pair under residual
-quantization).  Plans over MAX_PLAN_WORK items and the full scan run the
-dense masked LUT16 scan over every slot (ops/lut16.py).  The base class
+Port of the product-quantization modes of scann_tpu/models/tree_ah.py.
+Rows are stored as AH codes of the residual x - c_leaf (dot product with a
+tree) or of x, 16 or 256 centers per block.  A batch scores only its
+selected leaves through the pruned path: tokenize -> plan
+(pruned_scan.invert) -> score -> merge (pruned_scan.merge_candidates, or
+merge_candidates_fused through K6 when fused_merge_enabled says so).  The
+scorer follows ``lookup_type``:
+
+* int8 lookup over 4-bit codes: K3, the int8-LUT scorer (ops/pruned_lut.py);
+* float32 lookup, and 256 centers per block: K4, the decode scorer
+  (ops/pruned_lut.py);
+* "reconstruct": the codes are decoded once into bf16 rows x_hat (decoded
+  residual plus the leaf center) held in device memory, and K2
+  (pruned_scan.score_work) multiplies them with the bf16 query groups.
+  The rows already hold the center, so no q.c_leaf term joins at merge
+  time.  Slots are laid out in random order, and the full scan runs K5
+  (ops/fused_scan.py): one candidate per 256-slot group, then an exact
+  top-k over the group winners.
+
+Under residual quantization the LUT modes add q.c_leaf per (query, leaf)
+pair at merge time.  Plans over MAX_PLAN_WORK items, restricted full scans
+and the LUT modes' full scan run a dense masked scan over every slot
+(LUT16 through ops/lut16.py, or a chunked product with the decoded rows).
+Without a tree (``partitioning`` None) there is no tokenization, no
+residual and no pruned layout: every query is a full scan.  The base class
 then reorders the best candidates exactly.
 
-Not ported yet (each raises NotImplementedError): lookup_type
-"reconstruct", stacked quantization, variable chunks, SOAR, AVQ, mutation,
-projection and the non-partitioned searcher.
+Not ported yet (each raises NotImplementedError): stacked quantization,
+variable chunks, SOAR, AVQ, mutation, projection and a single-leaf tree.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch
 from scann_torch import config as cfg
 from scann_torch.models import base
 from scann_torch.ops import ah as ah_ops
+from scann_torch.ops import fused_scan
 from scann_torch.ops import kmeans as kmeans_ops
 from scann_torch.ops import lut16 as lut16_ops
 from scann_torch.ops import pruned_lut
@@ -41,7 +56,9 @@ _SCORE_CHUNK = 65536    # slots per chunk of the dense masked scan
 _ENCODE_CHUNK = 32768   # rows per encoding chunk (bounds the (chunk, B, J)
 # residual-stats arrays)
 _DENSE_QUERY_BLOCK = 2048  # queries per block of the dense scan
-_PAD_PENALTY = -1e30    # bias of padded / disallowed slots
+_PAD_PENALTY = fused_scan._PAD_PENALTY  # bias of padded / disallowed slots
+_GROUP = fused_scan.SUB  # slots per candidate group of the dense recon scan
+RECONSTRUCT = "reconstruct"
 
 _log = logging.getLogger("scann_torch")
 
@@ -60,26 +77,24 @@ def _round_up(x: int, m: int) -> int:
 def check_supported(scann_config: cfg.ScannConfig):
     """Raise NotImplementedError for the tree-AH settings not ported yet."""
     ah = scann_config.asymmetric_hash
-    if ah.lookup_type == "reconstruct":
-        base.not_ported("lookup_type='reconstruct' (kernels K2 and K5)", 13)
     if ah.quantization_scheme == "stacked":
         base.not_ported("stacked quantization", 16)
     if ah.variable_dims_per_block is not None:
         base.not_ported("variable_dims_per_block", 16)
-    if ah.lookup_type not in (cfg.INT8, cfg.FLOAT32):
+    if ah.lookup_type not in (cfg.INT8, cfg.FLOAT32, RECONSTRUCT):
         raise ValueError(f"unknown lookup_type {ah.lookup_type!r}")
     if ah.clusters_per_block not in (16, 256):
         raise ValueError("hash_type must be lut16 or lut256")
-    if (scann_config.partitioning is None
-            or scann_config.partitioning.num_leaves <= 1):
-        base.not_ported("the non-partitioned AH searcher", 13)
+    if (scann_config.partitioning is not None
+            and scann_config.partitioning.num_leaves <= 1):
+        base.not_ported("a single-leaf tree under score_ah", 13)
     ro = scann_config.reordering
     if ro is not None and ro.quantize == cfg.INT8 and not ro.residual:
         base.not_ported("non-residual int8 reordering", 12)
 
 
 class TreeAHSearcher(base.Searcher):
-    """Partitioned asymmetric-hashing searcher."""
+    """Asymmetric-hashing searcher, partitioned or not."""
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
                  device: torch.device):
@@ -94,6 +109,8 @@ class TreeAHSearcher(base.Searcher):
         self.ah_cfg = scann_config.asymmetric_hash
         self.measure = cfg.internal_measure(scann_config.distance_measure)
         self.residual = bool(self.ah_cfg.residual_quantization)
+        if self.part_cfg is None:
+            self.partitioner = None
         if self.residual and self.measure != cfg.DOT_PRODUCT:
             raise ValueError("residual quantization requires dot product "
                              "distance")
@@ -105,8 +122,36 @@ class TreeAHSearcher(base.Searcher):
         x_dev = self._build_x_dev
         n, d = x_dev.shape
         seed = self.config.seed
+        if self.part_cfg is None:
+            tokens = np.zeros((n,), np.int32)
+        else:
+            tokens = self._train_partition(x_dev)
+        self.datapoint_to_token = tokens[:, None]
+
+        if self.residual and self.partitioner is not None:
+            tokens_t = torch.from_numpy(tokens).to(self.device).long()
+            primary_vecs = x_dev - self.partitioner.centers[tokens_t]
+        else:
+            primary_vecs = x_dev
+
+        gen = torch.Generator().manual_seed(seed + 1)
+        sample_idx = kmeans_ops.sample_rows(
+            gen, n, self.ah_cfg.training_sample_size)
+        self.model = ah_ops.train_ah_model(
+            gen, primary_vecs[sample_idx.to(self.device)],
+            self.ah_cfg.dimensions_per_block,
+            self.ah_cfg.clusters_per_block,
+            self.ah_cfg.training_iterations, dims=d)
+        codes = self._encode_dataset(primary_vecs, x_dev)
+        self.index = self._layout_slots(codes, tokens,
+                                        np.arange(n, dtype=np.int32))
+        self._build_recon()
+
+    def _train_partition(self, x_dev) -> np.ndarray:
+        """Train the tree and return the final primary token of each row."""
+        n = x_dev.shape[0]
         self.partitioner = kmeans_tree.KMeansTreePartitioner.train(
-            x_dev, self.part_cfg, self.measure, seed)
+            x_dev, self.part_cfg, self.measure, self.config.seed)
         # Max-size bound per partition for the pruned scorers (MAX_NTILES
         # tiles per leaf): split oversized partitions, retokenize against
         # the grown center set, split again, then cap what is left.
@@ -135,26 +180,7 @@ class TreeAHSearcher(base.Searcher):
         # q.c_leaf bias must match the centers the residuals are taken
         # against.
         self._finish_deferred_reorder(x_dev, tokens)
-        self.datapoint_to_token = tokens[:, None]
-
-        tokens_t = torch.from_numpy(tokens).to(self.device).long()
-        if self.residual:
-            primary_vecs = x_dev - self.partitioner.centers[tokens_t]
-        else:
-            primary_vecs = x_dev
-
-        gen = torch.Generator().manual_seed(seed + 1)
-        sample_idx = kmeans_ops.sample_rows(
-            gen, n, self.ah_cfg.training_sample_size)
-        self.model = ah_ops.train_ah_model(
-            gen, primary_vecs[sample_idx.to(self.device)],
-            self.ah_cfg.dimensions_per_block,
-            self.ah_cfg.clusters_per_block,
-            self.ah_cfg.training_iterations, dims=d)
-        codes = self._encode_dataset(primary_vecs, x_dev)
-        self.index = self._layout_slots(codes, tokens,
-                                        np.arange(n, dtype=np.int32))
-        self._invalidate_pruned()
+        return tokens
 
     def _encode_dataset(self, vectors, originals) -> np.ndarray:
         """Encode all vectors in fixed-size chunks; also keeps the mean
@@ -181,16 +207,28 @@ class TreeAHSearcher(base.Searcher):
     def _layout_slots(self, codes: np.ndarray, leaf: np.ndarray,
                       dpid: np.ndarray) -> TreeAHIndex:
         """Sort slots by leaf and pad to a chunk multiple (the layout of
-        the dense scan and of the serialized index).  The device copy of
-        the codes is made when a dense query first arrives: pruned
-        queries read the tile-major layout instead."""
-        order, _ = native.sort_by_leaf(leaf, self.partitioner.num_leaves)
+        the dense scan and of the serialized index).  Reconstruct mode
+        then permutes the slots at random (the same numpy draw as the JAX
+        package, so both lay an index out identically): the group-max
+        scans need a query's best slots spread over the groups.  The
+        device copy of the codes is made when a dense LUT query first
+        arrives."""
+        num_leaves = (self.partitioner.num_leaves
+                      if self.partitioner is not None
+                      else (int(leaf.max()) + 1 if len(leaf) else 1))
+        order, _ = native.sort_by_leaf(leaf, num_leaves)
+        if self._recon_mode:
+            order = order[np.random.default_rng(
+                self.config.seed).permutation(len(order))]
         codes = native.gather_rows_i8(codes, order)
         leaf = leaf[order]
         dpid = dpid[order]
         s = codes.shape[0]
         self._num_slots = s
-        chunk = _SCORE_CHUNK if s >= _SCORE_CHUNK else _round_up(s, 128)
+        # Small indexes align to the fused scan's slot block in
+        # reconstruct mode.
+        align = fused_scan.BS if self._recon_mode else 128
+        chunk = _SCORE_CHUNK if s >= _SCORE_CHUNK else _round_up(s, align)
         self._chunk = chunk
         pad = _round_up(s, chunk) - s
         if pad:
@@ -209,10 +247,86 @@ class TreeAHSearcher(base.Searcher):
             self.index = self.index._replace(
                 codes=torch.from_numpy(self._host["codes"]).to(self.device))
 
+    # -------------------------------------------------- reconstruct mode
+    @property
+    def _recon_mode(self) -> bool:
+        return self.ah_cfg.lookup_type == RECONSTRUCT
+
+    @property
+    def _recon_dim(self) -> int:
+        """Feature dimension of the decoded rows: padded to 128."""
+        return _round_up(self.dims, 128)
+
+    def _decode_slots(self, codes, slot_leaf, slot_dpid, mean=None):
+        """Decode codes into bf16 approximate rows: x_hat = c_leaf +
+        recon(codes) under residual quantization, recon(codes) otherwise,
+        minus ``mean`` (squared L2: see _decode_mean), zero on dead slots,
+        zero-padded to _recon_dim.  Also returns ||x_hat||^2 of the f32
+        rows, summed before the bf16 cast."""
+        recon = ah_ops.reconstruct(codes, self.model)
+        if self.residual and self.partitioner is not None:
+            recon = recon + self.partitioner.centers[
+                torch.clamp_min(slot_leaf, 0).long()]
+        if mean is not None:
+            recon = recon - mean[None, :]
+        recon = torch.where((slot_dpid >= 0)[:, None], recon, 0.0)
+        recon = torch.nn.functional.pad(
+            recon, (0, self._recon_dim - recon.shape[1]))
+        return recon.to(torch.bfloat16), (recon * recon).sum(-1)
+
+    def _decode_chunks(self, codes, leaf, dpid):
+        """_decode_slots over host arrays in chunks; returns the device
+        rows (n, _recon_dim) bf16 and their squared norms (n,) f32."""
+        rows, sqs = [], []
+        for s in range(0, codes.shape[0], _ENCODE_CHUNK):
+            up = [torch.from_numpy(np.ascontiguousarray(
+                a[s:s + _ENCODE_CHUNK])).to(self.device)
+                for a in (codes, leaf, dpid)]
+            r, q = self._decode_slots(*up, mean=self._recon_mean)
+            rows.append(r)
+            sqs.append(q)
+        return torch.cat(rows), torch.cat(sqs)
+
+    def _make_bias(self, sq, dpid):
+        """Per-slot additive bias of K2 and K5: -||x_hat||^2 under squared
+        L2, the pad penalty on empty slots."""
+        bias = -sq if self.measure == cfg.SQUARED_L2 else torch.zeros_like(sq)
+        return torch.where(dpid >= 0, bias, _PAD_PENALTY)
+
+    def _build_recon(self):
+        """Reset every derived layout; in reconstruct mode compute the
+        mean and, without a pruned path, the full-scan rows."""
+        self._recon_rows = None
+        self._recon_sq = None
+        self._recon_bias = None
+        self._recon_mean = None
+        self._invalidate_pruned()
+        if not self._recon_mode:
+            return
+        if self.measure == cfg.SQUARED_L2:
+            self._recon_mean = self._decode_mean()
+        if self._pruned_available:
+            # Partitioned searchers serve from the pruned tile-major rows;
+            # the full-scan layout is built when a dense query arrives.
+            return
+        self._ensure_recon_rows()
+
+    def _ensure_recon_rows(self):
+        """Decoded rows in the slot order of the full scan (K5 and the
+        dense masked scan of reconstruct mode), built on first use."""
+        if self._recon_rows is not None:
+            return
+        h = self._host
+        self._recon_rows, self._recon_sq = self._decode_chunks(
+            h["codes"], h["leaf"], h["dpid"])
+        self._recon_bias = self._make_bias(self._recon_sq,
+                                           self.index.slot_dpid)
+
     # -------------------------------------------------- pruned leaf layout
     @property
     def _pruned_available(self) -> bool:
-        return self.partitioner.num_leaves > 1
+        return (self.partitioner is not None
+                and self.partitioner.num_leaves > 1)
 
     @property
     def _int8_lut(self) -> bool:
@@ -222,6 +336,7 @@ class TreeAHSearcher(base.Searcher):
                 and self.ah_cfg.clusters_per_block == 16)
 
     def _invalidate_pruned(self):
+        self._p_rows = None
         self._p_bias = None
         self._p_codes = None
         self._p_cb = None
@@ -254,12 +369,13 @@ class TreeAHSearcher(base.Searcher):
         return torch.from_numpy(mean).to(self.device)
 
     def _ensure_pruned(self):
-        """Build the tile-major per-leaf code layout of the pruned scorers
-        on first use: pair-packed 4-bit codes for K3, one byte per block
-        (255 = padding) for K4, plus the scorer's compact codebook table
-        (centered, with its squared norms, for K3), the pad-penalty bias
-        plane and the mean."""
-        if self._p_codes is not None:
+        """Build the tile-major per-leaf layout of the pruned scorers on
+        first use: decoded bf16 rows and their bias plane (-||x_hat||^2
+        under squared L2) for K2; pair-packed 4-bit codes for K3 or one
+        byte per block (255 = padding) for K4, plus the scorer's compact
+        codebook table (centered, with its squared norms, for K3), the
+        pad-penalty bias plane and the mean."""
+        if not self._pruned_available or self._pruned_built:
             return
         h = self._host
         live = np.nonzero(h["dpid"] >= 0)[0]
@@ -274,6 +390,22 @@ class TreeAHSearcher(base.Searcher):
         src = np.where(order >= 0, live[np.maximum(order, 0)], -1)
         dpid = np.where(src >= 0, h["dpid"][np.maximum(src, 0)], -1)
         dev = self.device
+        self._p_dpid = torch.from_numpy(dpid.astype(np.int32)).to(dev)
+        self._p_tile_start = torch.from_numpy(tile_start).to(dev)
+        self._p_ntiles = torch.from_numpy(ntiles).to(dev)
+        self._p_max_ntiles = int(ntiles.max())
+        self._p_num_tiles = num_tiles
+        if self._recon_mode:
+            codes = np.where((src >= 0)[:, None],
+                             h["codes"][np.maximum(src, 0)], 0).astype(
+                                 np.uint8)
+            leaf = np.where(src >= 0, h["leaf"][np.maximum(src, 0)], 0)
+            rows, sq = self._decode_chunks(codes, leaf.astype(np.int32),
+                                           dpid.astype(np.int32))
+            self._p_bias = self._make_bias(sq, self._p_dpid).reshape(
+                num_tiles, pruned_scan.TILE, 1)
+            self._p_rows = rows.reshape(num_tiles, pruned_scan.TILE, -1)
+            return
         if self.measure == cfg.SQUARED_L2 and self._recon_mean is None:
             self._recon_mean = self._decode_mean()
         dpb = self.model.dims_per_block
@@ -302,75 +434,143 @@ class TreeAHSearcher(base.Searcher):
                 measure_l2=self.measure == cfg.SQUARED_L2)
         else:
             self._p_cb = pruned_lut.codes_table(codebook, b_pad)
-        self._p_dpid = torch.from_numpy(dpid.astype(np.int32)).to(dev)
-        self._p_tile_start = torch.from_numpy(tile_start).to(dev)
-        self._p_ntiles = torch.from_numpy(ntiles).to(dev)
-        self._p_max_ntiles = int(ntiles.max())
-        self._p_num_tiles = num_tiles
         self._p_codes = torch.from_numpy(codes3).to(dev)
+
+    @property
+    def _pruned_built(self) -> bool:
+        return (self._p_rows if self._recon_mode else self._p_codes) \
+            is not None
 
     # ------------------------------------------------------------- query
     def _default_leaves(self) -> int:
+        if self.part_cfg is None:
+            return 0
         return self.part_cfg.num_leaves_to_search
 
     def _prepare_for_query(self, nq: int, leaves: int,
                            full_scan: bool) -> bool:
         """Materialize the layout this batch will read; True when it takes
         the pruned path (leaf-gathered queries whose plan fits the work
-        budget), False for the dense masked scan."""
-        num_leaves = self.partitioner.num_leaves
-        if not full_scan and leaves < num_leaves:
+        budget), False for a dense path (full scan, no tree, or a plan
+        over the budget): the decoded rows in reconstruct mode, the device
+        codes otherwise."""
+        if (self._pruned_available and not full_scan
+                and leaves < self.partitioner.num_leaves):
+            num_leaves = self.partitioner.num_leaves
             self._ensure_pruned()
-            if self._p_codes is not None:
+            if self._pruned_built:
                 _, w_pad = pruned_scan.plan_capacities(
                     nq, min(leaves, num_leaves), num_leaves,
                     self._p_num_tiles, self._p_max_ntiles)
                 if w_pad <= pruned_scan.MAX_PLAN_WORK:
                     return True
-        self._ensure_dense_codes()
+        if self._recon_mode:
+            self._ensure_recon_rows()
+        else:
+            self._ensure_dense_codes()
         return False
 
     def _select_candidates(self, queries, k_pre: int, leaves: int,
                            full_scan: bool = False, restrict=None):
         if self._prepare_for_query(queries.shape[0], leaves, full_scan):
             return self._pruned_select(queries, k_pre, leaves, restrict)
+        if (self._recon_mode and full_scan and restrict is None
+                # enough groups that top-k collision losses are negligible
+                and (self._recon_rows.shape[0] // fused_scan.SUB
+                     >= 4 * k_pre)):
+            return self._fused_select(queries, k_pre)
         return self._dense_select(queries, k_pre, leaves, full_scan,
                                   restrict)
 
+    def _recon_queries(self, queries, d_pad: int):
+        """(centered f32 queries, their bf16 copy zero-padded to d_pad)."""
+        q_c = queries
+        if self._recon_mean is not None:
+            q_c = queries - self._recon_mean[None, :]
+        q_bf = torch.nn.functional.pad(
+            q_c, (0, d_pad - q_c.shape[1])).to(torch.bfloat16)
+        return q_c, q_bf
+
+    def _fused_select(self, queries, k_pre: int):
+        """Full-scan candidate selection through K5 (ops/fused_scan.py):
+        one candidate per 256-slot group, no materialized score matrix,
+        then an exact top-k over the group winners (the JAX package takes
+        approx_max_k there)."""
+        q_c, q_bf = self._recon_queries(queries, self._recon_rows.shape[1])
+        l2 = self.measure == cfg.SQUARED_L2
+        self._stage("tokenize")
+        vals, slots = fused_scan.fused_scan_groupmax(
+            q_bf, self._recon_rows, self._recon_bias, measure_l2=l2)
+        vals, pos = topk_ops.top_k(vals, min(k_pre, vals.shape[-1]))
+        slots = torch.gather(slots, -1, pos.long())
+        dpids = self.index.slot_dpid[torch.clamp_min(slots, 0).long()]
+        dead = vals < -1e20
+        vals = torch.where(dead, float("-inf"), vals)
+        dpids = torch.where(dead, -1, dpids)
+        if l2:
+            # Restore the rank-invariant -||q||^2 of the centered query, so
+            # the values are true negated squared distances.
+            vals = vals - (q_c * q_c).sum(-1)[:, None]
+        self._stage("scan")
+        return vals, dpids
+
     def _dense_select(self, queries, k_pre, leaves, full_scan, restrict):
-        """Masked LUT16 scan over every slot (full scan, or plans over the
-        work budget).  The LUTs here are quantized per query with each
-        block centered on its midpoint (ah.quantize_luts), unlike K3's."""
+        """Masked scan over every slot (LUT modes' full scan, restricted
+        full scans, plans over the work budget).  LUT modes score with the
+        LUT16 one-hot product; the LUTs here are quantized per query with
+        each block centered on its midpoint (ah.quantize_luts), unlike
+        K3's.  Reconstruct mode multiplies the bf16 queries with the
+        decoded rows chunk by chunk (a plain product, as in the JAX
+        package) and, given enough groups, keeps one candidate per
+        256-slot group of the randomly ordered slots before the top-k."""
         nq = queries.shape[0]
-        num_leaves = self.partitioner.num_leaves
         dev = queries.device
-        luts = ah_ops.build_luts(queries, self.model, self.measure,
-                                 self.ah_cfg.lookup_type)
-        leaves = num_leaves if full_scan else max(1, min(leaves, num_leaves))
-        leaf_ids, center_sims = self.partitioner.tokenize_queries(queries,
-                                                                  leaves)
-        # One (query, leaf) table: -inf for unselected leaves, else the
-        # q.c_leaf bias under residual quantization (0 otherwise).
-        vals = (center_sims if self.residual
-                else torch.zeros_like(center_sims))
-        combo = torch.full((nq, num_leaves), float("-inf"), device=dev)
-        combo.scatter_(1, leaf_ids.long(), vals)
+        recon = self._recon_mode
+        l2 = self.measure == cfg.SQUARED_L2
+        luts = lut_flat = inv_mult = None
+        if recon:
+            q_c, q_bf = self._recon_queries(queries,
+                                            self._recon_rows.shape[1])
+            q_f = q_bf.float()
+            q_sq = (q_c * q_c).sum(-1)
+        else:
+            luts = ah_ops.build_luts(queries, self.model, self.measure,
+                                     self.ah_cfg.lookup_type)
+            lut_flat = lut16_ops.lut_matrix(luts)
+            inv_mult = luts.inv_multiplier if luts.int8 is not None else None
+        combo = None
+        if self._pruned_available:
+            num_leaves = self.partitioner.num_leaves
+            leaves = (num_leaves if full_scan
+                      else max(1, min(leaves, num_leaves)))
+            leaf_ids, center_sims = self.partitioner.tokenize_queries(
+                queries, leaves)
+            # One (query, leaf) table: -inf for unselected leaves, else the
+            # q.c_leaf bias under residual quantization (0 otherwise, and
+            # in reconstruct mode, whose rows hold the center).
+            vals = (center_sims if self.residual and not recon
+                    else torch.zeros_like(center_sims))
+            combo = torch.full((nq, num_leaves), float("-inf"), device=dev)
+            combo.scatter_(1, leaf_ids.long(), vals)
         self._stage("tokenize")
 
-        codes_all = self.index.codes
         leaf_all = self.index.slot_leaf.long()
         dpid_all = self.index.slot_dpid
         cpb = self.ah_cfg.clusters_per_block
         chunk = self._chunk
-        k_fetch = min(k_pre, dpid_all.shape[0])
-        lut_flat = lut16_ops.lut_matrix(luts)
-        inv_mult = luts.inv_multiplier if luts.int8 is not None else None
+        n_slots = dpid_all.shape[0]
+        k_fetch = min(k_pre, n_slots)
+        groupmax = (recon and chunk % _GROUP == 0
+                    and n_slots // _GROUP >= 4 * k_fetch)
         blocks = range(0, nq, _DENSE_QUERY_BLOCK)
         state = [None] * len(blocks)
-        for start in range(0, dpid_all.shape[0], chunk):
+        for start in range(0, n_slots, chunk):
             cs = slice(start, start + chunk)
             leaf_c, dpid_c = leaf_all[cs], dpid_all[cs]
-            oh = lut16_ops.one_hot_codes(codes_all[cs], cpb)
+            if recon:
+                rows_c = self._recon_rows[cs].float()
+            else:
+                oh = lut16_ops.one_hot_codes(self.index.codes[cs], cpb)
             valid = (dpid_c >= 0)[None, :]
             if restrict is not None:
                 allow = restrict[torch.clamp(
@@ -378,10 +578,25 @@ class TreeAHSearcher(base.Searcher):
                 valid = valid & allow[None, :]
             for bi, b0 in enumerate(blocks):
                 qb = slice(b0, b0 + _DENSE_QUERY_BLOCK)
-                sim = lut16_ops.score_one_hot(
-                    oh, lut_flat[qb],
-                    None if inv_mult is None else inv_mult[qb])
-                sim = sim + combo[qb][:, leaf_c]
+                if recon:
+                    sim = q_f[qb] @ rows_c.T
+                    if l2:
+                        sim = -(q_sq[qb][:, None] - 2.0 * sim
+                                + self._recon_sq[cs][None, :])
+                else:
+                    sim = lut16_ops.score_one_hot(
+                        oh, lut_flat[qb],
+                        None if inv_mult is None else inv_mult[qb])
+                if combo is not None:
+                    sim = sim + combo[qb][:, leaf_c]
+                if groupmax:
+                    gv, gslot = fused_scan.group_max_first(
+                        torch.where(valid, sim, float("-inf")), start)
+                    if state[bi] is None:
+                        state[bi] = ([], [])
+                    state[bi][0].append(gv)
+                    state[bi][1].append(gslot)
+                    continue
                 cvals, cpos = topk_ops.chunk_top_k(
                     sim, min(k_fetch, chunk), valid=valid)
                 cslot = torch.where(cpos >= 0, start + cpos, -1)
@@ -389,15 +604,24 @@ class TreeAHSearcher(base.Searcher):
                     cvals, cslot = topk_ops.merge_top_k(
                         *state[bi], cvals, cslot, k_fetch)
                 state[bi] = (cvals, cslot)
-        vals = torch.cat([s[0] for s in state])
-        slots = torch.cat([s[1] for s in state])
+        if groupmax:
+            gvs = torch.cat([torch.cat(s[0], dim=1) for s in state])
+            gss = torch.cat([torch.cat(s[1], dim=1) for s in state])
+            vals, pos = topk_ops.top_k(gvs, min(k_fetch, gvs.shape[1]))
+            slots = torch.gather(gss, -1, pos.long())
+            slots = torch.where(torch.isneginf(vals), -1, slots)
+        else:
+            vals = torch.cat([s[0] for s in state])
+            slots = torch.cat([s[1] for s in state])
         self._stage("scan")
         dpids = torch.where(slots >= 0,
                             dpid_all[torch.clamp_min(slots, 0).long()], -1)
-        return vals + luts.base[:, None], dpids
+        if luts is not None:
+            vals = vals + luts.base[:, None]
+        return vals, dpids
 
     def _pruned_select(self, queries, k_pre: int, leaves: int, restrict):
-        """Leaf-gathered candidate selection through K3 or K4."""
+        """Leaf-gathered candidate selection through K2, K3 or K4."""
         partitioner = self.partitioner
         num_leaves = partitioner.num_leaves
         leaves = max(1, min(leaves, num_leaves))
@@ -406,12 +630,13 @@ class TreeAHSearcher(base.Searcher):
         valid_sel = partitioner.spilling_mask(center_sims)
         self._stage("tokenize")
 
-        q_c = queries
-        if self._recon_mean is not None:
-            q_c = queries - self._recon_mean[None, :]
-        d_pad = self._p_mean.shape[0]
-        q_bf = torch.nn.functional.pad(
-            q_c, (0, d_pad - q_c.shape[1])).to(torch.bfloat16)
+        recon_path = self._p_rows is not None
+        # The decoded rows already hold the leaf center.
+        pair_bias = (center_sims if self.residual and not recon_path
+                     else None)
+        d_pad = (self._p_rows.shape[-1] if recon_path
+                 else self._p_mean.shape[0])
+        q_c, q_bf = self._recon_queries(queries, d_pad)
         merge_hot = pruned_scan.HOT_LEAVES
         if nq * leaves <= pruned_scan.QG:
             # Small-batch fast path: one group per pair, no sorts, and an
@@ -449,7 +674,10 @@ class TreeAHSearcher(base.Searcher):
         if self._kpg_override:
             kpg = self._kpg_override
         self._stage("plan")
-        if self._int8_lut:
+        if recon_path:
+            packed = pruned_scan.score_work(
+                plan, qg_rows, self._p_rows, p_bias, measure_l2=l2, kpg=kpg)
+        elif self._int8_lut:
             packed = pruned_lut.score_work_lut(
                 plan, qg_rows, self._p_codes, self._p_cb, self._p_csq,
                 p_bias, measure_l2=l2, kpg=kpg)
@@ -458,10 +686,16 @@ class TreeAHSearcher(base.Searcher):
                 plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
                 p_bias, measure_l2=l2, kpg=kpg)
         self._stage("score")
-        cand_vals, cand_slots = pruned_scan.merge_candidates(
-            plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-            self._p_ntiles, self._p_max_ntiles, k_fetch,
-            pair_bias=center_sims if self.residual else None, hot=merge_hot)
+        if pruned_scan.fused_merge_enabled(k_fetch):
+            cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
+                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                self._p_ntiles, self._p_max_ntiles, k_fetch,
+                pair_bias=pair_bias)
+        else:
+            cand_vals, cand_slots = pruned_scan.merge_candidates(
+                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                self._p_ntiles, self._p_max_ntiles, k_fetch,
+                pair_bias=pair_bias, hot=merge_hot)
         dpids = torch.where(
             cand_slots >= 0,
             self._p_dpid[torch.clamp_min(cand_slots, 0).long()], -1)

@@ -273,10 +273,17 @@ class TreeXSearcher(base.Searcher):
             plan, qg_rows, self.slot_rows, self.slot_scale, bias2,
             measure_l2=l2, kpg=kpg)
         self._stage("score")
-        cand_vals, cand_slots = pruned_scan.merge_candidates(
-            plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-            self._p_ntiles, self._p_max_ntiles, k_fetch,
-            pair_bias=pair_bias, hot=merge_hot, tile=self.slot_rows.shape[1])
+        tile = self.slot_rows.shape[1]
+        if pruned_scan.fused_merge_enabled(k_fetch):
+            cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
+                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                self._p_ntiles, self._p_max_ntiles, k_fetch,
+                pair_bias=pair_bias, tile=tile)
+        else:
+            cand_vals, cand_slots = pruned_scan.merge_candidates(
+                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                self._p_ntiles, self._p_max_ntiles, k_fetch,
+                pair_bias=pair_bias, hot=merge_hot, tile=tile)
         dpids = torch.where(
             cand_slots >= 0,
             self.slot_dpid[torch.clamp_min(cand_slots, 0).long()], -1)

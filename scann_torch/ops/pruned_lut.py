@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops.pruned_sq import _SMEM_LIMIT, _check
+from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
 
 # Kernel launches made by score_work_lut / score_work_codes (CPU calls
 # never count).

@@ -1,22 +1,31 @@
 """Pruned (leaf-gathered) scoring: work plan, packed survivors, merge.
 
-Port of the plan, merge and layout parts of scann_tpu/ops/pruned_scan.py
-(the scorer itself lives in ops/pruned_sq.py).  Slots are sorted by leaf,
-each leaf padded to a multiple of the tile size, and the (query, leaf)
-selections of a batch are inverted into leaf-major work items: item
+Port of scann_tpu/ops/pruned_scan.py.  Slots are sorted by leaf, each leaf
+padded to a multiple of the tile size, and the (query, leaf) selections of
+a batch are inverted into leaf-major work items: item
 ``w = group * max_ntiles + t`` scores tile ``t`` of one query group's leaf
 for up to ``QG`` queries.  Each scorer keeps the top ``kpg`` of every
 ``SUBP``-slot group with its (tile, slot) identity packed into the low 9
-mantissa bits, and ``merge_candidates`` turns those survivors into each
-query's top-k.
+mantissa bits, and ``merge_candidates`` (stratified gathers) or
+``merge_candidates_fused`` (one top-k reduction per packed row) turns those
+survivors into each query's top-k.
+
+Two hand-written CUDA kernels live behind this module: ``score_work`` (K2,
+csrc/pruned_rows.cu, the port of the Pallas kernel ``score_work_pallas``:
+decoded bf16 rows of tree-AH in reconstruct mode) and ``merge_groups`` (K6,
+csrc/merge_groups.cu, the port of ``merge_groups_pallas``).  On CUDA
+tensors they launch their kernel or raise; on CPU tensors they run
+``score_work_torch`` / ``merge_groups_torch``.  The tree-SQ and LUT scorers
+live in ops/pruned_sq.py and ops/pruned_lut.py.
 
 Shapes, constants and path boundaries are the JAX package's, unchanged, so
-both packages take the same path on the same batch; the arithmetic is
-plain torch.
+both packages take the same path on the same batch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +52,14 @@ HOT_LEAVES = 8  # leaves per query (by tokenization rank) merged at full
 _SENTINEL = 1 << 30
 _ID_BITS = _IDX_BITS + _TILE_BITS
 _ID_MASK = (1 << _ID_BITS) - 1
+
+# Kernel launches made by score_work (K2) and merge_groups (K6); CPU calls
+# never count.
+launches = 0
+launches_merge = 0
+
+_WORK_CHUNK = 32
+_SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 
 
 def _round_up(x: int, m: int) -> int:
@@ -213,6 +230,109 @@ def _group_top_packed(grouped, t, axis: int, cat_axis: int,
     return torch.cat(outs, dim=cat_axis).view(torch.int32)
 
 
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def score_work_torch(plan: WorkPlan, qg_rows, rows3, bias, *,
+                     measure_l2: bool, kpg: int = KPG,
+                     work_chunk: int = _WORK_CHUNK):
+    """Plain torch version of the K2 scorer (twin of the JAX package's
+    score_work_xla).  qg_rows: (G_pad, QG, d) bf16 gathered query groups;
+    rows3: (num_tiles, TILE, d) bf16 decoded rows; bias: (num_tiles,
+    TILE[, 1]) f32 (-||x_hat||^2 under squared L2, the pad penalty on dead
+    slots).  ``s = scale * (rows . q) + bias`` with scale 2 under squared
+    L2, then the packed top-kpg of every 32-slot group.  The bf16 x bf16
+    products are exact in f32 but their sum is order-dependent, so values
+    agree with the kernel and with the JAX package to ~2^-14 relative, not
+    bit for bit.  Computes inactive items too (never read)."""
+    w_pad = plan.work_tile.shape[0]
+    mnt = w_pad // plan.qg_query.shape[0]
+    scale = 2.0 if measure_l2 else 1.0
+    bias2 = bias.reshape(bias.shape[0], -1)
+    dev = rows3.device
+    out = torch.empty((w_pad, QG, kpg * GP), dtype=torch.int32, device=dev)
+    wi = torch.arange(w_pad, dtype=torch.int32, device=dev) % mnt
+    for s0 in range(0, w_pad, work_chunk):
+        wt = plan.work_tile[s0:s0 + work_chunk].long()
+        wq = plan.work_qg[s0:s0 + work_chunk].long()
+        c = wt.shape[0]
+        s = torch.bmm(rows3[wt].float(), qg_rows[wq].float().transpose(1, 2))
+        s = scale * s + bias2[wt][:, :, None]
+        g = s.reshape(c, GP, SUBP, QG)
+        packed = _group_top_packed(g, wi[s0:s0 + c, None, None, None],
+                                   axis=2, cat_axis=1, kpg=kpg)
+        out[s0:s0 + c] = packed.transpose(1, 2)
+    g = w_pad // mnt
+    return (out.reshape(g, mnt, QG, kpg * GP).transpose(1, 2)
+            .reshape(g, QG, mnt * kpg * GP))
+
+
+def rows_smem_bytes(d_pad: int) -> int:
+    """Shared memory of one K2 block: the f32 query group plus the bf16
+    tile with rows padded to an odd word count (csrc/pruned_rows.cu)."""
+    return QG * d_pad * 4 + TILE * (d_pad // 2 + 1) * 4
+
+
+def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,
+               kpg: int = KPG):
+    """K2 scorer.  CPU tensors run the plain version; CUDA tensors launch
+    the CUDA kernel (or raise: there is no fallback on the GPU)."""
+    if rows3.device.type == "cpu":
+        return score_work_torch(plan, qg_rows, rows3, bias,
+                                measure_l2=measure_l2, kpg=kpg)
+    if rows3.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows3.device}")
+    global launches
+    from scann_torch import _cuda
+    dev = rows3.device
+    num_tiles, tile, d_pad = rows3.shape
+    g_pad = plan.qg_query.shape[0]
+    w_pad = plan.work_tile.shape[0]
+    if tile != TILE or w_pad % g_pad or d_pad % 8:
+        raise ValueError(f"unsupported shapes: tile {tile} (needs {TILE}), "
+                         f"w_pad {w_pad}, g_pad {g_pad}, d_pad {d_pad} "
+                         f"(needs a multiple of 8)")
+    if not 1 <= kpg <= SUBP:
+        raise ValueError(f"kpg must be in [1, {SUBP}], got {kpg}")
+    if rows_smem_bytes(d_pad) > _SMEM_LIMIT:
+        raise ValueError(
+            f"d_pad {d_pad} needs {rows_smem_bytes(d_pad)} B of shared "
+            f"memory, over the {_SMEM_LIMIT} B a block may use (walking the "
+            f"tile in slabs of slot groups is a ROADMAP section 2 "
+            f"follow-up of K2)")
+    mnt = w_pad // g_pad
+    _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
+    _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)
+    _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, QG, d_pad), dev)
+    _check("rows3", rows3, torch.bfloat16, (num_tiles, tile, d_pad), dev)
+    _check("bias", bias, torch.float32,
+           (num_tiles, tile) + (1,) * (bias.dim() - 2), dev)
+    out = torch.empty((g_pad, QG, mnt * kpg * GP), dtype=torch.int32,
+                      device=dev)
+    lib = _cuda.library("pruned_rows")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pruned_rows_score(
+            plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
+            qg_rows.data_ptr(), rows3.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), w_pad, mnt, kpg, d_pad,
+            ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
+    if err != 0:
+        raise RuntimeError(f"pruned_rows kernel launch failed: "
+                           f"{_cuda.error_string(lib, err)} ({err})")
+    launches += 1
+    return out
+
+
 def merge_candidates(plan: WorkPlan, packed, sel, valid_sel, tile_start,
                      ntiles, max_ntiles: int, k_fetch: int,
                      pair_bias=None, hot: int = HOT_LEAVES,
@@ -279,6 +399,247 @@ def merge_candidates(plan: WorkPlan, packed, sel, valid_sel, tile_start,
     top_slots = torch.where(dead, -1, top_slots)
     top_vals = torch.where(dead, float("-inf"), top_vals)
     return top_vals, top_slots
+
+
+# ------------------------------------------------------------ fused merge
+# merge_candidates is built from gathers of whole survivor rows.  The fused
+# merge instead reduces every (QG, w) packed row of every work group to its
+# top-k (selection key, tile) in one kernel (K6), and the per-pair assembly
+# gathers k-wide slices.  Selection is exact for k_fetch <= _FUSED_MAX_K:
+# a query's global top-k_fetch holds at most k_fetch candidates of any one
+# (query, leaf) pair, and within a pair the reduction is a true top-k.
+#
+# The selection key keeps bits [31..9] of the packed value as they are and
+# rewrites the 9 identity bits from (tile, slot) to (group, slot), so key
+# order refines the order merge_candidates ranks by (values with the
+# identity bits cleared).  The tile travels beside the key and is recovered
+# per pass by a second maximum over the winner mask: keys are unique per
+# column up to the tile, equal keys are equal-scored candidates of
+# different tiles, taken one per pass, largest tile first.
+
+_FUSED_MAX_K = 32  # selection passes per row; wider budgets take
+# merge_candidates
+# 0xFF000000 = -2^127: finite with a zero mantissa, so identity bits OR'd
+# into it can never form a NaN.
+_BIG_NEG_F = float(np.int32(-(1 << 24)).view(np.float32))
+
+
+def fused_merge_enabled(k_fetch: int) -> bool:
+    """Merge policy, read at call time: the fused merge is off unless
+    k_fetch <= _FUSED_MAX_K and SCANN_TORCH_FUSED_MERGE=1.  Both merges'
+    times on the card are recorded in PERF.md; turn the default only with
+    a test."""
+    return (k_fetch <= _FUSED_MAX_K
+            and os.environ.get("SCANN_TORCH_FUSED_MERGE", "0") == "1")
+
+
+def _fused_rewrite(bits, col, nt1, valid1, gp_bits: int, kgp_bits: int):
+    """Selection keys of packed rows.  bits (r, w) int32; col (1, w) or
+    (r, w) int32 column index; nt1 / valid1 broadcastable (r, 1): the
+    leaf's tile count and the pair's validity.  Columns of tiles >= nt1
+    and of invalid pairs become -2^127.  Returns (pv (r, w) f32 keys,
+    t_col int32 tile-within-leaf of each column)."""
+    assert gp_bits <= _TILE_BITS, gp_bits
+    col = col.to(torch.int32)
+    t_col = col >> kgp_bits
+    g = col & ((1 << gp_bits) - 1)
+    ident = (g << _IDX_BITS) | (bits & _IDX_MASK)
+    live = (t_col < nt1) & (valid1 != 0)
+    key = ((bits & ~_ID_MASK) | ident).view(torch.float32)
+    big_neg = torch.tensor(_BIG_NEG_F, dtype=torch.float32,
+                           device=bits.device)
+    return torch.where(live, key, big_neg), t_col.expand(bits.shape)
+
+
+def _fused_passes(pv, t_col, k: int):
+    """k selection passes over keyed rows: the largest key, the largest
+    tile among the columns that hold it, and that one column set to
+    -2^127.  Returns (m_bits (r, k) int32 selected keys, t_sel (r, k)
+    int32)."""
+    ms, ts = [], []
+    for _ in range(k):
+        m = torch.amax(pv, dim=1, keepdim=True)
+        win = pv == m
+        t_win = torch.amax(torch.where(win, t_col, -1), dim=1, keepdim=True)
+        pv = torch.where(win & (t_col == t_win), _BIG_NEG_F, pv)
+        ms.append(m.view(torch.int32))
+        ts.append(t_win)
+    return torch.cat(ms, dim=1), torch.cat(ts, dim=1)
+
+
+def _fused_emit(m_bits, t_sel, base1, bias1, gp_bits: int, tile: int):
+    """(value, slot) of selected keys m_bits and tiles t_sel (r, k):
+    values are the packed scores with the identity bits cleared (what
+    merge_candidates unpacks) plus the pair bias; base1 (r, 1) is the
+    leaf's first slot."""
+    dead = m_bits.view(torch.float32) == _BIG_NEG_F
+    v = (m_bits & ~_ID_MASK).view(torch.float32)
+    vals = torch.where(dead, float("-inf"), v + bias1)
+    g = (m_bits >> _IDX_BITS) & ((1 << gp_bits) - 1)
+    arg = m_bits & _IDX_MASK
+    slots = torch.where(dead, -1, base1 + t_sel * tile + g * SUBP + arg)
+    return vals, slots
+
+
+def _bits(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def merge_groups_torch(packed, qg_nt, *, kgp: int, tile: int, k: int,
+                       group_chunk: int = 64):
+    """Plain torch version of the K6 kernel (twin of the JAX package's
+    merge_groups_pallas): every row of every group's (QG, w) packed block
+    reduced to its top-k (key, tile).  Integer and compare work only, so
+    the kernel is bit-equal to it."""
+    g_pad, qg, w = packed.shape
+    gp_bits, kgp_bits = _bits(tile // SUBP), _bits(kgp)
+    col = _arange(w, packed.device)[None, :]
+    mb = torch.empty((g_pad, qg, k), dtype=torch.int32, device=packed.device)
+    ts = torch.empty_like(mb)
+    for g0 in range(0, g_pad, group_chunk):
+        bits = packed[g0:g0 + group_chunk].reshape(-1, w)
+        nt1 = qg_nt[g0:g0 + group_chunk].repeat_interleave(qg)[:, None]
+        pv, t_col = _fused_rewrite(bits, col, nt1, 1, gp_bits, kgp_bits)
+        m, t = _fused_passes(pv, t_col, k)
+        mb[g0:g0 + group_chunk] = m.reshape(-1, qg, k)
+        ts[g0:g0 + group_chunk] = t.reshape(-1, qg, k)
+    return mb, ts
+
+
+def merge_groups(packed, qg_nt, *, kgp: int, tile: int, k: int):
+    """K6, the group-major fused merge.  packed (g_pad, QG, w) int32;
+    qg_nt (g_pad,) int32 tile count of each group's leaf (any valid count
+    for dead groups: their rows are never addressed).  Returns (m_bits,
+    t_sel), each (g_pad, QG, k) int32.  CPU tensors run the plain version;
+    CUDA tensors launch the CUDA kernel (or raise)."""
+    if packed.device.type == "cpu":
+        return merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    global launches_merge
+    from scann_torch import _cuda
+    dev = packed.device
+    g_pad, qg, w = packed.shape
+    gp = tile // SUBP
+    if (qg != QG or kgp & (kgp - 1) or gp & (gp - 1)
+            or _bits(gp) > _TILE_BITS or w % kgp):
+        raise ValueError(f"unsupported shapes: {qg} rows per group (needs "
+                         f"{QG}), kgp {kgp} and tile/32 = {gp} (need powers "
+                         f"of two, tile/32 <= {MAX_NTILES}), w {w}")
+    if not 1 <= k <= min(_FUSED_MAX_K, w):
+        raise ValueError(f"k must be in [1, min({_FUSED_MAX_K}, w)], got "
+                         f"{k}")
+    if w * 4 * _MERGE_ROWS_PER_BLOCK > _SMEM_LIMIT:
+        raise ValueError(f"rows of {w} words need "
+                         f"{w * 4 * _MERGE_ROWS_PER_BLOCK} B of shared "
+                         f"memory, over the {_SMEM_LIMIT} B a block may use")
+    _check("packed", packed, torch.int32, (g_pad, qg, w), dev)
+    _check("qg_nt", qg_nt, torch.int32, (g_pad,), dev)
+    mb = torch.empty((g_pad, qg, k), dtype=torch.int32, device=dev)
+    ts = torch.empty_like(mb)
+    lib = _cuda.library("merge_groups")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.merge_groups_topk(
+            packed.data_ptr(), qg_nt.data_ptr(), mb.data_ptr(),
+            ts.data_ptr(), g_pad, w, k, _bits(gp), _bits(kgp), stream)
+    if err != 0:
+        raise RuntimeError(f"merge_groups kernel launch failed: "
+                           f"{_cuda.error_string(lib, err)} ({err})")
+    launches_merge += 1
+    return mb, ts
+
+
+_MERGE_ROWS_PER_BLOCK = 8  # one warp per packed row (csrc/merge_groups.cu)
+_PAIR_CHUNK = 4096
+
+
+def merge_pairs_torch(packed2, flat_idx, nt1, tile01, bias1, valid1, *,
+                      kgp: int, tile: int, k: int):
+    """Pair-major plain version of the fused merge (twin of the JAX
+    package's merge_pairs_xla): gathers the packed row of each (query,
+    leaf) pair and runs the same selection passes, so only addressed rows
+    are reduced.  packed2 (g_pad*QG, w); flat_idx (P,) row of each pair;
+    nt1 / tile01 / bias1 / valid1 (P, 1).  Returns (vals, slots) (P, k)."""
+    gp_bits, kgp_bits = _bits(tile // SUBP), _bits(kgp)
+    col = _arange(packed2.shape[1], packed2.device)[None, :]
+    ms, ts = [], []
+    for p0 in range(0, flat_idx.shape[0], _PAIR_CHUNK):
+        cs = slice(p0, p0 + _PAIR_CHUNK)
+        pv, t_col = _fused_rewrite(packed2[flat_idx[cs].long()], col,
+                                   nt1[cs], valid1[cs], gp_bits, kgp_bits)
+        m, t = _fused_passes(pv, t_col, k)
+        ms.append(m)
+        ts.append(t)
+    return _fused_emit(torch.cat(ms), torch.cat(ts), tile01 * tile, bias1,
+                       gp_bits, tile)
+
+
+def merge_pairs_groups(plan: WorkPlan, packed, ntiles, flat_idx, tile01,
+                       bias1, valid1, *, kgp: int, tile: int, k: int):
+    """Group-major route of the fused merge: every row of every group
+    reduced through merge_groups (K6), then a k-wide gather per (query,
+    leaf) pair.  Same operands and result as merge_pairs_torch, bit for
+    bit, with the whole (g_pad, QG, w) block in place of gathered rows."""
+    # The kernel's outputs are addressed only at live (group, row)
+    # coordinates: dead groups get a clamped but valid tile count, and
+    # invalid pairs are masked after the gather.
+    qg_nt = ntiles[torch.clamp(plan.qg_leaf, 0,
+                               ntiles.shape[0] - 1).long()].to(
+                                   torch.int32).contiguous()
+    mb, ts = merge_groups(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    flat_c = torch.clamp(flat_idx, 0, mb.shape[0] * mb.shape[1] - 1).long()
+    vals, slots = _fused_emit(
+        mb.reshape(-1, k)[flat_c], ts.reshape(-1, k)[flat_c], tile01 * tile,
+        bias1, _bits(tile // SUBP), tile)
+    return (torch.where(valid1 != 0, vals, float("-inf")),
+            torch.where(valid1 != 0, slots, -1))
+
+
+def fused_pair_operands(plan: WorkPlan, sel, valid_sel, tile_start, ntiles,
+                        pair_bias=None):
+    """Per-pair operands of the fused merge, each (P, 1) but the first:
+    (flat_idx (P,) packed row of each pair, nt1 tile count of its leaf,
+    tile01 first tile of its leaf, bias1 pair bias, valid1 validity)."""
+    sel_l = sel.long()
+    flat = (plan.pair_gid * QG + plan.pair_row).reshape(-1)
+    nt1 = ntiles[sel_l].reshape(-1, 1).to(torch.int32)
+    t01 = tile_start[sel_l].reshape(-1, 1).to(torch.int32)
+    if pair_bias is not None:
+        bias1 = pair_bias.float().reshape(-1, 1)
+    else:
+        bias1 = torch.zeros((sel.numel(), 1), dtype=torch.float32,
+                            device=sel.device)
+    return flat, nt1, t01, bias1, valid_sel.reshape(-1, 1).to(torch.int32)
+
+
+def merge_candidates_fused(plan: WorkPlan, packed, sel, valid_sel,
+                           tile_start, ntiles, max_ntiles: int,
+                           k_fetch: int, pair_bias=None, tile: int = TILE):
+    """Drop-in replacement for merge_candidates on small budgets (k_fetch
+    <= _FUSED_MAX_K): every pair reduced to its top-k, no hot / cold
+    strata, exact global selection, and a final top-k over L*k-wide rows.
+    CUDA tensors take the group-major route (merge_pairs_groups, K6); CPU
+    tensors gather each pair's row first (merge_pairs_torch), which
+    reduces only addressed rows.  Both give the same result bit for bit."""
+    b, l = sel.shape
+    w = packed.shape[-1]
+    kgp = w // max_ntiles
+    k = min(k_fetch, w)
+    flat, nt1, t01, bias1, valid1 = fused_pair_operands(
+        plan, sel, valid_sel, tile_start, ntiles, pair_bias)
+    if packed.device.type == "cpu":
+        vals, slots = merge_pairs_torch(
+            packed.reshape(-1, w), flat, nt1, t01, bias1, valid1, kgp=kgp,
+            tile=tile, k=k)
+    else:
+        vals, slots = merge_pairs_groups(
+            plan, packed, ntiles, flat, t01, bias1, valid1, kgp=kgp,
+            tile=tile, k=k)
+    vals = vals.reshape(b, l * k)
+    slots = slots.reshape(b, l * k)
+    top_vals, pos = topk_ops.top_k(vals, min(k_fetch, l * k))
+    return top_vals, torch.gather(slots, -1, pos.long())
 
 
 def build_layout_host(leaf: np.ndarray, num_leaves: int, seed: int = 0,

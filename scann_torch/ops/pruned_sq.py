@@ -23,13 +23,13 @@ import ctypes
 import torch
 
 from scann_torch.ops import pruned_scan as ps
+from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
 
 # Kernel launches made by score_work_sq (CPU calls never count).
 launches = 0
 
 _WORK_CHUNK = 128
 _BLOCK_THREADS = 256
-_SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 
 
 def _smem_bytes(d_pad: int) -> int:
@@ -74,18 +74,6 @@ def score_work_torch_sq(plan, qg_rows, rows3, scale, bias, *,
     g = w_pad // mnt
     return (out.reshape(g, mnt, ps.QG, kpg * gp).transpose(1, 2)
             .reshape(g, ps.QG, mnt * kpg * gp))
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def score_work_sq(plan, qg_rows, rows3, scale, bias, *, measure_l2: bool,

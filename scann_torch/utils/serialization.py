@@ -1,8 +1,9 @@
 """Index serialization: ``scann_config.json`` + ``scann_assets.npz``.
 
 Port of scann_tpu/utils/serialization.py for the searchers the port
-serves: TreeAHSearcher (product codes with int8 / float32 lookup, with
-float32, bfloat16 or residual-int8 reordering), TreeXSearcher in
+serves: TreeAHSearcher (product codes with int8 / float32 / reconstruct
+lookup, with or without a tree, with float32, bfloat16 or residual-int8
+reordering), TreeXSearcher in
 residual-int8 mode and the float32 BruteForceSearcher.  Keys, dtypes and
 the config/meta blob are the JAX package's, so each package loads the
 other's index: the port searches an index built by scann_tpu (the search
@@ -84,10 +85,11 @@ def collect_assets(searcher):
         meta["chunk"] = searcher._chunk
         meta["quantization_error_sq"] = searcher._quantization_error_sq
         meta["encoded_slots"] = searcher._encoded_slots
-        put("centers", searcher.partitioner.centers)
-        meta["query_spilling_type"] = "fixed_number"
-        meta["query_spilling_threshold"] = 0.0
-        meta["upper_leaves_to_search"] = 1
+        if searcher.partitioner is not None:
+            put("centers", searcher.partitioner.centers)
+            meta["query_spilling_type"] = "fixed_number"
+            meta["query_spilling_threshold"] = 0.0
+            meta["upper_leaves_to_search"] = 1
     elif tname == "TreeXSearcher":
         put("slot_rows", searcher.slot_rows)
         put("slot_leaf", searcher.slot_leaf)
@@ -192,13 +194,16 @@ def load_searcher(artifacts_dir: str, device):
         s._quantization_error_sq = meta.get("quantization_error_sq", 0.0)
         s._encoded_slots = meta.get("encoded_slots", 0)
         s.datapoint_to_token = arrays["datapoint_to_token"]
-        s.partitioner = partitioner()
+        # A non-partitioned index carries no centers.
+        s.partitioner = partitioner() if "centers" in arrays else None
         if s.reorder_helper is not None and s.reorder_helper._leaf is not None:
             s.reorder_helper._centers = s.partitioner.centers
         s._host = {"codes": codes_np,
                    "leaf": np.asarray(arrays["slot_leaf"], np.int32),
                    "dpid": np.asarray(arrays["slot_dpid"], np.int32)}
-        s._invalidate_pruned()
+        # Decoded rows are not stored: reconstruct mode rebuilds them (and
+        # the mean) from the codes, as the JAX package does on load.
+        s._build_recon()
         return s
     if tname == "TreeXSearcher":
         from scann_torch.models import tree_x

@@ -1,7 +1,7 @@
-"""Tests of the port that need a CUDA card (marker ``cuda``): the K1, K3
-and K4 CUDA kernels against their plain torch versions, the CUDA search
-paths (tree-SQ and tree-AH) against the CPU plain path on the same index,
-and the wrappers' refusal of bad inputs.
+"""Tests of the port that need a CUDA card (marker ``cuda``): the K1-K6
+CUDA kernels against their plain torch versions, the CUDA search paths
+(tree-SQ, tree-AH in every lookup mode, the fused merge) against the CPU
+plain path on the same index, and the wrappers' refusal of bad inputs.
 They skip without a card.  On a machine with one (no JAX needed; the
 repository's conftest imports JAX, hence --noconftest):
 
@@ -12,13 +12,19 @@ Tolerance of K1 and K4 against their plain versions: unpacked values
 within rtol 2^-14 (identity perturbation plus summation order), packed
 identities equal on >= 99.9% of active survivors.  K3 at two dimensions
 per block: packed survivors bit-equal (exact products, one rounded sum per
-LUT entry, exact integer sums)."""
+LUT entry, exact integer sums).  K2 as K4 (values within 2^-14 relative
+plus 1e-5, identities >= 99.99%).  K5: values within 1e-5 relative plus
+1e-5, slot ids equal on >= 99.9% of groups, and where they differ the two
+values within that tolerance of each other (a tie broken by summation
+order).  K6: bit-equal on the rows of active groups (integer and compare
+work only)."""
 
 import numpy as np
 import pytest
 import torch
 
 import scann_torch
+from scann_torch.ops import fused_scan
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq
@@ -248,3 +254,233 @@ def test_cuda_tree_ah_search_matches_cpu_plain_path(cuda, measure, lookup,
     np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
     cfi, _ = cpu.search_batched(q[:32], leaves_to_search=32)
     assert (fi[:, :, None] == cfi[:, None, :]).any(-1).mean() >= 0.999
+
+
+def _rows_case(dev, seed, d=100, nl=40, nq=300, l=6, l2=False):
+    """A reconstruct-mode scoring problem: decoded bf16 rows padded to 128
+    dimensions, the bias plane carrying -||x||^2 under squared L2."""
+    r = np.random.default_rng(seed)
+    d_pad = -(-d // 128) * 128
+    ntiles = r.integers(1, 4, nl).astype(np.int32)
+    tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
+        np.int32)
+    num_tiles = int(ntiles.sum())
+    sel = np.stack([r.choice(nl, l, replace=False) for _ in range(nq)])
+    valid = r.random((nq, l)) < 0.9
+    g_pad, w_pad = ps.plan_capacities(nq, l, nl, num_tiles,
+                                      int(ntiles.max()))
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    plan = ps.invert(t(sel.astype(np.int32)), t(valid), t(tile_start),
+                     t(ntiles), int(ntiles.max()), g_pad, w_pad)
+    rows = np.zeros((num_tiles, 512, d_pad), np.float32)
+    rows[..., :d] = 0.3 * r.standard_normal((num_tiles, 512, d))
+    pad_slot = r.random((num_tiles, 512)) < 0.1
+    rows[pad_slot] = 0.0
+    bias = -(rows ** 2).sum(-1) if l2 else np.zeros((num_tiles, 512))
+    bias = np.where(pad_slot, -1e30, bias).astype(np.float32)[..., None]
+    q = np.zeros((nq, d_pad), np.float32)
+    q[:, :d] = r.standard_normal((nq, d))
+    qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
+    return (plan, qg, t(rows).to(torch.bfloat16), t(bias), t(tile_start),
+            t(ntiles), t(sel.astype(np.int32)), t(valid))
+
+
+@pytest.mark.parametrize("measure_l2", [False, True])
+@pytest.mark.parametrize("kpg", [8, 16])
+def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg):
+    plan, qg, rows, bias = _rows_case(cuda, 60 + kpg + measure_l2,
+                                      l2=measure_l2)[:4]
+    before = ps.launches
+    got = ps.score_work(plan, qg, rows, bias, measure_l2=measure_l2, kpg=kpg)
+    assert ps.launches == before + 1
+    want = ps.score_work_torch(plan, qg, rows, bias, measure_l2=measure_l2,
+                               kpg=kpg)
+    torch.cuda.synchronize()
+    a, b = _active_pair(plan, got, want, kpg)
+    va, vb = ps._unpack(a)[0].double(), ps._unpack(b)[0].double()
+    assert a.numel()
+    assert torch.all((va - vb).abs() <= 2.0 ** -14 * vb.abs() + 1e-5)
+    assert ((a & 511) == (b & 511)).double().mean() >= 0.9999
+
+
+def test_k2_wrapper_rejects_bad_inputs(cuda):
+    plan, qg, rows, bias = _rows_case(cuda, 5)[:4]
+    with pytest.raises(ValueError, match="rows3"):
+        ps.score_work(plan, qg, rows.float(), bias, measure_l2=False)
+    wide = torch.zeros((rows.shape[0], 512, 256), dtype=torch.bfloat16,
+                       device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ps.score_work(plan, qg, wide, bias, measure_l2=False)
+
+
+@pytest.mark.parametrize("measure_l2,nq,s,d", [
+    (False, 512, 8192, 128), (True, 300, 6144, 128), (False, 64, 4096, 256),
+    (True, 1, 2048, 128)])
+def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d):
+    r = np.random.default_rng(nq + s)
+    rows = r.standard_normal((s, d)).astype(np.float32)
+    rows[:, 100:] = 0.0
+    valid = r.random(s) < 0.9
+    rows[~valid] = 0.0
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    rows_bf = t(rows).to(torch.bfloat16)
+    sq = (rows_bf.float() ** 2).sum(-1).cpu().numpy()
+    bias = t(fused_scan.build_bias(valid, sq if measure_l2 else None))
+    q = r.standard_normal((nq, d)).astype(np.float32)
+    q[:, 100:] = 0.0
+    q_bf = t(q).to(torch.bfloat16)
+    before = fused_scan.launches
+    gv, gi = fused_scan.fused_scan_groupmax(q_bf, rows_bf, bias,
+                                            measure_l2=measure_l2)
+    assert fused_scan.launches == before + 1
+    wv, wi = fused_scan.fused_scan_groupmax_torch(q_bf, rows_bf, bias,
+                                                  measure_l2=measure_l2)
+    torch.cuda.synchronize()
+    assert gv.shape == wv.shape == (nq, s // 256) and gi.dtype == torch.int32
+    tol = 1e-5 * wv.abs() + 1e-5
+    assert torch.all((gv - wv).abs() <= tol)
+    same = gi == wi
+    assert same.double().mean() >= 0.999
+    # A differing slot is a tie up to summation order: the plain scores of
+    # both slots agree within the tolerance.
+    sim = (2.0 if measure_l2 else 1.0) * (
+        q_bf.float() @ rows_bf.float().T) + bias[None, :]
+    alt = torch.gather(sim, 1, gi.long())
+    assert torch.all((alt - wv).abs()[~same] <= tol[~same])
+
+
+def test_k5_wrapper_rejects_bad_inputs(cuda):
+    rows = torch.zeros((2048, 128), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros((2048,), device=cuda)
+    q = torch.zeros((8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        fused_scan.fused_scan_groupmax(q, rows[:1000], bias[:1000])
+    with pytest.raises(ValueError, match="queries"):
+        fused_scan.fused_scan_groupmax(q.float(), rows, bias)
+
+
+@pytest.mark.parametrize("tile,kpg,k", [(512, 8, 30), (512, 16, 10),
+                                        (256, 4, 10), (512, 8, 1)])
+def test_k6_kernel_bit_equal_to_plain_version(cuda, tile, kpg, k):
+    """Packed rows as a scorer writes them (random scores with identities
+    packed, many exact ties on the value bits, NaN in inactive segments);
+    the kernel equals the plain version on every row of an active group."""
+    r = np.random.default_rng(tile + kpg + k)
+    nl, nq, l = 40, 300, 6
+    ntiles = r.integers(1, 4, nl).astype(np.int32)
+    tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
+        np.int32)
+    sel = np.stack([r.choice(nl, l, replace=False) for _ in range(nq)])
+    mnt = int(ntiles.max())
+    g_pad, w_pad = ps.plan_capacities(nq, l, nl, int(ntiles.sum()), mnt)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    plan = ps.invert(t(sel.astype(np.int32)),
+                     t(np.ones((nq, l), bool)), t(tile_start), t(ntiles),
+                     mnt, g_pad, w_pad)
+    gp = tile // 32
+    kgp = kpg * gp
+    w = mnt * kgp
+    # Few distinct values, so the 23 value bits tie often.
+    scores = r.integers(-8, 8, (g_pad, 128, w)).astype(np.float32) * 0.25
+    scores[r.random(scores.shape) < 0.05] = -1e30
+    bits = scores.view(np.int32) & ~511
+    # Identities as a scorer packs them: the kpg survivors of one (tile,
+    # group) are distinct slots.
+    col = np.arange(w)
+    first = r.integers(0, 32, (g_pad, 128, mnt, 1, gp))
+    arg = (first + np.arange(kpg)[None, None, None, :, None]) % 32
+    ident = ((col // kgp) << 5)[None, None, :] | arg.reshape(g_pad, 128, w)
+    packed = t((bits | ident).astype(np.int32))
+    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
+        g_pad, 128, mnt, kgp).reshape(g_pad, 128, w)
+    packed = torch.where(act, packed, torch.tensor(
+        np.float32("nan").view(np.int32).item(), device=cuda,
+        dtype=torch.int32)).contiguous()
+    qg_nt = t(ntiles)[plan.qg_leaf.long()].contiguous()
+    before = ps.launches_merge
+    mb, ts = ps.merge_groups(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    assert ps.launches_merge == before + 1
+    wmb, wts = ps.merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    torch.cuda.synchronize()
+    live = plan.work_active.reshape(g_pad, mnt)[:, 0] == 1
+    assert live.any()
+    assert torch.equal(mb[live], wmb[live])
+    assert torch.equal(ts[live], wts[live])
+
+
+@pytest.mark.parametrize("measure,tree", [
+    ("dot_product", True), ("squared_l2", True), ("dot_product", False),
+    ("squared_l2", False)])
+def test_cuda_reconstruct_search_matches_cpu_plain_path(cuda, measure, tree,
+                                                        tmp_path):
+    import dataclasses
+    r = np.random.default_rng(0)
+    db = r.standard_normal((30000, 48)).astype(np.float32)
+    q = r.standard_normal((200, 48)).astype(np.float32)
+    b = scann_torch.builder(db, 10, measure)
+    if tree:
+        b = b.tree(num_leaves=32, num_leaves_to_search=4,
+                   training_sample_size=10000)
+    b = b.score_ah(2, anisotropic_quantization_threshold=0.2,
+                   training_sample_size=10000).reorder(20)
+    config = b.create_config()
+    config = dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
+        config.asymmetric_hash, lookup_type="reconstruct"))
+    s = scann_torch.create_searcher(db, config, "cuda")
+    s.serialize(str(tmp_path))
+    cpu = scann_torch.load_searcher(str(tmp_path), device="cpu")
+    searches = [dict(leaves_to_search=4), dict(leaves_to_search=32)] \
+        if tree else [dict()]
+    allow = np.zeros(len(db), bool)
+    allow[::2] = True
+    searches.append(dict(restrict_allowlist=allow, **searches[-1]))
+    for kw in searches:
+        before = (ps.launches, fused_scan.launches)
+        gi, gd = s.search_batched(q, **kw)
+        grew = (ps.launches - before[0], fused_scan.launches - before[1])
+        pruned = kw.get("leaves_to_search") == 4
+        fused = not pruned and "restrict_allowlist" not in kw
+        assert grew == (int(pruned), int(fused)), (kw.keys(), grew)
+        ci, cd = cpu.search_batched(q, **kw)
+        found = (gi[:, :, None] == ci[:, None, :]).any(-1)
+        assert found.mean() >= 0.999
+        same = gi == ci
+        np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("engine", ["tree_sq", "tree_ah_int8",
+                                    "tree_ah_reconstruct"])
+def test_cuda_fused_merge_matches_stratified_merge(cuda, engine,
+                                                   monkeypatch):
+    """With SCANN_TORCH_FUSED_MERGE=1 the search launches K6 and returns
+    what the stratified merge returns (the fused selection is exact; the
+    stratified one keeps every hot leaf's survivors and one per group of
+    the cold leaves, so a rare cold candidate may differ)."""
+    import dataclasses
+    r = np.random.default_rng(1)
+    db = r.standard_normal((30000, 48)).astype(np.float32)
+    q = r.standard_normal((300, 48)).astype(np.float32)
+    b = scann_torch.builder(db, 10, "dot_product").tree(
+        num_leaves=32, num_leaves_to_search=6, training_sample_size=10000)
+    if engine == "tree_sq":
+        s = b.score_brute_force(quantize="int8").build()
+    else:
+        config = b.score_ah(
+            2, anisotropic_quantization_threshold=0.2,
+            training_sample_size=10000).reorder(30).create_config()
+        lookup = engine.rsplit("_", 1)[1]
+        config = dataclasses.replace(
+            config, asymmetric_hash=dataclasses.replace(
+                config.asymmetric_hash, lookup_type=lookup))
+        s = scann_torch.create_searcher(db, config, "cuda")
+    monkeypatch.delenv("SCANN_TORCH_FUSED_MERGE", raising=False)
+    before = ps.launches_merge
+    wi, wd = s.search_batched(q)
+    assert ps.launches_merge == before
+    monkeypatch.setenv("SCANN_TORCH_FUSED_MERGE", "1")
+    gi, gd = s.search_batched(q)
+    assert ps.launches_merge == before + 1
+    found = (gi[:, :, None] == wi[:, None, :]).any(-1)
+    assert found.mean() >= 0.995
+    same = gi == wi
+    np.testing.assert_allclose(gd[same], wd[same], rtol=1e-5, atol=1e-6)

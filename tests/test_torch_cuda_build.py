@@ -13,7 +13,8 @@ from scann_torch import _cuda
 def test_every_signature_has_its_source_and_entry_points():
     sources = {f[:-3] for f in os.listdir(_cuda.CSRC) if f.endswith(".cu")}
     assert sources == set(_cuda.SIGNATURES)
-    assert {"pruned_sq", "pruned_lut", "pruned_codes"} <= sources
+    assert sources == {"pruned_sq", "pruned_lut", "pruned_codes",
+                       "pruned_rows", "fused_scan", "merge_groups"}
     for name, fns in _cuda.SIGNATURES.items():
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert 'extern "C" const char* error_string' in text
@@ -31,8 +32,22 @@ def test_sources_ship_with_the_package():
     assert '"csrc/*.cu"' in text and '"csrc/*.cuh"' in text
     assert os.path.exists(os.path.join(_cuda.CSRC, "survivors.cuh"))
     for name in _cuda.SIGNATURES:
-        assert '#include "survivors.cuh"' in open(
-            os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        # Every scorer with the packed-survivor epilogue shares one header;
+        # whatever a source includes from csrc/ is there.
+        if name.startswith("pruned_"):
+            assert '#include "survivors.cuh"' in text
+        for header in re.findall(r'#include "([^"]+)"', text):
+            assert os.path.exists(os.path.join(_cuda.CSRC, header)), header
+
+
+def test_new_kernels_state_what_they_replace():
+    for name, replaced in (("pruned_rows", "score_work_pallas"),
+                           ("fused_scan", "fused_scan_groupmax"),
+                           ("merge_groups", "merge_groups_pallas")):
+        text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        assert replaced in text and "What bounds it on the H100" in text
+        assert "__global__" in text and "cublas" not in text.lower()
 
 
 def test_staleness_sees_source_and_header(tmp_path, monkeypatch):

@@ -6,10 +6,15 @@ arrays, and on the same queries the top-10 ids agree on >= 99.9% of
 entries and the distances within rtol 1e-4 (squared L2: relative to
 |d| + ||q||^2 + ||x||^2, the terms the distance is computed from).
 Covered: int8 lookup (K3 path), float32 lookup and 256-center codes (K4
-path), dot product and squared L2, no reorder and float32 / bfloat16 /
-residual-int8 reorder, the invert and invert_small plans, the dense LUT16
-scan (full scan and a MAX_PLAN_WORK overflow), a restrict allowlist and
-the 16-survivor width.  The pre-reorder budget stays under 32: from there
+path), reconstruct mode (K2 path; its dense masked scan of the decoded
+rows on the full scan and the overflow), dot product and squared L2, no
+reorder and float32 / bfloat16 / residual-int8 reorder, the invert and
+invert_small plans, the dense LUT16 scan (full scan and a MAX_PLAN_WORK
+overflow), a restrict allowlist and the 16-survivor width.  The fused
+scan, the fused merge and the searcher without a tree are held in
+tests/test_torch_tree_ah_recon.py, on an index large enough for them.
+Reconstruct-mode scores are f32 sums that tie rarely, so the same 99.9%
+bar holds them with room.  The pre-reorder budget stays under 32: from there
 on the JAX merge selects with approx_max_k, whose choice among the exactly
 tied int8-LUT scores at the cut is not lax.top_k's lower-index-first, and
 the port's selection is exact.  One known difference stays inside the
@@ -63,14 +68,18 @@ CASES = {
     "dot_float_int8": ("dot_product", "float32", "lut16", 2, "int8"),
     "l2_float_none": ("squared_l2", "float32", "lut16", 2, None),
     "dot_lut256_f32": ("dot_product", "int8", "lut256", 4, "float32"),
+    "dot_recon_f32": ("dot_product", "reconstruct", "lut16", 2, "float32"),
+    "l2_recon_none": ("squared_l2", "reconstruct", "lut16", 2, None),
 }
 
 
-def _config(builder_fn, case, reorder_k=30, **kw):
+def _config(builder_fn, case, reorder_k=30, tree=True, **kw):
     measure, lookup, hash_type, dpb, reorder = CASES[case]
     db = kw.pop("db")
-    b = builder_fn(db, 10, measure, **kw).tree(
-        num_leaves=32, num_leaves_to_search=6, training_sample_size=4000)
+    b = builder_fn(db, 10, measure, **kw)
+    if tree:
+        b = b.tree(num_leaves=32, num_leaves_to_search=6,
+                   training_sample_size=4000)
     b = b.score_ah(dpb, anisotropic_quantization_threshold=0.2,
                    hash_type=hash_type, training_sample_size=4000)
     if reorder is not None:
@@ -157,7 +166,8 @@ def test_search_parity_plan_overflow(pair, data, monkeypatch):
     js._compiled = {}
     _assert_same(js.search_batched(q[:64], leaves_to_search=5),
                  ts.search_batched(q[:64], leaves_to_search=5), measure)
-    assert ts.index.codes is not None      # the dense layout was uploaded
+    # The dense layout was materialized: device codes, or decoded rows.
+    assert (ts._recon_rows if ts._recon_mode else ts.index.codes) is not None
     js._compiled = {}
 
 
@@ -291,14 +301,7 @@ def _ah(b, **kw):
     return b.tree(num_leaves=4, num_leaves_to_search=2).score_ah(2, **kw)
 
 
-def _with_lookup(b, lookup):
-    config = _ah(b).create_config()
-    return dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
-        config.asymmetric_hash, lookup_type=lookup))
-
-
 _UNPORTED = {
-    "reconstruct": (lambda b: _with_lookup(b, "reconstruct"), 13),
     "stacked": (lambda b: _ah(b, quantization_scheme="stacked")
                 .create_config(), 16),
     "variable_chunks": (lambda b: _ah(
@@ -311,7 +314,9 @@ _UNPORTED = {
     "mutation": (lambda b: b.tree(num_leaves=4, num_leaves_to_search=2,
                                   incremental_threshold=0.1).score_ah(2)
                  .create_config(), 15),
-    "no_tree": (lambda b: b.score_ah(2).create_config(), 13),
+    "single_leaf_tree": (lambda b: b.tree(
+        num_leaves=1, num_leaves_to_search=1).score_ah(2).create_config(),
+        13),
     "reorder_int8_raw": (lambda b: dataclasses.replace(
         _ah(b).reorder(10, quantize="int8").create_config(),
         reordering=scann_torch.ReorderConfig(
