@@ -43,7 +43,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      tree-AH's (k 30, in phase 6), and one search at leaves=100 on each
      engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
      lose no more than 0.002 of recall@10);
-  9. the kernels JSON line, the card line, and the final ok line.
+  9. the occupancy line of the two tensor-core kernels (K3, K5: registers
+     a thread, dynamic shared memory a block, resident blocks an SM, at
+     the main path's shapes), the kernels JSON line, the card line, and
+     the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -561,6 +564,7 @@ def cross_check(scann_torch, searcher, queries, what, **kw):
 def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
     """Phase 6; returns (K3 record, K4 record, summary dict) and adds the
     tree-AH part of K6's record to ``k6``."""
+    from scann_torch import _cuda
     from scann_torch.ops import pruned_lut
     from scann_torch.ops import pruned_scan
     tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
@@ -595,6 +599,8 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
 
     # Kernel phase: K3 and K4 at the main path's inputs.
     k3, k4 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    k3["occupancy"] = _cuda.occupancy("pruned_lut",
+                                      main._p_codes.shape[-1] * 2, 8)
     for measure_l2 in (False, True):
         for kpg in (8, 16):
             tag = f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}"
@@ -745,11 +751,12 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
 
     cross_check(scann_torch, main, queries, "tree-AH")
     return k3, k4, {"build_s": build_s, "points": points, "dense": dense,
-                    "merge": merges}
+                    "merge": merges, "b_pad": main._p_codes.shape[-1] * 2}
 
 
 def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
     """Phase 7; returns (K2 record, K5 record, summary dict)."""
+    from scann_torch import _cuda
     from scann_torch.ops import fused_scan
     from scann_torch.ops import pruned_scan
     torch.cuda.synchronize()
@@ -816,8 +823,8 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
             torch.cuda.empty_cache()
 
     # K5 on the full-scan layout, at the main path's shape.
-    k5 = {}
     rows, bias = s._recon_rows, s._recon_bias
+    k5 = {"occupancy": _cuda.occupancy("fused_scan", rows.shape[1])}
     _, q_bf = s._recon_queries(q_dev, rows.shape[1])
     for measure_l2 in (False, True):
         # Squared L2 on the same rows: the bias plane an L2 index has.
@@ -937,6 +944,7 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
     return k2, k5, {"build_s": build_s, "points": points, "full_scan": full,
                     "no_tree": no_tree,
                     "k5_composition_ms": composition_ms,
+                    "d_pad": rows.shape[1],
                     "pruned_rows_mb": pruned_b / 1e6,
                     "full_scan_rows_mb": scan_b / 1e6}
 
@@ -1087,6 +1095,12 @@ def main():
                "reconstruct": recon_summary,
                "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")}}
     log("summary " + json.dumps(summary))
+    # What the card makes of the two tensor-core kernels at the main path's
+    # shapes (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM).
+    log("occupancy " + json.dumps({
+        "pruned_lut": {"b_pad": ah_summary["b_pad"], **k3["occupancy"]},
+        "fused_scan": {"d_pad": recon_summary["d_pad"],
+                       **k5["occupancy"]}}))
     # library_ms is None for all six: no single PyTorch call computes a
     # gathered tile x query-group score with a packed per-32-slot top-k
     # (K1-K4), a product reduced to per-group maxima without the score

@@ -31,6 +31,7 @@ SIGNATURES = {
     },
     "pruned_lut": {
         "pruned_lut_score": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
+        "pruned_lut_occupancy": ([_I, _I, _P], _I),
     },
     "pruned_codes": {
         "pruned_codes_score": ([_P] * 8 + [_I] * 7 + [_P], _I),
@@ -40,6 +41,7 @@ SIGNATURES = {
     },
     "fused_scan": {
         "fused_scan_groupmax": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
+        "fused_scan_occupancy": ([_I, _P], _I),
     },
     "merge_groups": {
         "merge_groups_topk": ([_P] * 4 + [_I] * 5 + [_P], _I),
@@ -141,3 +143,18 @@ def library(name: str):
 
 def error_string(lib, err: int) -> str:
     return lib.error_string(err).decode()
+
+
+def occupancy(name: str, *shape: int) -> dict:
+    """What the card makes of kernel <name> at one shape (the shape
+    arguments of its ``<name>_occupancy`` entry point): registers a thread,
+    dynamic shared memory a block, resident blocks an SM, local (spill)
+    bytes a thread."""
+    lib = library(name)
+    info = (ctypes.c_int * 4)()
+    err = getattr(lib, f"{name}_occupancy")(*shape, info)
+    if err != 0:
+        raise RuntimeError(f"{name}_occupancy failed: "
+                           f"{error_string(lib, err)} ({err})")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), info))

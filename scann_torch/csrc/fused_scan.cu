@@ -16,141 +16,276 @@
 //
 // What bounds it on the H100: 2 * Q * S * d operations against S * d * 2
 // bytes of rows and Q * S / 256 * 8 bytes of output, so from a few hundred
-// queries on it is bound by operations at the bf16 tensor-core rate.  This
-// first version runs the products on the CUDA cores in f32, a register-
-// tiled product like a plain SGEMM: a block of 8 warps owns 64 queries and
-// walks the 8 groups of one 2048-slot block; per group the 256 x 128-dim
-// bf16 rows are staged in shared memory (rows padded to an odd word count,
-// so the 32 lanes of a warp read 32 banks).  Warp = 8 queries, lane = 8
-// slots (lane + 32 j), 64 accumulators a thread; the group maximum is a
-// per-thread scan in slot order then a 5-step warp butterfly on (value,
-// slot) pairs that prefers the lower slot on equal values.  mma / wgmma on
-// the staged tiles is later work.
+// queries on it is bound by operations at the bf16 tensor-core rate.  The
+// products run on the tensor cores as wgmma.mma_async m64n256k16 (bf16 in,
+// f32 accumulators), so a 256-slot candidate group is one wgmma N extent
+// and its maximum is a reduction inside the accumulator registers:
+//   * a block of two warpgroups owns 128 queries (64 each); its query tile
+//     (128 x d bf16) stays in shared memory for the whole block;
+//   * it walks the 8 groups of one 2048-slot block; a group's 256 rows
+//     come in chunks of 64 dimensions (256 x 128 B = 32 KB), a ring of 4
+//     stages filled with cp.async, so three chunks are in flight while the
+//     tensor cores work on the fourth;
+//   * tiles are stored in the 128-byte swizzled K-major layout the wgmma
+//     descriptors read (16-byte chunk c of row r at c ^ (r & 7)), which is
+//     also free of bank conflicts for the cp.async writes;
+//   * after a group's last chunk each thread holds 64 scores of two query
+//     rows (columns 8j + 2t + {0, 1}); it scans them in rising slot order
+//     with a strict compare, then two __shfl_xor_sync steps across the
+//     quad that hold a row take the maximum, preferring the lower slot on
+//     equal values.  No shared memory and no score matrix.
+// Row traffic: the grid runs the query tiles of one 2048-slot block next
+// to each other (blockIdx.x = query tile), so the 79 blocks of a 10,000-
+// query batch read a slot block at about the same time: the rows come from
+// device memory about once (S * d * 2 bytes, 319 MB at bench scale) and
+// from L2 for the other query tiles (Q / 128 passes, 25 GB through L2).
+// Each block also reads its query tile once (Q * d * 2 * S / 2048 bytes,
+// 1.6 GB through L2 at bench scale).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQB = 64;        // queries per block
-constexpr int kSub = 256;      // slots per candidate group
-constexpr int kBS = 2048;      // slots per block of groups
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarpQ = 8;      // queries per warp
-constexpr int kLaneS = 8;      // slots per lane
-constexpr int kDC = 128;       // dimensions staged per step
-constexpr int kRowWords = kDC / 2 + 1;  // odd: conflict-free row reads
+constexpr int kQT = 128;          // queries per block: two warpgroups
+constexpr int kSub = 256;         // slots per candidate group = wgmma N
+constexpr int kBS = 2048;         // slots per block
+constexpr int kGroups = kBS / kSub;
+constexpr int kKC = 64;           // dimensions per chunk: one 128-byte row
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+constexpr int kStageBytes = kSub * kKC * 2;    // 32 KB
+constexpr int kQChunkBytes = kQT * kKC * 2;    // 16 KB
 
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
+// Byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile.
+__device__ __forceinline__ uint32_t swizzled(uint32_t r, uint32_t c) {
+  return r * 128u + ((c ^ (r & 7u)) << 4);
 }
 
-// queries (Q_pad, d) bf16 with Q_pad % 64 == 0, rows (S, d) bf16 with
-// S % 2048 == 0 and d % 128 == 0, bias (S,) f32; vals / idx (Q_pad, S/256).
-__global__ void __launch_bounds__(kThreads)
-fused_scan_kernel(const uint32_t* __restrict__ queries,
-                  const uint32_t* __restrict__ rows,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: start address, leading offset 16 B (unused by this layout),
+// stride 1024 B between groups of 8 rows, layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (+)= A (64 x 16, queries) . B (256 x 16, rows)^T for one warpgroup;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma and its wait.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// queries (Q_pad, d) bf16 with Q_pad % 128 == 0, rows (S, d) bf16 with
+// S % 2048 == 0 and d % 64 == 0, bias (S,) f32; vals / idx (Q_pad, S/256).
+// Grid (Q_pad / 128, S / 2048).
+__global__ void __launch_bounds__(kThreads, 1)
+fused_scan_kernel(const uint16_t* __restrict__ queries,
+                  const uint16_t* __restrict__ rows,
                   const float* __restrict__ bias,
                   float* __restrict__ vals, int32_t* __restrict__ idx,
                   int d, int n_groups, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // q_s[word][query]: word c of all 64 queries side by side, so a warp
-  // reads its 8 queries' word c as two 16-byte broadcasts.
-  uint32_t* q_s = reinterpret_cast<uint32_t*>(smem);       // d/2 x kQB
-  uint32_t* r_s = q_s + (d / 2) * kQB;                     // kSub x kRowWords
-  const int words = d / 2;
-  const int q_block = blockIdx.x * kQB;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte alignment (the host adds the slack).
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+      ~1023u;
+  const int n_kc = d / kKC;
+  const uint32_t q_s = base;                          // n_kc x 128 rows
+  const uint32_t r_s = base + n_kc * kQChunkBytes;    // kStages x 256 rows
+  const int tid = threadIdx.x;
+  const int q_block = blockIdx.x * kQT;
+  const size_t slot_base = static_cast<size_t>(blockIdx.y) * kBS;
+  const size_t row_bytes = static_cast<size_t>(d) * 2;
+  const char* rsrc = reinterpret_cast<const char*>(rows);
+  const int steps = kGroups * n_kc;   // (group, chunk) in order
 
-  for (int i = threadIdx.x; i < kQB * words; i += kThreads) {
-    const int q = i / words;
-    const int c = i - q * words;
-    q_s[c * kQB + q] = queries[static_cast<size_t>(q_block + q) * words + c];
+  auto load_rows = [&](int step) {
+    const int gi = step / n_kc;
+    const int kc = step - gi * n_kc;
+    const uint32_t dst = r_s + (step % kStages) * kStageBytes;
+    const char* src = rsrc + (slot_base + gi * kSub) * row_bytes + kc * 128;
+#pragma unroll
+    for (int k = 0; k < kSub * 8 / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i >> 3;
+      const int c = i & 7;
+      cp_async16(dst + swizzled(r, c), src + r * row_bytes + c * 16);
+    }
+  };
+
+  {  // The query tile joins the first group of copies.
+    const char* qsrc = reinterpret_cast<const char*>(queries) +
+                       static_cast<size_t>(q_block) * row_bytes;
+    const int chunks = d / 8;   // 16-byte chunks per query row
+    for (int i = tid; i < kQT * chunks; i += kThreads) {
+      const int r = i / chunks;
+      const int c = i - r * chunks;
+      cp_async16(q_s + (c >> 3) * kQChunkBytes + swizzled(r, c & 7),
+                 qsrc + r * row_bytes + c * 16);
+    }
+  }
+  load_rows(0);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < kStages - 1; ++s) {
+    if (s < steps) load_rows(s);
+    cp_async_commit();
   }
 
-  const uint4* qv = reinterpret_cast<const uint4*>(q_s) + warp * 2;
-  for (int gi = 0; gi < kBS / kSub; ++gi) {
-    const int group = blockIdx.y * (kBS / kSub) + gi;
-    const size_t slot0 = static_cast<size_t>(group) * kSub;
-    float acc[kWarpQ][kLaneS];
+  const int wg = tid >> 7;            // warpgroup: queries wg*64 ..
+  const int warp = (tid >> 5) & 3;    // rows 16*warp .. of the warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[128];
 #pragma unroll
-    for (int a = 0; a < kWarpQ; ++a)
-#pragma unroll
-      for (int j = 0; j < kLaneS; ++j) acc[a][j] = 0.f;
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-    for (int d0 = 0; d0 < d; d0 += kDC) {
-      __syncthreads();   // the previous stage's reads (and q_s) are done
-      const int w0 = d0 / 2;
-      for (int i = threadIdx.x; i < kSub * (kDC / 2); i += kThreads) {
-        const int r = i / (kDC / 2);
-        const int c = i - r * (kDC / 2);
-        r_s[r * kRowWords + c] = rows[(slot0 + r) * words + w0 + c];
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int c = 0; c < kDC / 2; ++c) {
-        const uint4 qa = qv[(w0 + c) * (kQB / 4)];
-        const uint4 qb = qv[(w0 + c) * (kQB / 4) + 1];
-        const uint32_t qw[kWarpQ] = {qa.x, qa.y, qa.z, qa.w,
-                                     qb.x, qb.y, qb.z, qb.w};
-        float xl[kLaneS], xh[kLaneS];
+  for (int step = 0; step < steps; ++step) {
+    // Chunk `step` has landed (every group is committed, empty or not).
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+    // Make this thread's cp.async writes visible to the wgmma (async)
+    // proxy, then to the other threads.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    // The stage refilled here was read by step - 1, finished everywhere.
+    if (step + kStages - 1 < steps) load_rows(step + kStages - 1);
+    cp_async_commit();
+
+    const int gi = step / n_kc;
+    const int kc = step - gi * n_kc;
+    const uint32_t a0 = q_s + kc * kQChunkBytes + wg * 64 * 128;
+    const uint32_t b0 = r_s + (step % kStages) * kStageBytes;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int j = 0; j < kLaneS; ++j) {
-          const uint32_t xw = r_s[(lane + 32 * j) * kRowWords + c];
-          xl[j] = lo_bf16(xw);
-          xh[j] = hi_bf16(xw);
-        }
+    for (int kk = 0; kk < kKC / 16; ++kk)
+      wgmma_m64n256k16(acc, smem_desc(a0 + kk * 32), smem_desc(b0 + kk * 32),
+                       (kc | kk) != 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (kc != n_kc - 1) continue;
+
+    // Group gi is complete.  acc[4j + 2h + e] is query row 8h + g of this
+    // warp's 16, slot 8j + 2t + e of the group.
+    const size_t slot0 = slot_base + gi * kSub;
+    const float2* bb = reinterpret_cast<const float2*>(bias + slot0) + t;
+    float best[2];
+    int arg[2];
 #pragma unroll
-        for (int a = 0; a < kWarpQ; ++a) {
-          const float ql = lo_bf16(qw[a]);
-          const float qh = hi_bf16(qw[a]);
+    for (int j = 0; j < 32; ++j) {
+      const float2 b = __ldg(bb + 4 * j);
 #pragma unroll
-          for (int j = 0; j < kLaneS; ++j) {
-            // bf16 x bf16 products are exact in f32: fma == mul + add.
-            acc[a][j] = fmaf(xl[j], ql, acc[a][j]);
-            acc[a][j] = fmaf(xh[j], qh, acc[a][j]);
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // Slots rise with (j, e), and only a strictly larger value
+          // replaces the best, so the first slot wins a tie.
+          const float s = __fadd_rn(__fmul_rn(scale, acc[4 * j + 2 * h + e]),
+                                    e ? b.y : b.x);
+          const int c = 8 * j + 2 * t + e;
+          if (j == 0 && e == 0) {
+            best[h] = s;
+            arg[h] = c;
+          } else if (s > best[h]) {
+            best[h] = s;
+            arg[h] = c;
           }
         }
       }
     }
-
-    float bj[kLaneS];
 #pragma unroll
-    for (int j = 0; j < kLaneS; ++j) bj[j] = bias[slot0 + lane + 32 * j];
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int a = 0; a < kWarpQ; ++a) {
-      // Slots rise with j, and only a strictly larger value replaces the
-      // best, so the first slot wins a tie.
-      float best = __fadd_rn(__fmul_rn(scale, acc[a][0]), bj[0]);
-      int arg = lane;
-#pragma unroll
-      for (int j = 1; j < kLaneS; ++j) {
-        const float s = __fadd_rn(__fmul_rn(scale, acc[a][j]), bj[j]);
-        if (s > best) {
-          best = s;
-          arg = lane + 32 * j;
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best[h], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, arg[h], off);
+        if (ov > best[h] || (ov == best[h] && oa < arg[h])) {
+          best[h] = ov;
+          arg[h] = oa;
         }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-        if (ov > best || (ov == best && oa < arg)) {
-          best = ov;
-          arg = oa;
-        }
-      }
-      if (lane == a) {
+      if (t == 0) {
         const size_t o =
-            static_cast<size_t>(q_block + warp * kWarpQ + a) * n_groups + group;
-        vals[o] = best;
-        idx[o] = static_cast<int32_t>(slot0) + arg;
+            static_cast<size_t>(q_block + wg * 64 + warp * 16 + 8 * h + g) *
+                n_groups +
+            blockIdx.y * kGroups + gi;
+        vals[o] = best[h];
+        idx[o] = static_cast<int32_t>(slot0) + arg[h];
       }
     }
   }
@@ -159,7 +294,7 @@ fused_scan_kernel(const uint32_t* __restrict__ queries,
 }  // namespace
 
 static int fused_scan_smem_bytes(int d) {
-  return (d / 2) * kQB * 4 + kSub * kRowWords * 4;
+  return (d / kKC) * kQChunkBytes + kStages * kStageBytes + 1024;
 }
 
 extern "C" int fused_scan_groupmax(const void* queries, const void* rows,
@@ -170,14 +305,36 @@ extern "C" int fused_scan_groupmax(const void* queries, const void* rows,
   cudaError_t err = cudaFuncSetAttribute(
       fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(q_pad / kQB, s / kBS);
+  const dim3 grid(q_pad / kQT, s / kBS);
   fused_scan_kernel<<<grid, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(queries),
-      static_cast<const uint32_t*>(rows), static_cast<const float*>(bias),
+      static_cast<const uint16_t*>(queries),
+      static_cast<const uint16_t*>(rows), static_cast<const float*>(bias),
       static_cast<float*>(vals), static_cast<int32_t*>(idx), d, s / kSub,
       scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, dynamic shared memory a block, resident blocks an SM
+// and local (spill) bytes a thread of the kernel at d dimensions, into
+// info[0..3].
+extern "C" int fused_scan_occupancy(int d, void* info) {
+  int* o = static_cast<int*>(info);
+  const int smem = fused_scan_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fused_scan_kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fused_scan_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  o[0] = attr.numRegs;
+  o[1] = smem;
+  o[2] = blocks;
+  o[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 extern "C" const char* error_string(int err) {

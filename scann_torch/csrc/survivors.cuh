@@ -10,8 +10,8 @@
 // out[g, q, :], the layout the merge reads.
 //
 // Two forms of the selection: across the lanes of a warp (lane = slot, one
-// query at a time), and within one thread that holds all 32 slots of a
-// group in registers.
+// query at a time), and across the 4 lanes of a quad that hold 8 slots
+// each (the mma accumulator layout).
 
 #pragma once
 
@@ -56,18 +56,45 @@ __device__ __forceinline__ void warp_top_kpg(float pv, int kpg, int stride,
   }
 }
 
-// One thread holds the 32 packed values of a group (fully unrolled, so pv
-// stays in registers) and writes the kpg survivors itself.
-__device__ __forceinline__ void thread_top_kpg(float (&pv)[kSubp], int kpg,
-                                               int stride, int32_t* o) {
+// Sorts 8 values, largest first (Batcher's 19-comparator network).
+__device__ __forceinline__ void sort8_desc(float (&v)[8]) {
+  constexpr int kNet[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2},
+                               {1, 3}, {4, 6}, {5, 7}, {1, 2}, {5, 6},
+                               {0, 4}, {3, 7}, {1, 5}, {2, 6}, {1, 4},
+                               {3, 6}, {2, 4}, {3, 5}, {3, 4}};
+#pragma unroll
+  for (int i = 0; i < 19; ++i) {
+    const float hi = fmaxf(v[kNet[i][0]], v[kNet[i][1]]);
+    v[kNet[i][1]] = fminf(v[kNet[i][0]], v[kNet[i][1]]);
+    v[kNet[i][0]] = hi;
+  }
+}
+
+// The 4 lanes of a quad (lane & 3) hold the 32 packed values of a group, 8
+// each, for R rows (queries) at once: pv[r] is row r's part (fully
+// unrolled, so pv stays in registers, and the R selections of a pass are
+// independent, so their latencies overlap).  Each lane sorts its 8 values
+// once; a pass then takes the maximum of the 4 heads and the lane that
+// held it (values are distinct: one lane) pops its head.  Every lane of
+// the warp calls; the quad's ``writer`` lane writes row r's kpg survivors
+// to out(r)[0], out(r)[stride], ...
+template <int R, class Out>
+__device__ __forceinline__ void quad_top_kpg(float (&pv)[R][8], int kpg,
+                                             int stride, bool writer,
+                                             Out out) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) sort8_desc(pv[r]);
   for (int p = 0; p < kpg; ++p) {
-    float m = pv[0];
 #pragma unroll
-    for (int s = 1; s < kSubp; ++s) m = fmaxf(m, pv[s]);
-    o[p * stride] = __float_as_int(m);
+    for (int r = 0; r < R; ++r) {
+      float m = fmaxf(pv[r][0], __shfl_xor_sync(0xffffffffu, pv[r][0], 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (writer) out(r)[p * stride] = __float_as_int(m);
+      const bool pop = pv[r][0] == m;
 #pragma unroll
-    for (int s = 0; s < kSubp; ++s)
-      if (pv[s] == m) pv[s] = -INFINITY;
+      for (int s = 0; s < 7; ++s) pv[r][s] = pop ? pv[r][s + 1] : pv[r][s];
+      pv[r][7] = pop ? -INFINITY : pv[r][7];
+    }
   }
 }
 

@@ -39,7 +39,7 @@ from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
 # Kernel launches made by fused_scan_groupmax (CPU calls never count).
 launches = 0
 
-QT = 64     # queries per kernel block: the wrapper pads a batch to it
+QT = 128    # queries per kernel block: the wrapper pads a batch to it
 BS = 2048   # slots per kernel block: callers pad the rows to a multiple
 SUB = 256   # slots per candidate group (one survivor each)
 _PAD_PENALTY = -1e30
@@ -91,11 +91,14 @@ def fused_scan_groupmax_torch(queries, rows, bias, *, measure_l2=False):
     return vals, idx
 
 
+_STAGES = 4   # ring of 256-slot x 64-dimension bf16 row chunks
+
+
 def smem_bytes(d: int) -> int:
-    """Shared memory of one K5 block: the bf16 query tile (all dimensions)
-    plus one 256-slot x 128-dimension bf16 stage with rows padded to an
-    odd word count (csrc/fused_scan.cu)."""
-    return (d // 2) * QT * 4 + SUB * (128 // 2 + 1) * 4
+    """Shared memory of one K5 block: the bf16 query tile (all dimensions),
+    the ring of row chunks, and 1 KB to align the swizzled tiles
+    (csrc/fused_scan.cu)."""
+    return QT * d * 2 + _STAGES * SUB * 64 * 2 + 1024
 
 
 def fused_scan_groupmax(queries, rows, bias, *, measure_l2=False):

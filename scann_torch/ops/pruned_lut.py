@@ -232,12 +232,19 @@ def _common_checks(plan, qg_rows, codes, bias, kpg, d_pad, dev):
     return g_pad, w_pad, w_pad // g_pad
 
 
-def lut_smem_bytes(b_pad: int) -> int:
-    """Shared memory of one K3 block: the int8 LUT (b_pad*16 rows of 128
-    queries), the per-query planes, one tile's bias and packed codes
+_LUT_QUERIES = ps.QG // 2   # queries per K3 block (two blocks a group)
+_LUT_PAD = 16               # bytes added to each query's LUT row
+_LUT_PARTS = 4              # LUT-build threads per query
+
+
+def lut_smem_bytes(b_pad: int, kpg: int = ps.KPG) -> int:
+    """Shared memory of one K3 block: the int8 LUT of its 64 queries (a row
+    of b_pad*16 entries plus 16 bytes each), the per-query planes, one
+    tile's bias and packed codes, and the survivors of 8 groups
     (csrc/pruned_lut.cu)."""
-    return b_pad * _LUT_CENTERS * ps.QG + (3 * ps.QG + ps.TILE) * 4 \
-        + ps.TILE * (b_pad // 2)
+    return _LUT_QUERIES * (b_pad * _LUT_CENTERS + _LUT_PAD) \
+        + (_LUT_QUERIES * (1 + _LUT_PARTS) + ps.TILE) * 4 \
+        + ps.TILE * (b_pad // 2) + _LUT_QUERIES * (kpg * 8 + 4) * 4
 
 
 def codes_smem_bytes(d_pad: int) -> int:
@@ -266,11 +273,11 @@ def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
     b_pad = b2 * 2
     if b_pad % _BLK:
         raise ValueError(f"b_pad {b_pad} must be a multiple of {_BLK}")
-    if lut_smem_bytes(b_pad) > _SMEM_LIMIT:
+    if lut_smem_bytes(b_pad, kpg) > _SMEM_LIMIT:
         raise ValueError(
-            f"{b_pad} code blocks need {lut_smem_bytes(b_pad)} B of shared "
-            f"memory for the int8 LUT, over the {_SMEM_LIMIT} B a block may "
-            f"use")
+            f"{b_pad} code blocks with {kpg} survivors a group need "
+            f"{lut_smem_bytes(b_pad, kpg)} B of shared memory for the int8 "
+            f"LUT, over the {_SMEM_LIMIT} B a block may use")
     dims_per_block = cb_k.shape[1]
     d_pad = b_pad * dims_per_block
     g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3p, bias, kpg,
@@ -279,6 +286,9 @@ def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
     _check("cb_k", cb_k, torch.float32,
            (b_pad * _LUT_CENTERS, dims_per_block), dev)
     _check("csq", csq, torch.float32, (b_pad * _LUT_CENTERS,), dev)
+    if cb_k.data_ptr() % 16 or csq.data_ptr() % 16:
+        raise ValueError("cb_k and csq must start on a 16-byte boundary "
+                         "(the kernel reads them 16 bytes at a time)")
     out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     lib = _cuda.library("pruned_lut")

@@ -118,13 +118,15 @@ def test_cuda_search_matches_cpu_plain_path(cuda, measure, tmp_path):
     np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
 
 
-def _ah_case(dev, seed, cpb, dpb, l2, b=50, nl=40, nq=300, l=6):
-    """A tree-AH scoring problem at the bench's block count (50 blocks,
-    b_pad 56) in the port's layout (d_pad = b_pad * dpb)."""
+def _ah_case(dev, seed, cpb, dpb, l2, b=50, nl=40, nq=300, l=6,
+             max_tiles=3):
+    """A tree-AH scoring problem, by default at the bench's block count (50
+    blocks, b_pad 56), in the port's layout (d_pad = b_pad * dpb), with
+    leaves of 1 to ``max_tiles`` tiles."""
     r = np.random.default_rng(seed)
     b_pad = -(-b // 8) * 8
     d_pad = b_pad * dpb
-    ntiles = r.integers(1, 4, nl).astype(np.int32)
+    ntiles = r.integers(1, max_tiles + 1, nl).astype(np.int32)
     tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
         np.int32)
     num_tiles = int(ntiles.sum())
@@ -157,11 +159,25 @@ def _active_pair(plan, got, want, kpg):
     return got.reshape(act.shape)[act], want.reshape(act.shape)[act]
 
 
-@pytest.mark.parametrize("measure_l2", [False, True])
-@pytest.mark.parametrize("kpg", [8, 16])
-def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg):
+@pytest.mark.parametrize("measure_l2,kpg,b,max_tiles,dpb", [
+    (False, 8, 50, 3, 2), (True, 8, 50, 3, 2), (False, 16, 50, 3, 2),
+    (True, 16, 50, 3, 2),
+    # The widest LUTs the kernel admits at 8 and 16 survivors a group
+    # (b_pad 160 and 144, one block per SM).
+    (True, 8, 160, 3, 2), (False, 16, 144, 3, 2),
+    # Every leaf one tile (one item a group), and leaves of up to 5 tiles
+    # (groups with inactive items).
+    (False, 16, 50, 1, 2), (True, 8, 50, 5, 2),
+    # One dimension per block: the LUT build's general path (an entry is
+    # one exact product, so bit-equality holds whatever the order).
+    (True, 8, 50, 3, 1)])
+def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg, b,
+                                              max_tiles, dpb):
     plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(
-        cuda, 20 + kpg + measure_l2, 16, 2, measure_l2)
+        cuda, 20 + kpg + measure_l2 + b + max_tiles, 16, dpb, measure_l2,
+        b=b, max_tiles=max_tiles)
+    if max_tiles > 1:
+        assert not plan.work_active.bool().all()
     codes3p = torch.as_tensor(pruned_lut.pack_codes_nibble(
         np.where(pad[:, None], 0, codes).astype(np.uint8), nt), device=cuda)
     cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3p.shape[-1] * 2,
@@ -210,7 +226,8 @@ def test_k3_k4_wrappers_reject_bad_inputs(cuda):
             plan, qg.float(), codes3,
             pruned_lut.codes_table(cb, codes3.shape[-1]), mean, bias,
             measure_l2=False)
-    wide = torch.zeros((1, 512, 104 // 2), dtype=torch.uint8, device=cuda)
+    # 168 code blocks: the first b_pad over the shared memory at kpg 8.
+    wide = torch.zeros((1, 512, 168 // 2), dtype=torch.uint8, device=cuda)
     cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3.shape[-1],
                                       measure_l2=False)
     with pytest.raises(ValueError, match="shared memory"):
@@ -313,15 +330,34 @@ def test_k2_wrapper_rejects_bad_inputs(cuda):
         ps.score_work(plan, qg, wide, bias, measure_l2=False)
 
 
-@pytest.mark.parametrize("measure_l2,nq,s,d", [
-    (False, 512, 8192, 128), (True, 300, 6144, 128), (False, 64, 4096, 256),
-    (True, 1, 2048, 128)])
-def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d):
+@pytest.mark.parametrize("measure_l2,nq,s,d,dups", [
+    (False, 512, 8192, 128, False), (True, 300, 6144, 128, False),
+    (False, 64, 4096, 256, False), (True, 1, 2048, 128, False),
+    # A batch one query over the 128-query tile, on one 2048-slot block.
+    (False, 129, 2048, 128, False),
+    # 256 dimensions with a batch that is not a multiple of the tile.
+    (True, 257, 4096, 256, False),
+    # Every group made of 16 distinct rows repeated at random places, so
+    # nearly every group maximum is an exact tie: the first slot must win,
+    # dot and L2 (with padded slots).
+    (False, 300, 4096, 128, True), (True, 200, 6144, 128, True)])
+def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d, dups):
     r = np.random.default_rng(nq + s)
     rows = r.standard_normal((s, d)).astype(np.float32)
+    src = np.arange(s)        # the row each slot is a copy of
+    if dups:
+        for g0 in range(0, s, 256):
+            src[g0:g0 + 256] = g0 + r.integers(0, 16, 256)
+        rows = rows[src]
     rows[:, 100:] = 0.0
     valid = r.random(s) < 0.9
     rows[~valid] = 0.0
+    # Live slots whose row is also at another live slot of the group.
+    is_dup = np.zeros(s, bool)
+    for g0 in range(0, s, 256) if dups else ():
+        ids, ok = src[g0:g0 + 256] - g0, valid[g0:g0 + 256]
+        is_dup[g0:g0 + 256] = ok & (np.bincount(ids[ok], minlength=256)[ids]
+                                    > 1)
     t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
     rows_bf = t(rows).to(torch.bfloat16)
     sq = (rows_bf.float() ** 2).sum(-1).cpu().numpy()
@@ -347,6 +383,12 @@ def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d):
         q_bf.float() @ rows_bf.float().T) + bias[None, :]
     alt = torch.gather(sim, 1, gi.long())
     assert torch.all((alt - wv).abs()[~same] <= tol[~same])
+    if dups:
+        # Where the plain maximum sits on a duplicated row, the kernel
+        # names the same (first) slot: duplicates score bit-equal.
+        dup_win = t(is_dup)[wi.long()]
+        assert dup_win.double().mean() > 0.9
+        assert torch.equal(gi[dup_win], wi[dup_win])
 
 
 def test_k5_wrapper_rejects_bad_inputs(cuda):

@@ -75,3 +75,13 @@ def test_staleness_sees_source_and_header(tmp_path, monkeypatch):
     assert not _cuda.is_stale("k")
     os.utime(csrc / "k.cu", (now, now))             # source touched
     assert _cuda.is_stale("k")
+
+
+def test_k3_breakdown_edits_still_apply():
+    """scann_torch/tools/k3_breakdown.py measures K3 by compiling edited
+    copies of its source; every edit must find its text exactly once."""
+    from scann_torch.tools import k3_breakdown
+    src = open(_cuda.source_path("pruned_lut")).read()
+    for edits in k3_breakdown.VARIANTS.values():
+        for old, _ in edits:
+            assert src.count(old) == 1, old

@@ -132,4 +132,4 @@ def test_k5_wrapper_rejects_unaligned_shapes():
     with pytest.raises(ValueError, match="unsupported shapes"):
         tfs.fused_scan_groupmax(q[:, :100], torch.zeros(
             (2048, 100), dtype=torch.bfloat16), torch.zeros(2048))
-    assert tfs.smem_bytes(128) <= 232_448 and tfs.QT == 64
+    assert tfs.smem_bytes(256) <= 232_448 and tfs.QT == 128
