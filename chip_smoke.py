@@ -13,7 +13,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      training samples, int8), and exact float32 brute-force ground truth;
   4. kernel phase: every kernel of the path against its plain torch
      version on the inputs the main path gives it, with timings and the
-     card's bound for the same work;
+     card's bound for the same work; K1 also at d_pad 384 and 768 on
+     synthetic plans (scann_torch/tools/tile_breakdown.synthetic_case: a
+     few hundred active items at the scale of an index of unit vectors,
+     dot and squared L2, 4 and 8 survivors a group), held to the same bar
+     against its plain version and against float64;
   5. main path: search_batched over all queries at leaves 50, 80, 100, 150
      and the full scan with recall@10, QPS and per-stage times, and a
      16-query cross-check of the CUDA path against the CPU plain path on
@@ -32,7 +36,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      asymmetric_hash.lookup_type = "reconstruct", float32 reorder rows):
      build, the CUDA-vs-CPU cross-check on its own serialization; K2
      against its plain version at the main path's inputs (dot and squared
-     L2, 8 and 16 survivors per group) and K5 against its chunked plain
+     L2, 8 and 16 survivors per group; and at d_pad 256 and 384 on
+     synthetic plans, as K1) and K5 against its chunked plain
      version on all 10,000 queries (dot and squared L2), timed beside the
      bf16 torch.matmul + amax / argmax composition; the sweep leaves 50 /
      100 / 150 with 100 pre-reorder candidates (every point must launch
@@ -43,10 +48,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      tree-AH's (k 30, in phase 6), and one search at leaves=100 on each
      engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
      lose no more than 0.002 of recall@10);
-  9. the occupancy line of the two tensor-core kernels (K3, K5: registers
-     a thread, dynamic shared memory a block, resident blocks an SM, at
-     the main path's shapes), the kernels JSON line, the card line, and
-     the final ok line.
+  9. the occupancy line of the four tensor-core kernels (K1, K2, K3, K5:
+     registers a thread, dynamic shared memory a block, resident blocks an
+     SM, at the main path's shapes), the kernels JSON line, the card line,
+     and the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -345,6 +350,60 @@ def compare_packed(torch, name, got, want, plan, atol=None,
             f"{name} disagrees with its plain version: {bad} of {a.numel()} "
             f"survivors out of tolerance, identities agree {ident:.6f}")
     return (float(err.max()) if err.numel() else 0.0), ident
+
+
+def wide_checks(torch, name, widths, kpgs):
+    """K1 ("k1") or K2 ("k2") against its plain version at d_pads the
+    main path does not reach, on synthetic plans at the scale of an index
+    of unit vectors, dot and squared L2: the bar of the main path's
+    inputs, and the same bar against float64 scores of the survivors.
+    Returns the largest max_abs_err against the plain version."""
+    from scann_torch.ops import pruned_scan
+    from scann_torch.ops import pruned_sq
+    from scann_torch.tools import tile_breakdown
+    worst = 0.0
+    for d in widths:
+        for measure_l2 in (False, True):
+            case = tile_breakdown.synthetic_case(
+                name, d, unit=True, measure_l2=measure_l2, seed=d)
+            plan, qg, rows, scale, bias = case
+            for kpg in kpgs:
+                if name == "k1":
+                    args = (plan, qg, rows, scale, bias)
+                    got = pruned_sq.score_work_sq(
+                        *args, measure_l2=measure_l2, kpg=kpg)
+                    want = pruned_sq.score_work_torch_sq(
+                        *args, measure_l2=measure_l2, kpg=kpg)
+                    atol, min_id = K1_ATOL, K1_MIN_ID_AGREE
+                else:
+                    args = (plan, qg, rows, bias)
+                    got = pruned_scan.score_work(
+                        *args, measure_l2=measure_l2, kpg=kpg)
+                    want = pruned_scan.score_work_torch(
+                        *args, measure_l2=measure_l2, kpg=kpg)
+                    atol, min_id = K4_ATOL, K2_MIN_ID_AGREE
+                torch.cuda.synchronize()
+                err, ident = compare_packed(
+                    torch, f"{name.upper()} at d_pad {rows.shape[-1]}", got,
+                    want, plan, atol=atol, min_id=min_id)
+                excess = {w: float(tile_breakdown.exact_excess(
+                    case, o, kpg, measure_l2).max())
+                    for w, o in (("kernel", got), ("plain", want))}
+                if excess["kernel"] > atol:
+                    raise AssertionError(
+                        f"{name.upper()} at d_pad {rows.shape[-1]} misses "
+                        f"float64 by {excess['kernel']:.3g} over the bar")
+                worst = max(worst, err)
+                log(f"{name.upper()} vs plain (d_pad {rows.shape[-1]}, "
+                    f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}, "
+                    f"{int(plan.work_active.sum())} active items): max |err| "
+                    f"{err:.3g}, identities agree {ident:.6f}; largest "
+                    f"|value - float64| - 2^-14 |float64|: kernel "
+                    f"{excess['kernel']:.3g}, plain {excess['plain']:.3g}")
+                del got, want
+            del case, plan, qg, rows, scale, bias
+            torch.cuda.empty_cache()
+    return worst
 
 
 def k2_bound(plan, rows3, kpg):
@@ -822,6 +881,15 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
             del args
             torch.cuda.empty_cache()
 
+    k2["max_abs_err"] = max(k2["max_abs_err"],
+                            wide_checks(torch, "k2", (256, 384), (8, 16)))
+    k2["occupancy"] = _cuda.occupancy("pruned_rows", s._p_rows.shape[-1],
+                                      pruned_scan.KPG)
+    if k2["occupancy"]["smem_bytes"] != pruned_scan.rows_smem_bytes(
+            s._p_rows.shape[-1]):
+        raise AssertionError("K2's shared memory differs from "
+                             "rows_smem_bytes")
+
     # K5 on the full-scan layout, at the main path's shape.
     rows, bias = s._recon_rows, s._recon_bias
     k5 = {"occupancy": _cuda.occupancy("fused_scan", rows.shape[1])}
@@ -1040,6 +1108,12 @@ def main():
                      searcher.slot_rows.shape[1], K, searcher._p_max_ntiles)
         del got, want, plan, qg_rows, bias, args
     torch.cuda.empty_cache()
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            wide_checks(torch, "k1", (384, 768), (4, 8)))
+    d_pad = searcher.slot_rows.shape[-1]
+    k1["occupancy"] = _cuda.occupancy("pruned_sq", d_pad, 4)
+    if k1["occupancy"]["smem_bytes"] != pruned_sq._smem_bytes(d_pad, 4):
+        raise AssertionError("K1's shared memory differs from _smem_bytes")
 
     # 5. main path through the public entry points
     timer = StageTimer(torch)
@@ -1095,9 +1169,13 @@ def main():
                "reconstruct": recon_summary,
                "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")}}
     log("summary " + json.dumps(summary))
-    # What the card makes of the two tensor-core kernels at the main path's
-    # shapes (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM).
+    # What the card makes of the four tensor-core kernels at the main
+    # path's shapes (cudaFuncGetAttributes,
+    # cudaOccupancyMaxActiveBlocksPerSM).
     log("occupancy " + json.dumps({
+        "pruned_sq": {"d_pad": d_pad, "kpg": 4, **k1["occupancy"]},
+        "pruned_rows": {"d_pad": recon_summary["d_pad"], "kpg": 8,
+                        **k2["occupancy"]},
         "pruned_lut": {"b_pad": ah_summary["b_pad"], **k3["occupancy"]},
         "fused_scan": {"d_pad": recon_summary["d_pad"],
                        **k5["occupancy"]}}))

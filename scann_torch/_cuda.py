@@ -28,6 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "pruned_sq": {
         "pruned_sq_score": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+        "pruned_sq_occupancy": ([_I, _I, _P], _I),
     },
     "pruned_lut": {
         "pruned_lut_score": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
@@ -38,6 +39,7 @@ SIGNATURES = {
     },
     "pruned_rows": {
         "pruned_rows_score": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
+        "pruned_rows_occupancy": ([_I, _I, _P], _I),
     },
     "fused_scan": {
         "fused_scan_groupmax": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),

@@ -276,10 +276,16 @@ def score_work_torch(plan: WorkPlan, qg_rows, rows3, bias, *,
             .reshape(g, QG, mnt * kpg * GP))
 
 
-def rows_smem_bytes(d_pad: int) -> int:
-    """Shared memory of one K2 block: the f32 query group plus the bf16
-    tile with rows padded to an odd word count (csrc/pruned_rows.cu)."""
-    return QG * d_pad * 4 + TILE * (d_pad // 2 + 1) * 4
+def rows_smem_bytes(d_pad: int, kpg: int = KPG) -> int:
+    """Dynamic shared memory of one K2 block (csrc/tile_mma.cuh): the bias
+    plane of its 256-slot slab, then a 4-stage ring of 32-dimension chunks
+    (256 rows and 64 queries, bf16 in 80-byte rows), which the staged
+    survivors (64 queries x kpg x 8 groups) reuse.  The dimension axis
+    streams, so d_pad does not enter."""
+    del d_pad
+    ring = 4 * (256 + QG // 2) * 80
+    stage = QG // 2 * (kpg * 8 + 4) * 4
+    return 256 * 4 + max(ring, stage)
 
 
 def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,
@@ -303,12 +309,6 @@ def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,
                          f"(needs a multiple of 8)")
     if not 1 <= kpg <= SUBP:
         raise ValueError(f"kpg must be in [1, {SUBP}], got {kpg}")
-    if rows_smem_bytes(d_pad) > _SMEM_LIMIT:
-        raise ValueError(
-            f"d_pad {d_pad} needs {rows_smem_bytes(d_pad)} B of shared "
-            f"memory, over the {_SMEM_LIMIT} B a block may use (walking the "
-            f"tile in slabs of slot groups is a ROADMAP section 2 "
-            f"follow-up of K2)")
     mnt = w_pad // g_pad
     _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
     _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)

@@ -23,19 +23,25 @@ import ctypes
 import torch
 
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
+from scann_torch.ops.pruned_scan import _check
 
 # Kernel launches made by score_work_sq (CPU calls never count).
 launches = 0
 
 _WORK_CHUNK = 128
-_BLOCK_THREADS = 256
+_TILE = 256          # slots per tree-SQ leaf tile
 
 
-def _smem_bytes(d_pad: int) -> int:
-    """Shared memory of one kernel block: the f32 query group plus the
-    int8 tile with rows padded to an odd word count (csrc/pruned_sq.cu)."""
-    return ps.QG * d_pad * 4 + _BLOCK_THREADS * (d_pad // 4 + 1) * 4
+def _smem_bytes(d_pad: int, kpg: int = 4) -> int:
+    """Dynamic shared memory of one kernel block (csrc/tile_mma.cuh): the
+    bias and scale planes of its 256 slots, then a 4-stage ring of
+    32-dimension chunks (raw int8 rows, 64 queries in 80-byte rows) and the
+    chunk's bf16 tile, which the staged survivors (64 queries x kpg x 8
+    groups) reuse.  The dimension axis streams, so d_pad does not enter."""
+    del d_pad
+    ring = 4 * (_TILE * 32 + ps.QG // 2 * 80) + _TILE * 80
+    stage = ps.QG // 2 * (kpg * 8 + 4) * 4
+    return _TILE * 8 + max(ring, stage)
 
 
 def score_work_torch_sq(plan, qg_rows, rows3, scale, bias, *,
@@ -91,16 +97,12 @@ def score_work_sq(plan, qg_rows, rows3, scale, bias, *, measure_l2: bool,
     num_tiles, tile, d_pad = rows3.shape
     g_pad = plan.qg_query.shape[0]
     w_pad = plan.work_tile.shape[0]
-    if tile != _BLOCK_THREADS or w_pad % g_pad or d_pad % 8:
-        raise ValueError(f"unsupported shapes: tile {tile} (needs "
-                         f"{_BLOCK_THREADS}), w_pad {w_pad}, g_pad {g_pad},"
-                         f" d_pad {d_pad} (needs a multiple of 8)")
+    if tile != _TILE or w_pad % g_pad or d_pad % 8:
+        raise ValueError(f"unsupported shapes: tile {tile} (needs {_TILE}),"
+                         f" w_pad {w_pad}, g_pad {g_pad}, d_pad {d_pad} "
+                         f"(needs a multiple of 8)")
     if not 1 <= kpg <= ps.SUBP:
         raise ValueError(f"kpg must be in [1, {ps.SUBP}], got {kpg}")
-    if _smem_bytes(d_pad) > _SMEM_LIMIT:
-        raise ValueError(f"d_pad {d_pad} needs {_smem_bytes(d_pad)} B of "
-                         f"shared memory, over the {_SMEM_LIMIT} B a block "
-                         f"may use")
     mnt = w_pad // g_pad
     gp = tile // ps.SUBP
     _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)

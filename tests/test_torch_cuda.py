@@ -28,6 +28,7 @@ from scann_torch.ops import fused_scan
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq
+from scann_torch.tools import tile_breakdown
 
 pytestmark = pytest.mark.cuda
 
@@ -64,10 +65,34 @@ def _case(dev, seed, d=100, nl=40, b=300, l=6):
     return plan, qg, t(rows), t(scale), t(bias)
 
 
+def _hold_k1(plan, got, want, kpg):
+    g_pad = plan.qg_query.shape[0]
+    mnt = plan.work_tile.shape[0] // g_pad
+    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
+        g_pad, 128, mnt, kpg * 8)
+    a = got.reshape(act.shape)[act]
+    b = want.reshape(act.shape)[act]
+    assert a.numel()
+    va, vb = ps._unpack(a)[0].double(), ps._unpack(b)[0].double()
+    assert torch.all((va - vb).abs() <= 2.0 ** -14 * vb.abs() + 1e-6)
+    assert ((a & 511) == (b & 511)).double().mean() >= 0.999
+
+
+# d_pad 104 is no multiple of the kernel's 32-dimension chunk (the last
+# chunk is zero-filled in shared memory); 384 and 768 are widths its shared
+# memory once refused (above 296), on synthetic plans at the scale of an
+# index of unit vectors.  The kernel is also held to float64 scores.
+@pytest.mark.parametrize("d_pad", [104, 384, 768])
 @pytest.mark.parametrize("measure_l2", [False, True])
 @pytest.mark.parametrize("kpg", [4, 8])
-def test_k1_kernel_matches_plain_version(cuda, measure_l2, kpg):
-    plan, qg, rows, scale, bias = _case(cuda, 1 + kpg + measure_l2)
+def test_k1_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
+    if d_pad == 104:
+        case = _case(cuda, 1 + kpg + measure_l2)
+    else:
+        case = tile_breakdown.synthetic_case(
+            "k1", d_pad, unit=True, measure_l2=measure_l2, seed=d_pad + kpg)
+    plan, qg, rows, scale, bias = case
+    assert rows.shape[-1] == d_pad
     before = pruned_sq.launches
     got = pruned_sq.score_work_sq(plan, qg, rows, scale, bias,
                                   measure_l2=measure_l2, kpg=kpg)
@@ -75,15 +100,9 @@ def test_k1_kernel_matches_plain_version(cuda, measure_l2, kpg):
     want = pruned_sq.score_work_torch_sq(plan, qg, rows, scale, bias,
                                          measure_l2=measure_l2, kpg=kpg)
     torch.cuda.synchronize()
-    g_pad = plan.qg_query.shape[0]
-    mnt = plan.work_tile.shape[0] // g_pad
-    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
-        g_pad, 128, mnt, kpg * 8)
-    a = got.reshape(act.shape)[act]
-    b = want.reshape(act.shape)[act]
-    va, vb = ps._unpack(a)[0].double(), ps._unpack(b)[0].double()
-    assert torch.all((va - vb).abs() <= 2.0 ** -14 * vb.abs() + 1e-6)
-    assert ((a & 511) == (b & 511)).double().mean() >= 0.999
+    _hold_k1(plan, got, want, kpg)
+    assert tile_breakdown.exact_excess(case, got, kpg, measure_l2).max() \
+        <= 1e-6
 
 
 def test_k1_wrapper_rejects_bad_inputs(cuda):
@@ -302,17 +321,7 @@ def _rows_case(dev, seed, d=100, nl=40, nq=300, l=6, l2=False):
             t(ntiles), t(sel.astype(np.int32)), t(valid))
 
 
-@pytest.mark.parametrize("measure_l2", [False, True])
-@pytest.mark.parametrize("kpg", [8, 16])
-def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg):
-    plan, qg, rows, bias = _rows_case(cuda, 60 + kpg + measure_l2,
-                                      l2=measure_l2)[:4]
-    before = ps.launches
-    got = ps.score_work(plan, qg, rows, bias, measure_l2=measure_l2, kpg=kpg)
-    assert ps.launches == before + 1
-    want = ps.score_work_torch(plan, qg, rows, bias, measure_l2=measure_l2,
-                               kpg=kpg)
-    torch.cuda.synchronize()
+def _hold_k2(plan, got, want, kpg):
     a, b = _active_pair(plan, got, want, kpg)
     va, vb = ps._unpack(a)[0].double(), ps._unpack(b)[0].double()
     assert a.numel()
@@ -320,14 +329,171 @@ def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg):
     assert ((a & 511) == (b & 511)).double().mean() >= 0.9999
 
 
+# d_pad 256 and 384: widths the kernel's shared memory once refused (above
+# 128), on synthetic plans at the scale of an index of unit vectors.  The
+# kernel is also held to float64 scores.
+@pytest.mark.parametrize("d_pad", [128, 256, 384])
+@pytest.mark.parametrize("measure_l2", [False, True])
+@pytest.mark.parametrize("kpg", [8, 16])
+def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
+    if d_pad == 128:
+        plan, qg, rows, bias = _rows_case(cuda, 60 + kpg + measure_l2,
+                                          l2=measure_l2)[:4]
+    else:
+        plan, qg, rows, _, bias = tile_breakdown.synthetic_case(
+            "k2", d_pad, unit=True, measure_l2=measure_l2, seed=d_pad + kpg)
+    assert rows.shape[-1] == d_pad
+    before = ps.launches
+    got = ps.score_work(plan, qg, rows, bias, measure_l2=measure_l2, kpg=kpg)
+    assert ps.launches == before + 1
+    want = ps.score_work_torch(plan, qg, rows, bias, measure_l2=measure_l2,
+                               kpg=kpg)
+    torch.cuda.synchronize()
+    _hold_k2(plan, got, want, kpg)
+    assert tile_breakdown.exact_excess((plan, qg, rows, None, bias), got,
+                                       kpg, measure_l2).max() <= 1e-5
+
+
 def test_k2_wrapper_rejects_bad_inputs(cuda):
     plan, qg, rows, bias = _rows_case(cuda, 5)[:4]
     with pytest.raises(ValueError, match="rows3"):
         ps.score_work(plan, qg, rows.float(), bias, measure_l2=False)
-    wide = torch.zeros((rows.shape[0], 512, 256), dtype=torch.bfloat16,
-                       device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ps.score_work(plan, qg, wide, bias, measure_l2=False)
+    with pytest.raises(ValueError, match="tile 256"):
+        ps.score_work(plan, qg, rows[:, :256].contiguous(), bias,
+                      measure_l2=False)
+    with pytest.raises(ValueError, match="kpg"):
+        ps.score_work(plan, qg, rows, bias, measure_l2=False, kpg=33)
+
+
+def _one_item_plan(dev, num_tiles):
+    """One query, one leaf of one tile: a plan of a single work item."""
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    plan = ps.invert_small(t(np.array([[1]], np.int32)),
+                           t(np.ones((1, 1), bool)),
+                           t(np.arange(num_tiles, dtype=np.int32)),
+                           t(np.ones(num_tiles, np.int32)), 1)
+    assert plan.work_tile.shape == (1,) and int(plan.work_active[0]) == 1
+    return plan
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("measure_l2", [False, True])
+def test_one_item_plan_matches_plain_version(cuda, kernel, measure_l2):
+    r = np.random.default_rng(70 + measure_l2)
+    tiles, d_pad = 3, 136 if kernel == "k1" else 256
+    plan = _one_item_plan(cuda, tiles)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    q = t(r.standard_normal((1, d_pad)).astype(np.float32))
+    qg = q.to(torch.bfloat16)[plan.qg_query.long()]
+    if kernel == "k1":
+        args = (plan, qg,
+                t(r.integers(-127, 128, (tiles, 256, d_pad)).astype(np.int8)),
+                t(r.uniform(1e-3, 1e-2, (tiles, 256, 1)).astype(np.float32)),
+                t(-r.uniform(0, 1, (tiles, 256, 1)).astype(np.float32)))
+        got = pruned_sq.score_work_sq(*args, measure_l2=measure_l2, kpg=4)
+        want = pruned_sq.score_work_torch_sq(*args, measure_l2=measure_l2,
+                                             kpg=4)
+        torch.cuda.synchronize()
+        _hold_k1(plan, got, want, 4)
+    else:
+        rows = t((0.3 * r.standard_normal((tiles, 512, d_pad))).astype(
+            np.float32)).to(torch.bfloat16)
+        bias = -(rows.float() ** 2).sum(-1, keepdim=True) if measure_l2 \
+            else torch.zeros((tiles, 512, 1), device=cuda)
+        args = (plan, qg, rows, bias.contiguous())
+        got = ps.score_work(*args, measure_l2=measure_l2, kpg=8)
+        want = ps.score_work_torch(*args, measure_l2=measure_l2, kpg=8)
+        torch.cuda.synchronize()
+        _hold_k2(plan, got, want, 8)
+
+
+@pytest.mark.parametrize("kernel,kpg", [("k1", 4), ("k1", 8), ("k2", 8),
+                                        ("k2", 16)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_exact_tie_groups_take_the_plain_versions_identities(cuda, kernel,
+                                                             kpg, sign):
+    """Every slot of a group holds the same row, scale and bias, with
+    small integers, so every sum is exact in any order and the whole group
+    ties: the packed identities alone order it, as in _group_top_packed
+    (the larger packed float wins: the higher slot above zero, the lower
+    below), and the kernel keeps the plain version's survivors bit for
+    bit."""
+    r = np.random.default_rng(80 + kpg + (sign > 0))
+    tile = 256 if kernel == "k1" else 512
+    d_pad, nl, nq, l = 200, 12, 200, 4
+    ntiles = r.integers(1, 3, nl).astype(np.int32)
+    tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
+        np.int32)
+    num_tiles = int(ntiles.sum())
+    sel = np.stack([r.choice(nl, l, replace=False) for _ in range(nq)])
+    g_pad, w_pad = ps.plan_capacities(nq, l, nl, num_tiles,
+                                      int(ntiles.max()))
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    plan = ps.invert(t(sel.astype(np.int32)), t(np.ones((nq, l), bool)),
+                     t(tile_start), t(ntiles), int(ntiles.max()), g_pad,
+                     w_pad)
+    groups = num_tiles * tile // 32
+    rows = np.repeat(r.integers(-4, 5, (groups, 1, d_pad)), 32, axis=1)
+    rows = rows.reshape(num_tiles, tile, d_pad)
+    # |dot| <= 200 * 4 * 2: the bias fixes every score's sign.
+    bias = np.repeat(sign * r.integers(2000, 3000, (groups, 1)), 32, axis=1)
+    bias = bias.reshape(num_tiles, tile, 1).astype(np.float32)
+    q = r.integers(-2, 3, (nq, d_pad)).astype(np.float32)
+    qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
+    if kernel == "k1":
+        args = (plan, qg, t(rows.astype(np.int8)),
+                t(np.full((num_tiles, tile, 1), 0.25, np.float32)), t(bias))
+        got = pruned_sq.score_work_sq(*args, measure_l2=False, kpg=kpg)
+        want = pruned_sq.score_work_torch_sq(*args, measure_l2=False,
+                                             kpg=kpg)
+    else:
+        args = (plan, qg, t(rows.astype(np.float32)).to(torch.bfloat16),
+                t(bias))
+        got = ps.score_work(*args, measure_l2=False, kpg=kpg)
+        want = ps.score_work_torch(*args, measure_l2=False, kpg=kpg)
+    torch.cuda.synchronize()
+    seg = kpg * tile // 32
+    mnt = plan.work_tile.shape[0] // g_pad
+    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
+        g_pad, 128, mnt, seg)
+    a = got.reshape(act.shape)[act]
+    b = want.reshape(act.shape)[act]
+    assert a.numel() and torch.equal(a, b)
+    # Pass p of a group holds slot 31 - p above zero, slot p below.
+    p = (torch.arange(seg, device=cuda) // (tile // 32)).expand(
+        act.shape)[act]
+    assert torch.equal(a & 31, torch.where(ps._unpack(a)[0] > 0, 31 - p, p))
+
+
+@pytest.mark.parametrize("measure", ["dot_product", "squared_l2"])
+def test_cuda_reconstruct_search_over_128_dims_goes_through_k2(cuda, measure,
+                                                               tmp_path):
+    """A reconstruct index of 200 dimensions (decoded rows padded to 256)
+    searches its pruned path through K2 on the card and returns what the
+    CPU plain path returns on the same index."""
+    import dataclasses
+    r = np.random.default_rng(2)
+    db = r.standard_normal((20000, 200)).astype(np.float32)
+    q = r.standard_normal((200, 200)).astype(np.float32)
+    config = (scann_torch.builder(db, 10, measure)
+              .tree(num_leaves=32, num_leaves_to_search=4,
+                    training_sample_size=10000)
+              .score_ah(2, anisotropic_quantization_threshold=0.2,
+                        training_sample_size=10000)
+              .reorder(20).create_config())
+    config = dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
+        config.asymmetric_hash, lookup_type="reconstruct"))
+    s = scann_torch.create_searcher(db, config, "cuda")
+    assert s._recon_dim == 256
+    before = ps.launches
+    gi, gd = s.search_batched(q, leaves_to_search=4)
+    assert ps.launches == before + 1
+    s.serialize(str(tmp_path))
+    ci, cd = scann_torch.load_searcher(str(tmp_path), device="cpu"
+                                       ).search_batched(q, leaves_to_search=4)
+    assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.999
+    same = gi == ci
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("measure_l2,nq,s,d,dups", [

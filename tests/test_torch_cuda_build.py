@@ -41,13 +41,39 @@ def test_sources_ship_with_the_package():
             assert os.path.exists(os.path.join(_cuda.CSRC, header)), header
 
 
+def _with_headers(name):
+    """csrc/<name>.cu and the csrc/ headers it includes, as one text."""
+    text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+    for header in re.findall(r'#include "([^"]+)"', text):
+        text += open(os.path.join(_cuda.CSRC, header)).read()
+    return text
+
+
 def test_new_kernels_state_what_they_replace():
-    for name, replaced in (("pruned_rows", "score_work_pallas"),
+    """Each source names the TPU kernel it replaces and what bounds it; the
+    kernel itself (K1 and K2 share theirs, csrc/tile_mma.cuh) is written
+    here, with no library GEMM."""
+    for name, replaced in (("pruned_sq", "score_work_pallas_sq"),
+                           ("pruned_rows", "score_work_pallas"),
                            ("fused_scan", "fused_scan_groupmax"),
                            ("merge_groups", "merge_groups_pallas")):
-        text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
-        assert replaced in text and "What bounds it on the H100" in text
+        source = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        assert replaced in source and "What bounds it on the H100" in source
+        text = _with_headers(name)
         assert "__global__" in text and "cublas" not in text.lower()
+
+
+def test_k1_and_k2_share_the_tensor_core_tile_product():
+    """K1 and K2 run their products on bf16 mma.sync from one header, with
+    no f32 fmaf product loop left in either."""
+    header = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
+    assert "fmaf" not in header
+    for name in ("pruned_sq", "pruned_rows"):
+        source = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        assert '#include "tile_mma.cuh"' in source
+        assert "fmaf" not in source and "__global__" not in source
+        assert f"{name}_occupancy" in _cuda.SIGNATURES[name]
 
 
 def test_staleness_sees_source_and_header(tmp_path, monkeypatch):
@@ -83,5 +109,16 @@ def test_k3_breakdown_edits_still_apply():
     from scann_torch.tools import k3_breakdown
     src = open(_cuda.source_path("pruned_lut")).read()
     for edits in k3_breakdown.VARIANTS.values():
+        for old, _ in edits:
+            assert src.count(old) == 1, old
+
+
+def test_tile_breakdown_edits_still_apply():
+    """scann_torch/tools/tile_breakdown.py measures K1 and K2 by compiling
+    edited copies of csrc/tile_mma.cuh; every edit must find its text
+    exactly once."""
+    from scann_torch.tools import tile_breakdown
+    src = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
+    for edits in tile_breakdown.VARIANTS.values():
         for old, _ in edits:
             assert src.count(old) == 1, old

@@ -187,6 +187,39 @@ def test_k1_plain_version_matches_pallas_interpret(measure_l2):
                      _active_segments(want, jplan, 4))
 
 
+def test_k1_plain_version_matches_xla_twin_past_296_dims():
+    """d_pad 392: a width the kernel's shared memory once refused (above
+    296) and the card now serves."""
+    c = _k1_case(50, small=False, d=392)
+    jplan = _jax_plan(c["sel"], c["valid"], c["tile_start"], c["ntiles"],
+                      False)
+    jqg = jnp.take(jnp.asarray(c["q"]).astype(jnp.bfloat16), jplan.qg_query,
+                   axis=0)
+    want = jsq.score_work_xla_sq(jplan, jqg, jnp.asarray(c["rows"]),
+                                 jnp.asarray(c["scale"]),
+                                 jnp.asarray(c["bias"]), measure_l2=True,
+                                 kpg=4)
+    tplan = _to_torch(jplan)
+    tqg = torch.from_numpy(c["q"]).to(torch.bfloat16)[tplan.qg_query.long()]
+    got = tsq.score_work_torch_sq(tplan, tqg, torch.from_numpy(c["rows"]),
+                                  torch.from_numpy(c["scale"]),
+                                  torch.from_numpy(c["bias"]),
+                                  measure_l2=True, kpg=4)
+    _assert_k1_close(_active_segments(got.numpy(), jplan, 4),
+                     _active_segments(want, jplan, 4))
+
+
+def test_k1_shared_memory_rule():
+    """A K1 block's shared memory does not grow with d_pad (the dimension
+    axis streams through a ring of 32-dimension chunks), and it stays
+    within what an H100 block may use at every kpg the wrapper takes."""
+    sizes = {tsq._smem_bytes(d, kpg) for d in (104, 392, 768)
+             for kpg in (4, 8)}
+    assert sizes == {256 * 8 + 4 * (256 * 32 + 64 * 80) + 256 * 80}
+    assert all(tsq._smem_bytes(104, kpg) <= tps._SMEM_LIMIT
+               for kpg in range(1, tps.SUBP + 1))
+
+
 def test_k1_wrapper_on_cpu_takes_plain_path_without_launch():
     c = _k1_case(30, small=True)
     plan = _torch_plan(c["sel"], c["valid"], c["tile_start"], c["ntiles"],

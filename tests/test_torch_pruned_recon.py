@@ -33,7 +33,7 @@ from scann_tpu.ops import pruned_scan as jps
 RTOL, ATOL, MIN_ID = 2.0 ** -14, 1e-5, 0.9999
 
 
-def _problem(seed=3, num_leaves=12, b=96, l=5, d=128, l2=False):
+def _problem(seed=3, num_leaves=12, b=96, l=5, d=128, l2=False, d_live=100):
     rng = np.random.default_rng(seed)
     sizes = rng.integers(100, 1200, num_leaves)
     leaf = np.repeat(np.arange(num_leaves), sizes).astype(np.int64)
@@ -42,14 +42,14 @@ def _problem(seed=3, num_leaves=12, b=96, l=5, d=128, l2=False):
     live = order >= 0
     rows = np.zeros((num_tiles * jps.TILE, d), np.float32)
     rows[live] = 0.3 * rng.standard_normal((int(live.sum()), d))
-    rows[:, 100:] = 0.0                      # dims padded to 128
+    rows[:, d_live:] = 0.0                   # dims padded to d
     rows_bf = torch.from_numpy(rows).to(torch.bfloat16).reshape(
         num_tiles, jps.TILE, d)
     sq = (rows_bf.float() ** 2).sum(-1).reshape(-1).numpy()
     bias = np.where(live, -sq if l2 else 0.0, -1e30).astype(
         np.float32).reshape(num_tiles, jps.TILE, 1)
     q = rng.standard_normal((b, d)).astype(np.float32)
-    q[:, 100:] = 0.0
+    q[:, d_live:] = 0.0
     sel = np.stack([rng.choice(num_leaves, l, replace=False)
                     for _ in range(b)]).astype(np.int32)
     valid = rng.random((b, l)) < 0.9
@@ -142,12 +142,23 @@ def test_k2_wrapper_on_cpu_runs_the_plain_version_uncounted():
     assert tps.launches == before        # only kernel launches count
 
 
+def test_k2_plain_version_matches_jax_past_128_dims():
+    """Rows of 200 live dimensions padded to 256, a width the card now
+    serves (reconstruct mode's _recon_dim above 128)."""
+    p = _problem(seed=11, d=256, d_live=200)
+    plan, got = _torch_side(p, 8, False)
+    _hold(plan, got, _jax_side(p, 8, False, interpret=False), 8)
+
+
 def test_k2_shared_memory_rule():
-    """128 dimensions fit one block's shared memory, 256 do not (the
-    wrapper raises for them on the card; ROADMAP section 2)."""
-    assert tps.rows_smem_bytes(128) == 128 * 128 * 4 + 512 * 65 * 4
-    assert tps.rows_smem_bytes(128) <= tps._SMEM_LIMIT
-    assert tps.rows_smem_bytes(256) > tps._SMEM_LIMIT
+    """A K2 block's shared memory does not grow with d_pad (the dimension
+    axis streams through a ring of 32-dimension chunks), and it stays
+    within what an H100 block may use at every kpg the wrapper takes."""
+    sizes = {tps.rows_smem_bytes(d, kpg) for d in (128, 256, 768)
+             for kpg in (8, 16)}
+    assert sizes == {256 * 4 + 4 * (256 + 64) * 80}
+    assert all(tps.rows_smem_bytes(128, kpg) <= tps._SMEM_LIMIT
+               for kpg in range(1, tps.SUBP + 1))
 
 
 # ------------------------------------------------------- decoded layouts
