@@ -14,10 +14,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
   4. kernel phase: every kernel of the path against its plain torch
      version on the inputs the main path gives it, with timings and the
      card's bound for the same work; K1 also at d_pad 384 and 768 on
-     synthetic plans (scann_torch/tools/tile_breakdown.synthetic_case: a
+     synthetic plans (scann_torch/tools/tile_cases.synthetic_case: a
      few hundred active items at the scale of an index of unit vectors,
      dot and squared L2, 4 and 8 survivors a group), held to the same bar
-     against its plain version and against float64;
+     against its plain version and against float64, and at d_pad 768 on
+     raw-scale data, where its float64 excess is held to 1.5 times the
+     plain version's (tile_cases.RAW_EXCESS_RATIO);
   5. main path: search_batched over all queries at leaves 50, 80, 100, 150
      and the full scan with recall@10, QPS and per-stage times, and a
      16-query cross-check of the CUDA path against the CPU plain path on
@@ -37,7 +39,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      build, the CUDA-vs-CPU cross-check on its own serialization; K2
      against its plain version at the main path's inputs (dot and squared
      L2, 8 and 16 survivors per group; and at d_pad 256 and 384 on
-     synthetic plans, as K1) and K5 against its chunked plain
+     synthetic plans as K1, raw scale at 384) and K5 against its chunked plain
      version on all 10,000 queries (dot and squared L2), timed beside the
      bf16 torch.matmul + amax / argmax composition; the sweep leaves 50 /
      100 / 150 with 100 pre-reorder candidates (every point must launch
@@ -356,15 +358,18 @@ def wide_checks(torch, name, widths, kpgs):
     """K1 ("k1") or K2 ("k2") against its plain version at d_pads the
     main path does not reach, on synthetic plans at the scale of an index
     of unit vectors, dot and squared L2: the bar of the main path's
-    inputs, and the same bar against float64 scores of the survivors.
-    Returns the largest max_abs_err against the plain version."""
+    inputs, and the same bar against float64 scores of the survivors;
+    then at the kernel's raw-scale width (tile_cases.RAW_CASES), the
+    largest float64 excess within RAW_EXCESS_RATIO times the plain
+    version's.  Returns the largest max_abs_err against the plain
+    version."""
     from scann_torch.ops import pruned_scan
     from scann_torch.ops import pruned_sq
-    from scann_torch.tools import tile_breakdown
+    from scann_torch.tools import tile_cases
     worst = 0.0
     for d in widths:
         for measure_l2 in (False, True):
-            case = tile_breakdown.synthetic_case(
+            case = tile_cases.synthetic_case(
                 name, d, unit=True, measure_l2=measure_l2, seed=d)
             plan, qg, rows, scale, bias = case
             for kpg in kpgs:
@@ -386,7 +391,7 @@ def wide_checks(torch, name, widths, kpgs):
                 err, ident = compare_packed(
                     torch, f"{name.upper()} at d_pad {rows.shape[-1]}", got,
                     want, plan, atol=atol, min_id=min_id)
-                excess = {w: float(tile_breakdown.exact_excess(
+                excess = {w: float(tile_cases.exact_excess(
                     case, o, kpg, measure_l2).max())
                     for w, o in (("kernel", got), ("plain", want))}
                 if excess["kernel"] > atol:
@@ -403,6 +408,21 @@ def wide_checks(torch, name, widths, kpgs):
                 del got, want
             del case, plan, qg, rows, scale, bias
             torch.cuda.empty_cache()
+    d = dict(tile_cases.RAW_CASES)[name]
+    for measure_l2 in (False, True):
+        kernel, plain = tile_cases.raw_excess(
+            name, d, measure_l2,
+            lambda case: tile_cases.score(name, case, 8, measure_l2))
+        log(f"{name.upper()} at d_pad {d}, raw scale, "
+            f"{'l2' if measure_l2 else 'dot'}, kpg 8: largest |value - "
+            f"float64| - 2^-14 |float64|: kernel {kernel:.3g}, plain "
+            f"{plain:.3g}")
+        if not 0 < plain or kernel > tile_cases.RAW_EXCESS_RATIO * plain:
+            raise AssertionError(
+                f"{name.upper()} at d_pad {d}, raw scale: float64 excess "
+                f"{kernel:.3g} over {tile_cases.RAW_EXCESS_RATIO} x the plain "
+                f"version's {plain:.3g}")
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -885,10 +905,10 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
                             wide_checks(torch, "k2", (256, 384), (8, 16)))
     k2["occupancy"] = _cuda.occupancy("pruned_rows", s._p_rows.shape[-1],
                                       pruned_scan.KPG)
-    if k2["occupancy"]["smem_bytes"] != pruned_scan.rows_smem_bytes(
-            s._p_rows.shape[-1]):
+    if k2["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes(
+            False, pruned_scan.KPG):
         raise AssertionError("K2's shared memory differs from "
-                             "rows_smem_bytes")
+                             "tile_smem_bytes")
 
     # K5 on the full-scan layout, at the main path's shape.
     rows, bias = s._recon_rows, s._recon_bias
@@ -1112,8 +1132,9 @@ def main():
                             wide_checks(torch, "k1", (384, 768), (4, 8)))
     d_pad = searcher.slot_rows.shape[-1]
     k1["occupancy"] = _cuda.occupancy("pruned_sq", d_pad, 4)
-    if k1["occupancy"]["smem_bytes"] != pruned_sq._smem_bytes(d_pad, 4):
-        raise AssertionError("K1's shared memory differs from _smem_bytes")
+    if k1["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes(True, 4):
+        raise AssertionError("K1's shared memory differs from "
+                             "tile_smem_bytes")
 
     # 5. main path through the public entry points
     timer = StageTimer(torch)

@@ -42,7 +42,8 @@
 //     is the same for both kernels.
 //   * Epilogue: a query's 32 scores of the group lie in the 4 lanes of a
 //     quad, 8 registers each (the m16n8 accumulator layout), which is the
-//     input of survivors::quad_top_kpg (the top-4 form for kpg <= 4).  The
+//     input of survivors::quad_top_kpg (the top-4 form for kpg <= 4:
+//     tile_breakdown.py times it against sorting all 8).  The
 //     survivors of the block's 8 groups are staged in shared memory over
 //     the ring, so each (query, pass) leaves as one full 32-byte sector.
 

@@ -276,16 +276,18 @@ def score_work_torch(plan: WorkPlan, qg_rows, rows3, bias, *,
             .reshape(g, QG, mnt * kpg * GP))
 
 
-def rows_smem_bytes(d_pad: int, kpg: int = KPG) -> int:
-    """Dynamic shared memory of one K2 block (csrc/tile_mma.cuh): the bias
-    plane of its 256-slot slab, then a 4-stage ring of 32-dimension chunks
-    (256 rows and 64 queries, bf16 in 80-byte rows), which the staged
-    survivors (64 queries x kpg x 8 groups) reuse.  The dimension axis
-    streams, so d_pad does not enter."""
-    del d_pad
-    ring = 4 * (256 + QG // 2) * 80
+def tile_smem_bytes(int8_rows: bool, kpg: int) -> int:
+    """Dynamic shared memory of one block of csrc/tile_mma.cuh, K1's
+    (``int8_rows``) or K2's: the bias plane (and K1's scale plane) of its
+    256-slot slab, then a 4-stage ring of 32-dimension chunks (the slab's
+    raw rows, int8 in 32 bytes or bf16 in 80; 64 queries, bf16 in 80-byte
+    rows) and K1's chunk converted to bf16, which the staged survivors (64
+    queries x kpg x 8 groups) reuse.  The dimension axis streams, so d_pad
+    does not enter."""
+    raw_row = 32 if int8_rows else 80
+    ring = 4 * (256 * raw_row + QG // 2 * 80) + (256 * 80 if int8_rows else 0)
     stage = QG // 2 * (kpg * 8 + 4) * 4
-    return 256 * 4 + max(ring, stage)
+    return 256 * 4 * (2 if int8_rows else 1) + max(ring, stage)
 
 
 def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,

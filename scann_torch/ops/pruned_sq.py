@@ -32,18 +32,6 @@ _WORK_CHUNK = 128
 _TILE = 256          # slots per tree-SQ leaf tile
 
 
-def _smem_bytes(d_pad: int, kpg: int = 4) -> int:
-    """Dynamic shared memory of one kernel block (csrc/tile_mma.cuh): the
-    bias and scale planes of its 256 slots, then a 4-stage ring of
-    32-dimension chunks (raw int8 rows, 64 queries in 80-byte rows) and the
-    chunk's bf16 tile, which the staged survivors (64 queries x kpg x 8
-    groups) reuse.  The dimension axis streams, so d_pad does not enter."""
-    del d_pad
-    ring = 4 * (_TILE * 32 + ps.QG // 2 * 80) + _TILE * 80
-    stage = ps.QG // 2 * (kpg * 8 + 4) * 4
-    return _TILE * 8 + max(ring, stage)
-
-
 def score_work_torch_sq(plan, qg_rows, rows3, scale, bias, *,
                         measure_l2: bool, kpg: int = 4,
                         work_chunk: int = _WORK_CHUNK):

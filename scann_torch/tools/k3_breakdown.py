@@ -19,16 +19,14 @@ directory.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import tempfile
 
 import numpy as np
 import torch
 
-from scann_torch import _cuda
 from scann_torch.ops import pruned_lut as pl
 from scann_torch.ops import pruned_scan as ps
+from scann_torch.tools.variants import build_variant
 
 _SELECT = "survivors::quad_top_kpg(pv, kpg, kWarps, tq == 0, [&](int r) {"
 _NO_SELECT = ("if (pv[0][0] == 1234.5f && pv[7][7] == 2.f) stage_s[0] = 1; "
@@ -37,29 +35,6 @@ _NO_LUT = [("  if (dpb == 2)\n    build_lut<2>", "  if (0)\n    build_lut<2>"),
            ("  else\n    build_lut<0>", "  else if (0)\n    build_lut<0>")]
 VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
             "no selection, no LUT build": [(_SELECT, _NO_SELECT), *_NO_LUT]}
-
-
-def _build(tmp: str, name: str, edits) -> ctypes.CDLL:
-    src = open(_cuda.source_path("pruned_lut")).read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"the source no longer holds {old!r}")
-        src = src.replace(old, new)
-    d = os.path.join(tmp, name.replace(" ", "_").replace(",", ""))
-    os.makedirs(d)
-    for f in os.listdir(_cuda.CSRC):
-        if f.endswith(".cuh"):
-            with open(os.path.join(_cuda.CSRC, f)) as h:
-                open(os.path.join(d, f), "w").write(h.read())
-    open(os.path.join(d, "pruned_lut.cu"), "w").write(src)
-    out = os.path.join(d, "lib.so")
-    subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", out,
-                    os.path.join(d, "pruned_lut.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(out)
-    args, res = _cuda.SIGNATURES["pruned_lut"]["pruned_lut_score"]
-    lib.pruned_lut_score.argtypes, lib.pruned_lut_score.restype = args, res
-    return lib
 
 
 def bench_like_inputs(seed: int = 0, nq: int = 10_000, nl: int = 2000,
@@ -101,7 +76,9 @@ def main():
     print(f"{torch.cuda.get_device_name(0)}; plan: {g_pad} groups, "
           f"{int(plan.work_active.sum())} active items of {w_pad}")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {n: _build(tmp, n, e) for n, e in VARIANTS.items()}
+        libs = {n: build_variant(tmp, n, "pruned_lut", "pruned_lut_score",
+                                 "pruned_lut.cu", e)
+                for n, e in VARIANTS.items()}
         for kpg in (8, 16):
             want = pl.score_work_torch_lut(plan, qg, codes3p, cb_k, csq,
                                            bias, measure_l2=False, kpg=kpg)

@@ -8,43 +8,48 @@ edited copies of csrc/tile_mma.cuh:
   * "no selection": scores are computed but only a token of them is kept
     (the survivors' copy-out still runs), so the difference to the kernel
     is the survivor selection;
+  * "sort 8 at kpg <= 4": the selection sorts all 8 values of a lane at
+    every kpg, where the kernel keeps only the top 4 for kpg <= 4 (K1's
+    main path); at K2's kpg 8 the two are the same code, which shows the
+    spread of the timing;
   * "chained accumulator": every mma adds into the running sum inside the
     tensor core, where the kernel starts each mma from zero and adds its
     partial with a rounded f32 add.
 Time: each variant on a synthetic plan shaped like the benchmark's at
 leaves=100 (10,000 queries, 100 of 2000 leaves; tree-SQ: leaves of 1-4
 256-slot tiles, d_pad 104, kpg 4; reconstruct: leaves of 1-2 512-slot
-tiles, d_pad 128, kpg 8), the median of 10 CUDA-event timings.
+tiles, d_pad 128, kpg 8): 5 rounds over the variants in turn, each round
+the median of 10 CUDA-event timings; the line gives the median of the
+rounds and their range.
 Accuracy: on smaller plans at several widths, with data of two scales
-(``raw``: standard-normal queries, int8 codes over the full range with
-scales of 1e-3 to 1e-2, or bf16 rows of 0.3 a dimension; ``unit``: unit-norm
-queries and rows, int8 residual codes with the encoder's per-row scale),
-every live survivor of the kernel, of the chained variant and of the plain
-version is rescored in float64 from its identity; the line gives the
-largest |value - exact| - 2^-14 |exact| of each (the bars' form: the 9
-identity bits cost up to 2^-14 relative) and of the kernel against the
-plain version.  The variants' sources and libraries go to a temporary
+(scann_torch/tools/tile_cases.py), every live survivor of the kernel, of
+the chained variant and of the plain version is rescored in float64 from
+its identity; the line gives the largest |value - exact| - 2^-14 |exact|
+of each and of the kernel against the plain version, and at the raw-scale
+cases the card tests hold (tile_cases.RAW_CASES) whether the kernel and
+the chained variant stay within RAW_EXCESS_RATIO times the plain
+version's.  The variants' sources and libraries go to a temporary
 directory.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import tempfile
 
 import numpy as np
 import torch
 
-from scann_torch import _cuda
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops import pruned_sq
+from scann_torch.tools import tile_cases
+from scann_torch.tools.variants import build_variant
 
 _SELECT = ("survivors::quad_top_kpg<kKeep>(pv, kpg, kWarps, tq == 0, "
            "[&](int r) {")
 _NO_SELECT = ("if (pv[0][0] == 1234.5f && pv[7][7] == 2.f) stage_s[0] = 1; "
               "if (0) " + _SELECT)
+_SORT8 = ("return a.kpg <= 4 ? launch<T, 4>(a, w_pad, s) : "
+          "launch<T, 8>(a, w_pad, s);", "return launch<T, 8>(a, w_pad, s);")
 _CHAINED = [
     ('"{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};',
      '"{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};'),
@@ -53,93 +58,10 @@ _CHAINED = [
     ("mma_bf16(part[mi], af[mi],", "mma_bf16(acc[mi][j], af[mi],"),
     ("acc[mi][j][e] = __fadd_rn(acc[mi][j][e], part[mi][e]);", "(void)e;")]
 VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
+            "sort 8 at kpg <= 4": [_SORT8],
             "chained accumulator": _CHAINED}
 KERNELS = {"k1": ("pruned_sq", "pruned_sq_score"),
            "k2": ("pruned_rows", "pruned_rows_score")}
-
-
-def _build(tmp: str, kernel: str, variant: str, edits) -> ctypes.CDLL:
-    name, fn = KERNELS[kernel]
-    header = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
-    for old, new in edits:
-        if header.count(old) != 1:
-            raise RuntimeError(f"tile_mma.cuh no longer holds {old!r}")
-        header = header.replace(old, new)
-    d = os.path.join(tmp, f"{kernel}_{variant.replace(' ', '_')}")
-    os.makedirs(d)
-    for f in os.listdir(_cuda.CSRC):
-        if f.endswith((".cuh", ".cu")):
-            with open(os.path.join(_cuda.CSRC, f)) as h:
-                open(os.path.join(d, f), "w").write(h.read())
-    open(os.path.join(d, "tile_mma.cuh"), "w").write(header)
-    out = os.path.join(d, "lib.so")
-    subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", out,
-                    os.path.join(d, f"{name}.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(out)
-    args, res = _cuda.SIGNATURES[name][fn]
-    getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
-    return lib
-
-
-def synthetic_case(kernel: str, d: int, *, unit: bool, measure_l2: bool,
-                   seed: int = 0, nq: int = 1000, nl: int = 60,
-                   leaves: int = 8, device: str = "cuda"):
-    """A K1 (``kernel`` "k1") or K2 ("k2") scoring problem from a seed:
-    (plan, qg_rows, rows, scale or None, bias).  K1: leaves of 1-4
-    256-slot tiles, int8 rows; K2: leaves of 1-2 512-slot tiles, bf16 rows
-    with the bias -||x||^2 under squared L2.  10% of the slots are padding
-    (bias -1e30).  ``unit``: queries and rows at the scale of an index of
-    unit vectors (see the module docstring)."""
-    r = np.random.default_rng(seed)
-    tile, max_nt = (256, 4) if kernel == "k1" else (512, 2)
-    d_pad = -(-d // 8) * 8
-    ntiles = r.integers(1, max_nt + 1, nl).astype(np.int32)
-    tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
-        np.int32)
-    num_tiles = int(ntiles.sum())
-    sel = np.argsort(r.random((nq, nl)), axis=1)[:, :leaves].astype(np.int32)
-
-    def t(a):
-        return torch.as_tensor(a, device=device)
-
-    mnt = int(ntiles.max())
-    g_pad, w_pad = ps.plan_capacities(nq, leaves, nl, num_tiles, mnt)
-    plan = ps.invert(t(sel), t(np.ones((nq, leaves), bool)), t(tile_start),
-                     t(ntiles), mnt, g_pad, w_pad)
-    pad = r.random((num_tiles, tile, 1)) < 0.1
-    q = np.zeros((nq, d_pad), np.float32)
-    q[:, :d] = r.standard_normal((nq, d))
-    if unit:
-        q /= np.linalg.norm(q, axis=1, keepdims=True)
-    qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
-    if kernel == "k1":
-        if unit:
-            res = np.zeros((num_tiles, tile, d_pad))
-            res[..., :d] = 0.4 / np.sqrt(d) * r.standard_normal(
-                (num_tiles, tile, d))
-            scale = np.abs(res).max(-1, keepdims=True) / 127
-            rows = np.rint(res / scale).astype(np.int8)
-        else:
-            rows = np.zeros((num_tiles, tile, d_pad), np.int8)
-            rows[..., :d] = r.integers(-127, 128, (num_tiles, tile, d))
-            scale = r.uniform(1e-3, 1e-2, (num_tiles, tile, 1))
-        rows_t, scale_t = t(rows), t(scale.astype(np.float32))
-        bias = -r.uniform(0, 1, (num_tiles, tile, 1))
-        if measure_l2:
-            bias = -(((rows * scale) ** 2).sum(-1, keepdims=True))
-    else:
-        x = np.zeros((num_tiles, tile, d_pad), np.float32)
-        x[..., :d] = 0.3 * r.standard_normal((num_tiles, tile, d))
-        if unit:
-            x /= np.linalg.norm(x, axis=-1, keepdims=True)
-        x[pad[..., 0]] = 0.0
-        rows_t, scale_t = t(x).to(torch.bfloat16), None
-        bias = np.zeros((num_tiles, tile, 1))
-        if measure_l2:
-            bias = -(rows_t.float() ** 2).sum(-1, keepdim=True).cpu().numpy()
-    bias = np.where(pad, -1e30, bias).astype(np.float32)
-    return plan, qg, rows_t, scale_t, t(bias)
 
 
 def run_kernel(lib, kernel, case, kpg, measure_l2, out):
@@ -161,87 +83,50 @@ def run_kernel(lib, kernel, case, kpg, measure_l2, out):
         raise RuntimeError(f"{kernel} launch failed ({err})")
 
 
-def plain(kernel, case, kpg, measure_l2):
-    plan, qg, rows, scale, bias = case
-    if kernel == "k1":
-        return pruned_sq.score_work_torch_sq(plan, qg, rows, scale, bias,
-                                             measure_l2=measure_l2, kpg=kpg)
-    return ps.score_work_torch(plan, qg, rows, bias, measure_l2=measure_l2,
-                               kpg=kpg)
-
-
-def exact_excess(case, packed, kpg, measure_l2):
-    """|value - exact| - 2^-14 |exact| of every live survivor of an
-    active item, its slot read from its identity and rescored in float64."""
-    plan, qg, rows, scale, bias = case
-    tile = rows.shape[1]
-    g_pad = plan.qg_query.shape[0]
-    mnt = plan.work_tile.shape[0] // g_pad
-    seg = packed.shape[-1] // mnt
-    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
-        g_pad, ps.QG, mnt, seg)
-    idx = torch.nonzero(act)
-    mult = 2.0 if measure_l2 else 1.0
-    parts = []
-    for c0 in range(0, idx.shape[0], 1 << 17):
-        gi, qi, ti, ci = idx[c0:c0 + (1 << 17)].unbind(1)
-        val, arg, _ = ps._unpack(packed.reshape(act.shape)[gi, qi, ti, ci])
-        slot = (ci % (tile // ps.SUBP)) * ps.SUBP + arg.long()
-        tid = plan.work_tile.reshape(g_pad, mnt)[gi, ti].long()
-        s = (rows[tid, slot].double() * qg[gi, qi].double()).sum(-1)
-        s = s * (mult if scale is None else
-                 scale.reshape(-1, tile)[tid, slot].double() * mult)
-        exact = s + bias.reshape(-1, tile)[tid, slot].double()
-        live = exact > -1e20
-        parts.append(((val.double() - exact).abs()
-                      - 2.0 ** -14 * exact.abs())[live])
-    return torch.cat(parts)
-
-
-def pair_excess(case, got, want):
-    """|kernel - plain| - 2^-14 |plain| over the active segments."""
-    plan = case[0]
-    g_pad = plan.qg_query.shape[0]
-    mnt = plan.work_tile.shape[0] // g_pad
-    act = plan.work_active.reshape(g_pad, 1, mnt, 1).bool().expand(
-        g_pad, ps.QG, mnt, got.shape[-1] // mnt).reshape(got.shape)
-    va, vb = ps._unpack(got[act])[0].double(), ps._unpack(want[act])[0].double()
-    live = vb > -1e20
-    return ((va - vb).abs() - 2.0 ** -14 * vb.abs())[live]
+def _time(lib, kernel, case, kpg, out):
+    """Median of 10 CUDA-event timings of one launch, in ms."""
+    times = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run_kernel(lib, kernel, case, kpg, False, out)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("tile_breakdown needs a CUDA card")
     print(torch.cuda.get_device_name(0))
+    raw_cases = dict(tile_cases.RAW_CASES)
     with tempfile.TemporaryDirectory() as tmp:
-        for kernel in KERNELS:
-            libs = {v: _build(tmp, kernel, v, e) for v, e in VARIANTS.items()}
+        for kernel, (lib_name, fn) in KERNELS.items():
+            libs = {v: build_variant(tmp, v, lib_name, fn, "tile_mma.cuh", e)
+                    for v, e in VARIANTS.items()}
             d, kpg = (100, 4) if kernel == "k1" else (128, 8)
-            case = synthetic_case(kernel, d, unit=True, measure_l2=False,
-                                  nq=10_000, nl=2000, leaves=100)
+            case = tile_cases.synthetic_case(
+                kernel, d, unit=True, measure_l2=False, nq=10_000, nl=2000,
+                leaves=100)
             plan = case[0]
             mnt = plan.work_tile.shape[0] // plan.qg_query.shape[0]
             seg = kpg * case[2].shape[1] // ps.SUBP
             out = torch.empty((plan.qg_query.shape[0], ps.QG, mnt * seg),
                               dtype=torch.int32, device="cuda")
-            ms = {}
-            for name, lib in libs.items():
+            for lib in libs.values():
                 run_kernel(lib, kernel, case, kpg, False, out)
-                torch.cuda.synchronize()
-                times = []
-                for _ in range(10):
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    run_kernel(lib, kernel, case, kpg, False, out)
-                    b.record()
-                    b.synchronize()
-                    times.append(a.elapsed_time(b))
-                ms[name] = float(np.median(times))
+            torch.cuda.synchronize()
+            rounds = {name: [] for name in libs}
+            for _ in range(5):
+                for name, lib in libs.items():
+                    rounds[name].append(_time(lib, kernel, case, kpg, out))
+            ms = {n: float(np.median(t)) for n, t in rounds.items()}
             print(f"{kernel} time at d_pad {case[2].shape[-1]}, kpg {kpg}, "
                   f"{int(plan.work_active.sum())} active items: "
-                  + ", ".join(f"{n} {t:.3f} ms" for n, t in ms.items())
+                  + ", ".join(f"{n} {ms[n]:.3f} ms [{min(t):.3f}-"
+                              f"{max(t):.3f}]" for n, t in rounds.items())
                   + f"; selection {ms['kernel'] - ms['no selection']:.3f} ms")
             del case, out
             widths = (100, 384, 768) if kernel == "k1" else (128, 256, 384)
@@ -249,29 +134,37 @@ def main():
                 for unit in (False, True):
                     for measure_l2 in (False, True):
                         kpg = 8
-                        case = synthetic_case(kernel, d, unit=unit,
-                                              measure_l2=measure_l2,
-                                              seed=d + unit)
-                        want = plain(kernel, case, kpg, measure_l2)
+                        case = tile_cases.synthetic_case(
+                            kernel, d, unit=unit, measure_l2=measure_l2,
+                            seed=d + unit)
+                        want = tile_cases.plain(kernel, case, kpg, measure_l2)
                         got = {}
                         for name in ("kernel", "chained accumulator"):
                             got[name] = torch.empty_like(want)
                             run_kernel(libs[name], kernel, case, kpg,
                                        measure_l2, got[name])
                         torch.cuda.synchronize()
-                        line = {n: float(exact_excess(case, o, kpg,
-                                                      measure_l2).max())
+                        line = {n: float(tile_cases.exact_excess(
+                                    case, o, kpg, measure_l2).max())
                                 for n, o in (("kernel", got["kernel"]),
                                              ("chained", got[
                                                  "chained accumulator"]),
                                              ("plain", want))}
-                        line["kernel vs plain"] = float(pair_excess(
+                        line["kernel vs plain"] = float(tile_cases.pair_excess(
                             case, got["kernel"], want).max())
+                        verdict = ""
+                        if not unit and raw_cases.get(kernel) == d:
+                            bar = tile_cases.RAW_EXCESS_RATIO * line["plain"]
+                            verdict = "; within %g x plain: %s" % (
+                                tile_cases.RAW_EXCESS_RATIO, ", ".join(
+                                    f"{n} {'yes' if line[n] <= bar else 'no'}"
+                                    for n in ("kernel", "chained")))
                         print(f"{kernel} accuracy d {d} "
                               f"{'unit' if unit else 'raw'} "
                               f"{'l2' if measure_l2 else 'dot'} kpg {kpg}: "
                               + ", ".join(f"{n} {v:.3g}"
-                                          for n, v in line.items()))
+                                          for n, v in line.items())
+                              + verdict)
                         del case, want, got
 
 

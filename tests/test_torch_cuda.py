@@ -24,11 +24,12 @@ import pytest
 import torch
 
 import scann_torch
+from scann_torch import _cuda
 from scann_torch.ops import fused_scan
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq
-from scann_torch.tools import tile_breakdown
+from scann_torch.tools import tile_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +90,7 @@ def test_k1_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
     if d_pad == 104:
         case = _case(cuda, 1 + kpg + measure_l2)
     else:
-        case = tile_breakdown.synthetic_case(
+        case = tile_cases.synthetic_case(
             "k1", d_pad, unit=True, measure_l2=measure_l2, seed=d_pad + kpg)
     plan, qg, rows, scale, bias = case
     assert rows.shape[-1] == d_pad
@@ -101,7 +102,7 @@ def test_k1_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
                                          measure_l2=measure_l2, kpg=kpg)
     torch.cuda.synchronize()
     _hold_k1(plan, got, want, kpg)
-    assert tile_breakdown.exact_excess(case, got, kpg, measure_l2).max() \
+    assert tile_cases.exact_excess(case, got, kpg, measure_l2).max() \
         <= 1e-6
 
 
@@ -340,7 +341,7 @@ def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
         plan, qg, rows, bias = _rows_case(cuda, 60 + kpg + measure_l2,
                                           l2=measure_l2)[:4]
     else:
-        plan, qg, rows, _, bias = tile_breakdown.synthetic_case(
+        plan, qg, rows, _, bias = tile_cases.synthetic_case(
             "k2", d_pad, unit=True, measure_l2=measure_l2, seed=d_pad + kpg)
     assert rows.shape[-1] == d_pad
     before = ps.launches
@@ -350,8 +351,24 @@ def test_k2_kernel_matches_plain_version(cuda, measure_l2, kpg, d_pad):
                                kpg=kpg)
     torch.cuda.synchronize()
     _hold_k2(plan, got, want, kpg)
-    assert tile_breakdown.exact_excess((plan, qg, rows, None, bias), got,
-                                       kpg, measure_l2).max() <= 1e-5
+    assert tile_cases.exact_excess((plan, qg, rows, None, bias), got,
+                                   kpg, measure_l2).max() <= 1e-5
+
+
+# At raw scale (standard-normal queries, full-range rows) and the widest
+# widths the plain version's own f32 error passes the bars' floors, so the
+# kernels' sums are held to float64 relative to it.  A sum chained through
+# the tensor core's accumulator misses this bar (tile_breakdown's "chained
+# accumulator" variant, PERF.md).
+@pytest.mark.parametrize("kernel,d_pad", tile_cases.RAW_CASES)
+@pytest.mark.parametrize("measure_l2", [False, True])
+def test_k1_k2_raw_scale_sums_hold_float64_as_the_plain_version(
+        cuda, kernel, d_pad, measure_l2):
+    got, plain = tile_cases.raw_excess(
+        kernel, d_pad, measure_l2,
+        lambda case: tile_cases.score(kernel, case, 8, measure_l2))
+    assert plain > 0
+    assert got <= tile_cases.RAW_EXCESS_RATIO * plain
 
 
 def test_k2_wrapper_rejects_bad_inputs(cuda):
@@ -363,6 +380,18 @@ def test_k2_wrapper_rejects_bad_inputs(cuda):
                       measure_l2=False)
     with pytest.raises(ValueError, match="kpg"):
         ps.score_work(plan, qg, rows, bias, measure_l2=False, kpg=33)
+
+
+@pytest.mark.parametrize("lib,int8_rows,kpg", [("pruned_sq", True, 4),
+                                               ("pruned_rows", False, 8),
+                                               ("pruned_rows", False, 16)])
+def test_k1_k2_shared_memory_is_the_python_rule_at_every_width(
+        cuda, lib, int8_rows, kpg):
+    """The C kernel's shared memory, as its occupancy export reports it,
+    is ps.tile_smem_bytes at every d_pad."""
+    for d_pad in (104, 128, 256, 768):
+        assert _cuda.occupancy(lib, d_pad, kpg)["smem_bytes"] == \
+            ps.tile_smem_bytes(int8_rows, kpg)
 
 
 def _one_item_plan(dev, num_tiles):

@@ -7,6 +7,8 @@ import os
 import re
 import time
 
+import pytest
+
 from scann_torch import _cuda
 
 
@@ -107,10 +109,10 @@ def test_k3_breakdown_edits_still_apply():
     """scann_torch/tools/k3_breakdown.py measures K3 by compiling edited
     copies of its source; every edit must find its text exactly once."""
     from scann_torch.tools import k3_breakdown
+    from scann_torch.tools.variants import apply_edits
     src = open(_cuda.source_path("pruned_lut")).read()
     for edits in k3_breakdown.VARIANTS.values():
-        for old, _ in edits:
-            assert src.count(old) == 1, old
+        assert apply_edits(src, edits) != src or not edits
 
 
 def test_tile_breakdown_edits_still_apply():
@@ -118,7 +120,15 @@ def test_tile_breakdown_edits_still_apply():
     edited copies of csrc/tile_mma.cuh; every edit must find its text
     exactly once."""
     from scann_torch.tools import tile_breakdown
+    from scann_torch.tools.variants import apply_edits
     src = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
     for edits in tile_breakdown.VARIANTS.values():
-        for old, _ in edits:
-            assert src.count(old) == 1, old
+        assert apply_edits(src, edits) != src or not edits
+
+
+def test_variant_edits_refuse_text_not_found_exactly_once():
+    from scann_torch.tools.variants import apply_edits
+    assert apply_edits("a b c", [("b", "x"), ("x c", "y")]) == "a y"
+    for edits in ([("d", "x")], [("a", "b"), ("b", "x")]):
+        with pytest.raises(RuntimeError, match="no longer holds"):
+            apply_edits("a b c", edits)

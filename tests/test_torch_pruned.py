@@ -210,14 +210,14 @@ def test_k1_plain_version_matches_xla_twin_past_296_dims():
 
 
 def test_k1_shared_memory_rule():
-    """A K1 block's shared memory does not grow with d_pad (the dimension
-    axis streams through a ring of 32-dimension chunks), and it stays
-    within what an H100 block may use at every kpg the wrapper takes."""
-    sizes = {tsq._smem_bytes(d, kpg) for d in (104, 392, 768)
-             for kpg in (4, 8)}
+    """A K1 block's shared memory (csrc/tile_mma.cuh) takes no d_pad: the
+    dimension axis streams through a ring of 32-dimension chunks.  The
+    staged survivors fit over the ring at every kpg the wrapper takes, so
+    it is one size, within what an H100 block may use."""
+    sizes = {tps.tile_smem_bytes(True, kpg)
+             for kpg in range(1, tps.SUBP + 1)}
     assert sizes == {256 * 8 + 4 * (256 * 32 + 64 * 80) + 256 * 80}
-    assert all(tsq._smem_bytes(104, kpg) <= tps._SMEM_LIMIT
-               for kpg in range(1, tps.SUBP + 1))
+    assert max(sizes) <= tps._SMEM_LIMIT
 
 
 def test_k1_wrapper_on_cpu_takes_plain_path_without_launch():

@@ -151,14 +151,15 @@ def test_k2_plain_version_matches_jax_past_128_dims():
 
 
 def test_k2_shared_memory_rule():
-    """A K2 block's shared memory does not grow with d_pad (the dimension
-    axis streams through a ring of 32-dimension chunks), and it stays
-    within what an H100 block may use at every kpg the wrapper takes."""
-    sizes = {tps.rows_smem_bytes(d, kpg) for d in (128, 256, 768)
-             for kpg in (8, 16)}
+    """A K2 block's shared memory (csrc/tile_mma.cuh) takes no d_pad, so
+    d_pad 256 fits where it once did not: the dimension axis streams
+    through a ring of 32-dimension chunks.  The staged survivors fit over
+    the ring at every kpg the wrapper takes, so it is one size, within
+    what an H100 block may use."""
+    sizes = {tps.tile_smem_bytes(False, kpg)
+             for kpg in range(1, tps.SUBP + 1)}
     assert sizes == {256 * 4 + 4 * (256 + 64) * 80}
-    assert all(tps.rows_smem_bytes(128, kpg) <= tps._SMEM_LIMIT
-               for kpg in range(1, tps.SUBP + 1))
+    assert max(sizes) <= tps._SMEM_LIMIT
 
 
 # ------------------------------------------------------- decoded layouts
