@@ -30,10 +30,15 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      reorder, float32 lookup); K3 and K4 against their plain versions at
      the main path's inputs (dot and squared L2, 8 and 16 survivors per
      group, K4 also with 256 centers per block on a small index) with
-     timings and bounds; the sweep leaves 50 / 100 / 150 x pre-reorder
+     timings and bounds; K4 also at d_pad 256, 384 and 768 (16 centers x
+     2 dimensions a block and 256 x 4, 8 and 16 survivors, dot and squared
+     L2) on synthetic plans as K1, and at d_pad 768 on raw-scale data;
+     the sweep leaves 50 / 100 / 150 x pre-reorder
      100 / 250 on both reorder types (every point must launch K3), one
      float32-lookup point (must launch K4), the dense LUT16 scan (full
-     scan) over all queries, and the CUDA-vs-CPU cross-check;
+     scan) over all queries, the CUDA-vs-CPU cross-check, and a 200-dim
+     float32-lookup index (d_pad 208, past the 144 K4 once served) that
+     must launch K4 and agree with the CPU plain path;
   7. tree-AH in reconstruct mode (the same config with
      asymmetric_hash.lookup_type = "reconstruct", float32 reorder rows):
      build, the CUDA-vs-CPU cross-check on its own serialization; K2
@@ -46,14 +51,17 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      K2) and the full scan (must launch K5); and the same scorer with no
      tree (score_ah + reorder alone), whose every search is a K5 scan;
   8. the fused merge: K6 against its plain version, bit for bit, on
-     tree-SQ's packed block at leaves=100 (k 10, in phase 5) and on
-     tree-AH's (k 30, in phase 6), and one search at leaves=100 on each
+     tree-SQ's packed block at leaves=100 (k 10, in phase 5), on tree-AH's
+     (k 30, in phase 6) and on a synthetic block at the widest row a
+     scorer writes (w 8192, k 32), and one search at leaves=100 on each
      engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
      lose no more than 0.002 of recall@10);
-  9. the occupancy line of the four tensor-core kernels (K1, K2, K3, K5:
-     registers a thread, dynamic shared memory a block, resident blocks an
-     SM, at the main path's shapes), the kernels JSON line, the card line,
-     and the final ok line.
+  9. the width guards: on the card a K3 width no survivor count serves
+     and a no-tree reconstruct searcher over 384 dimensions raise
+     NotImplementedError naming item 13 before any training; then the
+     occupancy line of the six kernels (registers a thread, dynamic shared
+     memory a block, resident blocks an SM, at the main path's shapes), the
+     kernels JSON line, the card line, and the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -111,6 +119,9 @@ K4_ATOL = 1e-5
 K2_MIN_ID_AGREE = 0.9999
 K5_RTOL, K5_ATOL, K5_MIN_ID_AGREE = 1e-5, 1e-5, 0.999
 TIMING_REPS = 20
+# The instruction of K1, K2 and K4 (csrc/tile_mma.cuh), for the kernels
+# line.
+TILE_MMA = "mma.sync m16n8k16 bf16 (csrc/tile_mma.cuh), 4-stage cp.async ring"
 PLAIN_TIMING_REPS = 5
 
 # The benchmark corpus: a verbatim copy of bench.make_glove_like (and its
@@ -354,60 +365,57 @@ def compare_packed(torch, name, got, want, plan, atol=None,
     return (float(err.max()) if err.numel() else 0.0), ident
 
 
-def wide_checks(torch, name, widths, kpgs):
-    """K1 ("k1") or K2 ("k2") against its plain version at d_pads the
-    main path does not reach, on synthetic plans at the scale of an index
-    of unit vectors, dot and squared L2: the bar of the main path's
-    inputs, and the same bar against float64 scores of the survivors;
-    then at the kernel's raw-scale width (tile_cases.RAW_CASES), the
-    largest float64 excess within RAW_EXCESS_RATIO times the plain
-    version's.  Returns the largest max_abs_err against the plain
-    version."""
-    from scann_torch.ops import pruned_scan
-    from scann_torch.ops import pruned_sq
+# The bar of each tile kernel against its plain version: (atol, least
+# identity agreement).
+TILE_BARS = {"k1": (K1_ATOL, K1_MIN_ID_AGREE),
+             "k2": (K4_ATOL, K2_MIN_ID_AGREE),
+             "k4": (K4_ATOL, K1_MIN_ID_AGREE)}
+
+
+def wide_checks(torch, name, widths, kpgs, shapes=((16, 2),)):
+    """K1 ("k1"), K2 ("k2") or K4 ("k4", at each (centers, dimensions per
+    block) of ``shapes``) against its plain version at d_pads the main
+    path does not reach, on synthetic plans at the scale of an index of
+    unit vectors, dot and squared L2: the bar of the main path's inputs,
+    and the same bar against float64 scores of the survivors; then at the
+    kernel's raw-scale width (tile_cases.RAW_CASES), the largest float64
+    excess within RAW_EXCESS_RATIO times the plain version's.  Returns the
+    largest max_abs_err against the plain version."""
     from scann_torch.tools import tile_cases
+    atol, min_id = TILE_BARS[name]
     worst = 0.0
     for d in widths:
-        for measure_l2 in (False, True):
-            case = tile_cases.synthetic_case(
-                name, d, unit=True, measure_l2=measure_l2, seed=d)
-            plan, qg, rows, scale, bias = case
-            for kpg in kpgs:
-                if name == "k1":
-                    args = (plan, qg, rows, scale, bias)
-                    got = pruned_sq.score_work_sq(
-                        *args, measure_l2=measure_l2, kpg=kpg)
-                    want = pruned_sq.score_work_torch_sq(
-                        *args, measure_l2=measure_l2, kpg=kpg)
-                    atol, min_id = K1_ATOL, K1_MIN_ID_AGREE
-                else:
-                    args = (plan, qg, rows, bias)
-                    got = pruned_scan.score_work(
-                        *args, measure_l2=measure_l2, kpg=kpg)
-                    want = pruned_scan.score_work_torch(
-                        *args, measure_l2=measure_l2, kpg=kpg)
-                    atol, min_id = K4_ATOL, K2_MIN_ID_AGREE
-                torch.cuda.synchronize()
-                err, ident = compare_packed(
-                    torch, f"{name.upper()} at d_pad {rows.shape[-1]}", got,
-                    want, plan, atol=atol, min_id=min_id)
-                excess = {w: float(tile_cases.exact_excess(
-                    case, o, kpg, measure_l2).max())
-                    for w, o in (("kernel", got), ("plain", want))}
-                if excess["kernel"] > atol:
-                    raise AssertionError(
-                        f"{name.upper()} at d_pad {rows.shape[-1]} misses "
-                        f"float64 by {excess['kernel']:.3g} over the bar")
-                worst = max(worst, err)
-                log(f"{name.upper()} vs plain (d_pad {rows.shape[-1]}, "
-                    f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}, "
-                    f"{int(plan.work_active.sum())} active items): max |err| "
-                    f"{err:.3g}, identities agree {ident:.6f}; largest "
-                    f"|value - float64| - 2^-14 |float64|: kernel "
-                    f"{excess['kernel']:.3g}, plain {excess['plain']:.3g}")
-                del got, want
-            del case, plan, qg, rows, scale, bias
-            torch.cuda.empty_cache()
+        for cpb, dpb in shapes:
+            for measure_l2 in (False, True):
+                case = tile_cases.synthetic_case(
+                    name, d, unit=True, measure_l2=measure_l2, seed=d,
+                    cpb=cpb, dpb=dpb)
+                plan, qg = case[:2]
+                what = f"{name.upper()} at d_pad {qg.shape[-1]}" + (
+                    f", {cpb} centers x {dpb} dims" if name == "k4" else "")
+                for kpg in kpgs:
+                    got = tile_cases.score(name, case, kpg, measure_l2)
+                    want = tile_cases.plain(name, case, kpg, measure_l2)
+                    torch.cuda.synchronize()
+                    err, ident = compare_packed(torch, what, got, want, plan,
+                                                atol=atol, min_id=min_id)
+                    excess = {w: float(tile_cases.exact_excess(
+                        case, o, kpg, measure_l2).max())
+                        for w, o in (("kernel", got), ("plain", want))}
+                    if excess["kernel"] > atol:
+                        raise AssertionError(
+                            f"{what} misses float64 by "
+                            f"{excess['kernel']:.3g} over the bar")
+                    worst = max(worst, err)
+                    log(f"{what} vs plain ({'l2' if measure_l2 else 'dot'}, "
+                        f"kpg {kpg}, {int(plan.work_active.sum())} active "
+                        f"items): max |err| {err:.3g}, identities agree "
+                        f"{ident:.6f}; largest |value - float64| - 2^-14 "
+                        f"|float64|: kernel {excess['kernel']:.3g}, plain "
+                        f"{excess['plain']:.3g}")
+                    del got, want
+                del case, plan, qg
+                torch.cuda.empty_cache()
     d = dict(tile_cases.RAW_CASES)[name]
     for measure_l2 in (False, True):
         kernel, plain = tile_cases.raw_excess(
@@ -544,6 +552,86 @@ def k6_check(torch, rec, what, plan, packed, ntiles, tile, k, mnt):
         f"{point['ms']:.3f} ms (plain "
         f"{point['plain_ms']:.3f} ms), bound {point['bound_ms']:.4f} ms by "
         f"{point['bound_by']}")
+
+
+def k6_wide_check(torch, seed=6):
+    """K6 bit-equal to its plain version at the widest row a scorer
+    writes: 16 tiles of 512 slots at 32 survivors a group (w 8192), k 32,
+    on 16 groups whose tile counts run from 0 (all-dead rows) to 16, with
+    scores on a coarse grid so the value bits tie often.  Returns the row
+    width."""
+    from scann_torch.ops import pruned_scan
+    r = np.random.default_rng(seed)
+    g_pad, mnt, kpg, tile, k = 16, 16, 32, 512, 32
+    gp = tile // 32
+    kgp = kpg * gp
+    w = mnt * kgp
+    scores = (r.integers(-8, 8, (g_pad, 128, w)) * 0.25).astype(np.float32)
+    scores[r.random(scores.shape) < 0.05] = -1e30
+    col = np.arange(w)
+    first = r.integers(0, 32, (g_pad, 128, mnt, 1, gp))
+    arg = (first + np.arange(kpg)[None, None, None, :, None]) % 32
+    ident = ((col // kgp) << 5)[None, None, :] | arg.reshape(g_pad, 128, w)
+    packed = torch.as_tensor(
+        ((scores.view(np.int32) & ~511) | ident).astype(np.int32),
+        device="cuda")
+    qg_nt = torch.as_tensor(np.arange(g_pad, dtype=np.int32) % (mnt + 1),
+                            device="cuda")
+    got = pruned_scan.merge_groups(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    want = pruned_scan.merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile,
+                                          k=k)
+    torch.cuda.synchronize()
+    diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    if diff:
+        raise AssertionError(f"K6 at w {w}, k {k} differs from its plain "
+                             f"version in {diff} words")
+    log(f"K6 vs plain at the widest row (w {w}, k {k}, {g_pad} groups with "
+        f"0-{mnt} live tiles): bit-equal")
+    return w
+
+
+def guard_checks(scann_torch):
+    """On the card, a K3 width that no survivor count serves (int8 lookup
+    over 200 code blocks) and a no-tree reconstruct searcher over 512
+    dimensions (every search a K5 scan) raise NotImplementedError naming
+    item 13 before any training."""
+    for what, d, lookup, tree in (
+            ("K3 width", 400, "int8", True),
+            ("no-tree K5 width", 400, "reconstruct", False)):
+        db = np.zeros((2000, d), np.float32)
+        kw = dict(num_leaves=10, num_leaves_to_search=2,
+                  training_sample_size=2000) if tree else {}
+        config = ah_config(scann_torch, db, "dot_product", lookup, None, **kw)
+        t0 = time.perf_counter()
+        try:
+            scann_torch.create_searcher(db, config, "cuda")
+        except NotImplementedError as e:
+            if "item 13" not in str(e):
+                raise
+            log(f"{what} (d {d}, {lookup}) refused in "
+                f"{time.perf_counter() - t0:.3f} s: {e}")
+        else:
+            raise AssertionError(f"{what}: d {d} built on the card")
+
+
+def wide_codes_search(scann_torch):
+    """A float32-lookup tree-AH index of 200 dimensions (d_pad 208, past
+    the 144 K4 once served) builds and searches on the card, launches K4
+    once, and agrees with the CPU plain path on the same index."""
+    from scann_torch.ops import pruned_lut
+    r = np.random.default_rng(2)
+    db = r.standard_normal((20000, 200)).astype(np.float32)
+    q = r.standard_normal((200, 200)).astype(np.float32)
+    s = scann_torch.create_searcher(db, ah_config(
+        scann_torch, db, "dot_product", "float32", "float32", num_leaves=32,
+        num_leaves_to_search=4, training_sample_size=10000), "cuda")
+    before = pruned_lut.launches_codes
+    idx, dist = s.search_batched(q, pre_reorder_num_neighbors=30)
+    if pruned_lut.launches_codes != before + 1 or idx.shape != (200, K):
+        raise AssertionError("the 200-dim float32-lookup search did not "
+                             "launch K4 once")
+    cross_check(scann_torch, s, q, "float32 lookup at d 200 (d_pad "
+                f"{s._p_mean.shape[0]})", pre_reorder_num_neighbors=30)
 
 
 def fused_merge_points(torch, searcher, timer, queries, db, truth, what,
@@ -754,6 +842,15 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
         raise AssertionError("lut256 search returned invalid ids")
     del small, got, want, a4
     torch.cuda.empty_cache()
+    # K4 past the width it once refused (d_pad 144), both codebook shapes.
+    k4["max_abs_err"] = max(k4["max_abs_err"], wide_checks(
+        torch, "k4", (256, 384, 768), (8, 16), shapes=((16, 2), (256, 4))))
+    k4["occupancy"] = _cuda.occupancy("pruned_codes", main_f._p_mean.shape[0],
+                                      dpb, 8)
+    if k4["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes(
+            "codes", 8):
+        raise AssertionError("K4's shared memory differs from "
+                             "tile_smem_bytes")
 
     # Main path through the public entry points.
     timer = StageTimer(torch)
@@ -829,8 +926,10 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
     k6["launches"] += pruned_scan.launches_merge
 
     cross_check(scann_torch, main, queries, "tree-AH")
+    wide_codes_search(scann_torch)
     return k3, k4, {"build_s": build_s, "points": points, "dense": dense,
-                    "merge": merges, "b_pad": main._p_codes.shape[-1] * 2}
+                    "merge": merges, "b_pad": main._p_codes.shape[-1] * 2,
+                    "k4_d_pad": main_f._p_mean.shape[0]}
 
 
 def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
@@ -906,7 +1005,7 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
     k2["occupancy"] = _cuda.occupancy("pruned_rows", s._p_rows.shape[-1],
                                       pruned_scan.KPG)
     if k2["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes(
-            False, pruned_scan.KPG):
+            "bf16", pruned_scan.KPG):
         raise AssertionError("K2's shared memory differs from "
                              "tile_smem_bytes")
 
@@ -1132,7 +1231,8 @@ def main():
                             wide_checks(torch, "k1", (384, 768), (4, 8)))
     d_pad = searcher.slot_rows.shape[-1]
     k1["occupancy"] = _cuda.occupancy("pruned_sq", d_pad, 4)
-    if k1["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes(True, 4):
+    if k1["occupancy"]["smem_bytes"] != pruned_scan.tile_smem_bytes("int8",
+                                                                     4):
         raise AssertionError("K1's shared memory differs from "
                              "tile_smem_bytes")
 
@@ -1181,6 +1281,12 @@ def main():
     k2, k5, recon_summary = recon_phase(torch, scann_torch, db, queries,
                                         truth, q_dev)
 
+    # K6 at the widest row a scorer writes; the fault-3a guards.
+    k6["widest_row"] = k6_wide_check(torch)
+    k6["occupancy"] = {w: _cuda.occupancy("merge_groups", w)
+                       for w in (128, 256, k6["widest_row"])}
+    guard_checks(scann_torch)
+
     # K6's line: the tree-AH block (the wider rows, k 30); both blocks'
     # numbers are in the summary.
     k6.update(k6["tree_ah"])
@@ -1190,16 +1296,20 @@ def main():
                "reconstruct": recon_summary,
                "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")}}
     log("summary " + json.dumps(summary))
-    # What the card makes of the four tensor-core kernels at the main
-    # path's shapes (cudaFuncGetAttributes,
-    # cudaOccupancyMaxActiveBlocksPerSM).
+    # What the card makes of the six kernels at the main path's shapes
+    # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
+    # tree-SQ's and tree-AH's row widths and at the widest.
     log("occupancy " + json.dumps({
         "pruned_sq": {"d_pad": d_pad, "kpg": 4, **k1["occupancy"]},
         "pruned_rows": {"d_pad": recon_summary["d_pad"], "kpg": 8,
                         **k2["occupancy"]},
         "pruned_lut": {"b_pad": ah_summary["b_pad"], **k3["occupancy"]},
+        "pruned_codes": {"d_pad": ah_summary["k4_d_pad"], "dpb": 2,
+                         "kpg": 8, **k4["occupancy"]},
         "fused_scan": {"d_pad": recon_summary["d_pad"],
-                       **k5["occupancy"]}}))
+                       **k5["occupancy"]},
+        "merge_groups": {f"w {w}": o
+                         for w, o in k6["occupancy"].items()}}))
     # library_ms is None for all six: no single PyTorch call computes a
     # gathered tile x query-group score with a packed per-32-slot top-k
     # (K1-K4), a product reduced to per-group maxima without the score
@@ -1211,14 +1321,18 @@ def main():
          "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],
          "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-         "library_ms": None}
-        for name, replaces, rec in (
-            ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1),
-            ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2),
-            ("pruned_lut", "scann_tpu/ops/pruned_lut.py:225", k3),
-            ("pruned_codes", "scann_tpu/ops/pruned_lut.py:75", k4),
-            ("fused_scan", "scann_tpu/ops/fused_scan.py:58", k5),
-            ("merge_groups", "scann_tpu/ops/pruned_scan.py:705", k6))]}))
+         "library_ms": None, "design": design}
+        for name, replaces, rec, design in (
+            ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1, TILE_MMA),
+            ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2, TILE_MMA),
+            ("pruned_lut", "scann_tpu/ops/pruned_lut.py:225", k3,
+             "mma.sync m16n8k32 s8, one-hot operand in registers"),
+            ("pruned_codes", "scann_tpu/ops/pruned_lut.py:75", k4,
+             TILE_MMA + ", codes decoded in shared memory"),
+            ("fused_scan", "scann_tpu/ops/fused_scan.py:58", k5,
+             "wgmma m64n256k16 bf16, 4-stage cp.async ring"),
+            ("merge_groups", "scann_tpu/ops/pruned_scan.py:705", k6,
+             "keys in registers, redux.sync passes"))]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,6 +36,7 @@ SIGNATURES = {
     },
     "pruned_codes": {
         "pruned_codes_score": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        "pruned_codes_occupancy": ([_I, _I, _I, _P], _I),
     },
     "pruned_rows": {
         "pruned_rows_score": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
@@ -47,6 +48,7 @@ SIGNATURES = {
     },
     "merge_groups": {
         "merge_groups_topk": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        "merge_groups_occupancy": ([_I, _P], _I),
     },
 }
 

@@ -36,7 +36,7 @@
 
 namespace {
 
-using BfRows = tile_mma::Rows</*kInt8Rows=*/false, /*kTileSlots=*/512>;
+using BfRows = tile_mma::Rows<tile_mma::Src::kBf16, /*kTileSlots=*/512>;
 
 }  // namespace
 

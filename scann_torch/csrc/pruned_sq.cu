@@ -38,7 +38,7 @@
 
 namespace {
 
-using SqRows = tile_mma::Rows</*kInt8Rows=*/true, /*kTileSlots=*/256>;
+using SqRows = tile_mma::Rows<tile_mma::Src::kInt8, /*kTileSlots=*/256>;
 
 }  // namespace
 

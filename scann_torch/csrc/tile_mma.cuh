@@ -1,14 +1,18 @@
 // Tile x query-group product on the bf16 tensor cores, with the packed
 // survivor epilogue: the body shared by the pruned scorers over gathered
-// rows, K1 (pruned_sq.cu: int8 residual rows, a scale per slot) and K2
-// (pruned_rows.cu: decoded bf16 rows, one scale).
+// rows, K1 (pruned_sq.cu: int8 residual rows, a scale per slot), K2
+// (pruned_rows.cu: decoded bf16 rows, one scale) and K4 (pruned_codes.cu:
+// one AH code byte per block, decoded here).
 //
 // For every ACTIVE work item w (tile = work_tile[w], group g = w / mnt,
 // t = w % mnt) and every slot of the tile and query of the group:
-//   s = (rows[tile, slot] . qg_rows[g, q]) * scale + bias[tile, slot]
+//   K1, K2: s = (rows[tile, slot] . qg_rows[g, q]) * scale + bias[tile, slot]
+//   K4:     s = mult * (bf16(recon[tile, slot]) . qg_rows[g, q]) - sq + bias
+//           recon = bf16-rounded center - mean (f32), sq = sum recon^2 in
+//           f32 (squared L2; 0 and mult 1 under dot product)
 // with exact products (int8 and bf16 values are exact in bf16, their
 // products exact in f32) summed in f32, and the scale and bias applied as
-// a rounded multiply then a rounded add (survivors::scale_bias); then the
+// rounded operations, never an fma (survivors::scale_bias); then the
 // top kpg of every 32-slot group with the (t, slot) identity packed into
 // the low 9 bits, into int32 out[g, q, t*kpg*gp + pass*gp + group].
 // Inactive items write nothing.
@@ -39,7 +43,24 @@
 //   * int8 rows (K1) are copied raw and converted to bf16 in shared
 //     memory once per chunk (exact for |x| <= 128: 2^23 + x + 128 as a
 //     float, minus 2^23 + 128, then the top 16 bits), so the product loop
-//     is the same for both kernels.
+//     is the same for every kernel.
+//   * Codes (K4) are copied raw too: for each slot, the 8-byte pieces of
+//     its code row that the chunk's blocks fall in (16 bytes at 2
+//     dimensions a block, 8 at 4, at most 32 for any width), and the
+//     chunk's 32 mean values.  The decode step gives each thread one slot
+//     of the slab: it writes bf16(center - mean) (a rounded subtract, then
+//     a round to nearest bf16) into the converted tile and adds the
+//     chunk's (center - mean)^2 in f32 to the slot's sq, a register across
+//     chunks that becomes a per-slot plane, as K1's scales are, for the
+//     epilogue.
+//     The decode indexes by dimension, so a block may straddle two chunks
+//     (a width that does not divide 32).  The codebook is not staged: it
+//     is read through L1 with __ldg.  At 16 centers a chunk's slice is a
+//     few KB and the 32 lanes of a warp read one block's centers, one
+//     128-byte line at 2 dimensions a block; at 256 centers the slice is
+//     32 KB at 4 dimensions a block, too much to stage beside the ring at
+//     two blocks an SM, so those lanes' reads scatter over the block's
+//     4 KB through L1 instead.
 //   * Epilogue: a query's 32 scores of the group lie in the 4 lanes of a
 //     quad, 8 registers each (the m16n8 accumulator layout), which is the
 //     input of survivors::quad_top_kpg (the top-4 form for kpg <= 4:
@@ -67,21 +88,31 @@ constexpr int kWarps = kThreads / 32;     // = groups of the slab
 constexpr int kKC = 32;                   // dimensions a chunk
 constexpr int kStages = 4;
 constexpr int kRowB = kKC * 2 + 16;       // bytes of a staged bf16 row
+constexpr int kCodeB = 32;                // staged code bytes of a slot
 
 static_assert(kWarps * kSubp == kSlots, "a warp per candidate group");
 
+// What a block stages for its rows.
+enum class Src { kInt8, kBf16, kCodes };
+
 // Kernel traits: K1 stages int8 rows and has a scale plane; K2 stages
-// bf16 rows and scales by one number.
-template <bool kInt8Rows, int kTileSlots>
+// bf16 rows and scales by one number; K4 stages code bytes and the mean,
+// decodes them, and has a plane of squared norms.  kDpbC: K4's dimensions
+// per block when fixed at compile time (2 or 4), 0 when read at run time.
+template <Src kSrcKind, int kTileSlots, int kDpbC = 0>
 struct Rows {
-  static constexpr bool kInt8 = kInt8Rows;
+  static constexpr bool kInt8 = kSrcKind == Src::kInt8;
+  static constexpr bool kCodes = kSrcKind == Src::kCodes;
+  static constexpr int kDpb = kDpbC;
   static constexpr int kTile = kTileSlots;
   static constexpr int kSlabs = kTileSlots / kSlots;
   static constexpr int kGroups = kTileSlots / kSubp;
-  static constexpr int kRawRowB = kInt8 ? kKC : kRowB;  // raw rows a stage
-  static constexpr int kStageB = kSlots * kRawRowB + kQH * kRowB;
-  static constexpr int kConvB = kInt8 ? kSlots * kRowB : 0;
-  static constexpr int kPlaneB = kSlots * 4 * (kInt8 ? 2 : 1);
+  // raw rows a stage
+  static constexpr int kRawRowB = kInt8 ? kKC : (kCodes ? kCodeB : kRowB);
+  static constexpr int kMeanB = kCodes ? kKC * 4 : 0;
+  static constexpr int kStageB = kSlots * kRawRowB + kQH * kRowB + kMeanB;
+  static constexpr int kConvB = (kInt8 || kCodes) ? kSlots * kRowB : 0;
+  static constexpr int kPlaneB = kSlots * 4 * ((kInt8 || kCodes) ? 2 : 1);
 };
 
 // Dynamic shared memory of a block: bias (and scale) planes, then the
@@ -103,7 +134,14 @@ struct Args {
   const float* bias;              // (num_tiles, tile)
   int32_t* out;
   int mnt, kpg, d_pad;
-  float mult;                     // K1: smult (scale * smult); K2: scale
+  float mult;                     // K1: smult (scale * smult); K2: scale;
+                                  // K4: 2 under squared L2, else 1
+  // K4 only: rows are (num_tiles, tile, b_pad) uint8 codes (a code >= cpb
+  // decodes to no center), cb the compact bf16-rounded codebook
+  // (b_pad * cpb, dpb) f32, mean (d_pad,) f32; l2 subtracts sq.
+  const float* cb;
+  const float* mean;
+  int cpb, dpb, b_pad, l2;
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -160,6 +198,143 @@ __device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
       __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
 }
 
+// Dimension d0 = c * kKC of chunk c lies in code block d0 / dpb; the slot's
+// staged code bytes start at that block rounded down to a multiple of 8
+// (the 8-byte copies need it; code rows are b_pad bytes, b_pad % 8 == 0).
+__device__ __forceinline__ int code_window(int d0, int dpb) {
+  return (d0 / dpb) & ~7;
+}
+
+// kD consecutive floats from global memory through L1 (kD = 2 or 4).
+template <int kD>
+__device__ __forceinline__ void load_vec(float (&v)[kD], const float* p) {
+  if constexpr (kD == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void lds_vec(float (&v)[kD], const float* p) {
+  if constexpr (kD == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// K4's decode of chunk c for slot ``tid`` of the slab: bf16(cb[code] -
+// mean) for the chunk's 32 dimensions into row tid of the converted tile
+// (zero past d_pad, so the product never meets a stale value), and the
+// f32 squares (a rounded multiply, then a rounded add, as the plain
+// version rounds them) added to ``sq``: each 8 dimensions summed in order,
+// the four
+// partial sums joined as a tree, the chunk's sum added to ``sq`` (one long
+// chain of adds over d_pad drifts from float64 past the plain version's
+// error, as the chained product did).  ``stage`` is the
+// chunk's ring stage: code rows of kCodeB bytes, the queries, the mean.
+template <class T>
+__device__ __forceinline__ float decode_codes(const Args& a,
+                                              const unsigned char* stage,
+                                              unsigned char* conv, int c,
+                                              int tid, float sq) {
+  const int d0 = c * kKC;
+  const unsigned char* crow = stage + tid * kCodeB;
+  const float* mean_s =
+      reinterpret_cast<const float*>(stage + kSlots * kCodeB + kQH * kRowB);
+  uint4* dst = reinterpret_cast<uint4*>(conv + tid * kRowB);
+  float part[kKC / 8];
+  if constexpr (T::kDpb != 0) {
+    // 2 or 4 dimensions a block: the chunk holds kB whole blocks, from
+    // j0 = 32 c / kD, a multiple of 8, where the staged window starts;
+    // their code bytes sit in registers, a center and its mean values are
+    // one vector load each.
+    constexpr int kD = T::kDpb;
+    constexpr int kB = kKC / kD;
+    const int j0 = d0 / kD;
+    const float* cbase = a.cb + static_cast<size_t>(j0) * a.cpb * kD;
+    uint32_t cw[4] = {0u, 0u, 0u, 0u};
+    if constexpr (kB == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(crow);
+      cw[0] = v.x; cw[1] = v.y; cw[2] = v.z; cw[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(crow);
+      cw[0] = v.x; cw[1] = v.y;
+    }
+    const int blocks_in = a.b_pad - j0;   // blocks of the chunk below b_pad
+#pragma unroll
+    for (int q = 0; q < kKC / 8; ++q) {
+      float v[8];
+      part[q] = 0.f;
+#pragma unroll
+      for (int bb = 0; bb < 8 / kD; ++bb) {
+        const int b = q * (8 / kD) + bb;
+        const int code = (cw[b >> 2] >> ((b & 3) * 8)) & 0xff;
+        float cen[kD], mu[kD];
+#pragma unroll
+        for (int i = 0; i < kD; ++i) cen[i] = 0.f;
+        const bool in = b < blocks_in;
+        if (in && code < a.cpb)
+          load_vec<kD>(cen, cbase + (b * a.cpb + code) * kD);
+        lds_vec<kD>(mu, mean_s + b * kD);
+#pragma unroll
+        for (int i = 0; i < kD; ++i) {
+          const float x = __fsub_rn(cen[i], mu[i]);
+          v[bb * kD + i] = in ? x : 0.f;
+          if (in) part[q] = __fadd_rn(part[q], __fmul_rn(x, x));
+        }
+      }
+      dst[q] = make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]),
+                          bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
+    }
+  } else {
+    // Any width: the (block, offset) of each dimension walks the chunk, a
+    // block may straddle two chunks, and the code bytes are read from the
+    // staged window.
+    const int dpb = a.dpb;
+    const int j0 = d0 / dpb;
+    const int w0 = code_window(d0, dpb);
+    int j = j0, k = d0 - j0 * dpb;
+#pragma unroll
+    for (int q = 0; q < kKC / 8; ++q) {
+      float v[8];
+      part[q] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[e] = 0.f;
+        if (d0 + q * 8 + e < a.d_pad) {
+          const int code = crow[j - w0];
+          const float cv =
+              code < a.cpb
+                  ? __ldg(a.cb + (static_cast<size_t>(j) * a.cpb + code) *
+                                     dpb + k)
+                  : 0.f;
+          v[e] = __fsub_rn(cv, mean_s[q * 8 + e]);
+          part[q] = __fadd_rn(part[q], __fmul_rn(v[e], v[e]));
+        }
+        if (++k == dpb) {
+          k = 0;
+          ++j;
+        }
+      }
+      dst[q] = make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]),
+                          bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
+    }
+  }
+  return __fadd_rn(sq, __fadd_rn(__fadd_rn(part[0], part[1]),
+                                 __fadd_rn(part[2], part[3])));
+}
+
 template <class T, int kKeep>
 __global__ void __launch_bounds__(kThreads, 2)
 tile_score_kernel(const Args a) {
@@ -175,11 +350,11 @@ tile_score_kernel(const Args a) {
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* bias_s = reinterpret_cast<float*>(smem);         // kSlots
-  float* scale_s = bias_s + kSlots;                       // kSlots (K1)
+  float* scale_s = bias_s + kSlots;   // kSlots: K1's scales, K4's sq
   unsigned char* ring = smem + T::kPlaneB;
   const uint32_t ring_a =
       static_cast<uint32_t>(__cvta_generic_to_shared(ring));
-  const uint32_t conv_a = ring_a + kStages * T::kStageB;  // K1 only
+  const uint32_t conv_a = ring_a + kStages * T::kStageB;  // K1, K4
   const int tid = threadIdx.x;
   const size_t slot0 = static_cast<size_t>(tile) * T::kTile + slab * kSlots;
   const __nv_bfloat16* qsrc =
@@ -201,6 +376,28 @@ tile_score_kernel(const Args a) {
         const bool in = dim < d_pad;
         cp_async8(st + r * T::kRawRowB + (i & 3) * 8,
                   rsrc + (slot0 + r) * d_pad + (in ? dim : 0), in ? 8 : 0);
+      }
+    } else if constexpr (T::kCodes) {
+      // The 8-byte pieces of each slot's code row that hold the chunk's
+      // blocks, and the chunk's mean values (zero past d_pad).
+      const uint8_t* csrc = static_cast<const uint8_t*>(a.rows);
+      const int dpb = T::kDpb ? T::kDpb : a.dpb;
+      const int w0 = code_window(d0, dpb);
+      const int b1 = min(a.b_pad, (d0 + kKC - 1) / dpb + 1);
+      const int pieces = (b1 - w0 + 7) >> 3;
+#pragma unroll
+      for (int k = 0; k < kSlots * 4 / kThreads; ++k) {
+        const int i = tid + k * kThreads;
+        const int r = i >> 2;
+        if ((i & 3) < pieces)
+          cp_async8(st + r * kCodeB + (i & 3) * 8,
+                    csrc + (slot0 + r) * a.b_pad + w0 + (i & 3) * 8, 8);
+      }
+      if (tid < kKC / 4) {
+        const int dim = d0 + tid * 4;
+        const bool in = dim < d_pad;
+        cp_async16(st + kSlots * kCodeB + kQH * kRowB + tid * 16,
+                   a.mean + (in ? dim : 0), in ? 16 : 0);
       }
     } else {
       const __nv_bfloat16* rsrc = static_cast<const __nv_bfloat16*>(a.rows);
@@ -266,6 +463,7 @@ tile_score_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
 
+  float sq = 0.f;   // K4: the squared norm of slot tid of the slab
   for (int c = 0; c < n_kc; ++c) {
     cp_async_wait<kStages - 2>();
     __syncthreads();   // chunk c landed; chunk c - 1 consumed everywhere
@@ -273,21 +471,27 @@ tile_score_kernel(const Args a) {
     cp_async_commit();
     const uint32_t st = ring_a + (c % kStages) * T::kStageB;
     uint32_t b_base = st;
-    if constexpr (T::kInt8) {
-      // Raw int8 rows (32 bytes) -> bf16 rows of the converted tile.
+    if constexpr (T::kInt8 || T::kCodes) {
+      // Raw int8 rows (32 bytes) or codes -> bf16 rows of the converted
+      // tile.
       const unsigned char* raw = ring + (c % kStages) * T::kStageB;
       unsigned char* conv = ring + kStages * T::kStageB;
+      if constexpr (T::kCodes) {
+        sq = decode_codes<T>(a, raw, conv, c, tid, sq);
+      } else {
 #pragma unroll
-      for (int k = 0; k < kSlots * 2 / kThreads; ++k) {
-        const int i = tid + k * kThreads;
-        const int r = i >> 1;
-        const int h = i & 1;
-        const uint4 v = *reinterpret_cast<const uint4*>(raw + r * kKC + h * 16);
-        const uint2 x0 = int8x4_to_bf16x4(v.x), x1 = int8x4_to_bf16x4(v.y);
-        const uint2 x2 = int8x4_to_bf16x4(v.z), x3 = int8x4_to_bf16x4(v.w);
-        uint4* dst = reinterpret_cast<uint4*>(conv + r * kRowB + h * 32);
-        dst[0] = make_uint4(x0.x, x0.y, x1.x, x1.y);
-        dst[1] = make_uint4(x2.x, x2.y, x3.x, x3.y);
+        for (int k = 0; k < kSlots * 2 / kThreads; ++k) {
+          const int i = tid + k * kThreads;
+          const int r = i >> 1;
+          const int h = i & 1;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(raw + r * kKC + h * 16);
+          const uint2 x0 = int8x4_to_bf16x4(v.x), x1 = int8x4_to_bf16x4(v.y);
+          const uint2 x2 = int8x4_to_bf16x4(v.z), x3 = int8x4_to_bf16x4(v.w);
+          uint4* dst = reinterpret_cast<uint4*>(conv + r * kRowB + h * 32);
+          dst[0] = make_uint4(x0.x, x0.y, x1.x, x1.y);
+          dst[1] = make_uint4(x2.x, x2.y, x3.x, x3.y);
+        }
       }
       __syncthreads();
       b_base = conv_a;
@@ -323,18 +527,20 @@ tile_score_kernel(const Args a) {
       }
     }
   }
+  if constexpr (T::kCodes) scale_s[tid] = sq;
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: survivors are staged over it
 
-  // Scale, bias and identity of this thread's 8 slots: s = 2 j + e is
-  // slot 8 j + 2 tq + e of the group; row 2 mi + h of the selection is
-  // query 16 mi + 8 h + gq of the half.
-  float bj[8], sj[8];
+  // Scale, bias (and K4's sq) and identity of this thread's 8 slots:
+  // s = 2 j + e is slot 8 j + 2 tq + e of the group; row 2 mi + h of the
+  // selection is query 16 mi + 8 h + gq of the half.
+  float bj[8], sj[8], qj[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     const int sl = warp * kSubp + 8 * (s >> 1) + 2 * tq + (s & 1);
     bj[s] = bias_s[sl];
     sj[s] = T::kInt8 ? __fmul_rn(scale_s[sl], a.mult) : a.mult;
+    qj[s] = T::kCodes && a.l2 ? scale_s[sl] : 0.f;
   }
   float pv[8][8];
 #pragma unroll
@@ -344,8 +550,14 @@ tile_score_kernel(const Args a) {
 #pragma unroll
       for (int s = 0; s < 8; ++s)
         pv[2 * mi + h][s] = survivors::pack(
-            survivors::scale_bias(acc[mi][s >> 1][2 * h + (s & 1)], sj[s],
-                                  bj[s]),
+            // K4: mult * dot - sq + bias, each step rounded (x - 0 is x).
+            T::kCodes
+                ? __fadd_rn(__fsub_rn(__fmul_rn(
+                                acc[mi][s >> 1][2 * h + (s & 1)], sj[s]),
+                                      qj[s]),
+                            bj[s])
+                : survivors::scale_bias(acc[mi][s >> 1][2 * h + (s & 1)],
+                                        sj[s], bj[s]),
             survivors::identity(t, 8 * (s >> 1) + 2 * tq + (s & 1)));
   // stage_s[q * qstride + pass * 8 + warp]: the 8 groups of the slab are
   // one 32-byte sector of each (query, pass).

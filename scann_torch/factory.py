@@ -16,8 +16,10 @@ from scann_torch.models import base
 from scann_torch.partitioning import kmeans_tree
 
 
-def check_supported(scann_config: cfg.ScannConfig):
-    """Raise NotImplementedError for any setting the port does not serve."""
+def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None):
+    """Raise NotImplementedError for any setting the port does not serve
+    (on ``device``, for data of ``dims`` dimensions, where both are
+    given)."""
     c = scann_config
     if c.autopilot is not None:
         base.not_ported("autopilot", 17)
@@ -27,7 +29,7 @@ def check_supported(scann_config: cfg.ScannConfig):
         base.not_ported(f"distance measure {c.distance_measure!r}", 11)
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
-        tree_ah.check_supported(c)
+        tree_ah.check_supported(c, device, dims)
     else:
         if c.reordering is not None:
             base.not_ported("reordering without score_ah", 12)
@@ -55,11 +57,11 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
     """Build a searcher from a config on ``device``."""
     if docids is not None:
         base.not_ported("docids", 15)
-    check_supported(scann_config)
     dev = base.resolve_device(device)
     database = np.asarray(database, dtype=np.float32)
     if database.ndim != 2:
         raise ValueError(f"database must be 2d, got shape {database.shape}")
+    check_supported(scann_config, dev, database.shape[1])
     if scann_config.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         return tree_ah.TreeAHSearcher(database, scann_config, dev)

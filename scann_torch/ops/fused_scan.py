@@ -101,6 +101,19 @@ def smem_bytes(d: int) -> int:
     return QT * d * 2 + _STAGES * SUB * 64 * 2 + 1024
 
 
+def serves_width(d: int) -> bool:
+    """True when the kernel's query tile of d dimensions fits a block."""
+    return smem_bytes(d) <= _SMEM_LIMIT
+
+
+def max_width() -> int:
+    """The widest d (a multiple of 128) the kernel serves: 384."""
+    d = 128
+    while serves_width(d + 128):
+        d += 128
+    return d
+
+
 def fused_scan_groupmax(queries, rows, bias, *, measure_l2=False):
     """queries (Q, D) bf16, rows (S, D) bf16, bias (S,) f32, with S a
     multiple of BS and D of 128 (callers pad: pad_for_kernel).  Returns

@@ -20,7 +20,8 @@ at merge time (merge_candidates pair_bias).
 
 On CUDA tensors the entry points launch the hand-written kernels
 csrc/pruned_lut.cu and csrc/pruned_codes.cu (ports of the Pallas kernels
-``score_work_pallas_lut`` and ``score_work_pallas_codes``) or raise; on
+``score_work_pallas_lut`` and ``score_work_pallas_codes``; K4 on the
+tile product of csrc/tile_mma.cuh, as K1 and K2) or raise; on
 CPU tensors they run ``score_work_torch_lut`` / ``score_work_torch_codes``,
 the plain torch versions with the same output contract.
 """
@@ -247,11 +248,14 @@ def lut_smem_bytes(b_pad: int, kpg: int = ps.KPG) -> int:
         + ps.TILE * (b_pad // 2) + _LUT_QUERIES * (kpg * 8 + 4) * 4
 
 
-def codes_smem_bytes(d_pad: int) -> int:
-    """Shared memory of one K4 block: the f32 query group plus the decoded
-    bf16 tile with rows padded to an odd word count
-    (csrc/pruned_codes.cu)."""
-    return ps.QG * d_pad * 4 + ps.TILE * (d_pad // 2 + 1) * 4
+def lut_max_b_pad(kpg: int) -> int:
+    """The widest b_pad (a multiple of 8) whose K3 block fits the shared
+    memory of one H100 block at kpg survivors a group: 160 at kpg <= 8,
+    144 at 16."""
+    b_pad = _BLK
+    while lut_smem_bytes(b_pad + _BLK, kpg) <= _SMEM_LIMIT:
+        b_pad += _BLK
+    return b_pad
 
 
 def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
@@ -310,8 +314,10 @@ def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
 def score_work_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
                      measure_l2: bool, kpg: int = ps.KPG):
     """K4 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU).  cb_k is
-    the index's codes_table()."""
+    the CUDA kernel (or raise: there is no fallback on the GPU) at any
+    width: its shared memory does not grow with d_pad
+    (ps.tile_smem_bytes("codes", kpg)).  cb_k is the index's
+    codes_table()."""
     if codes3.device.type == "cpu":
         return score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean,
                                       bias, measure_l2=measure_l2, kpg=kpg)
@@ -328,15 +334,14 @@ def score_work_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
         raise ValueError(f"unsupported codes: b_pad {b_pad} (needs a "
                          f"multiple of {_BLK}), {w} codebook rows (needs 16 "
                          f"or 256 per block)")
-    if codes_smem_bytes(d_pad) > _SMEM_LIMIT:
-        raise ValueError(f"d_pad {d_pad} needs {codes_smem_bytes(d_pad)} B "
-                         f"of shared memory, over the {_SMEM_LIMIT} B a "
-                         f"block may use")
     g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3, bias, kpg,
                                        d_pad, dev)
     _check("codes3", codes3, torch.uint8, (num_tiles, tile, b_pad), dev)
     _check("cb_k", cb_k, torch.float32, (w, dims_per_block), dev)
     _check("mean", mean, torch.float32, (d_pad,), dev)
+    if mean.data_ptr() % 16:
+        raise ValueError("mean must start on a 16-byte boundary (the "
+                         "kernel copies it 16 bytes at a time)")
     out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     lib = _cuda.library("pruned_codes")

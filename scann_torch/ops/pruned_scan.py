@@ -276,18 +276,25 @@ def score_work_torch(plan: WorkPlan, qg_rows, rows3, bias, *,
             .reshape(g, QG, mnt * kpg * GP))
 
 
-def tile_smem_bytes(int8_rows: bool, kpg: int) -> int:
-    """Dynamic shared memory of one block of csrc/tile_mma.cuh, K1's
-    (``int8_rows``) or K2's: the bias plane (and K1's scale plane) of its
-    256-slot slab, then a 4-stage ring of 32-dimension chunks (the slab's
-    raw rows, int8 in 32 bytes or bf16 in 80; 64 queries, bf16 in 80-byte
-    rows) and K1's chunk converted to bf16, which the staged survivors (64
-    queries x kpg x 8 groups) reuse.  The dimension axis streams, so d_pad
-    does not enter."""
-    raw_row = 32 if int8_rows else 80
-    ring = 4 * (256 * raw_row + QG // 2 * 80) + (256 * 80 if int8_rows else 0)
+_RAW_ROW_BYTES = {"int8": 32, "bf16": 80, "codes": 32}
+
+
+def tile_smem_bytes(rows: str, kpg: int) -> int:
+    """Dynamic shared memory of one block of csrc/tile_mma.cuh for the
+    staged ``rows`` of K1 ("int8"), K2 ("bf16") or K4 ("codes"): the bias
+    plane of its 256-slot slab (and K1's scale or K4's squared-norm
+    plane), then a 4-stage ring of 32-dimension chunks (the slab's raw
+    rows: int8 in 32 bytes, bf16 in 80, or 32 bytes of codes; 64 queries,
+    bf16 in 80-byte rows; K4's 32 mean values) and K1's or K4's chunk
+    converted to bf16, which the staged survivors (64 queries x kpg x 8
+    groups) reuse.  The dimension axis streams, so d_pad does not
+    enter."""
+    converted = rows != "bf16"
+    ring = 4 * (256 * _RAW_ROW_BYTES[rows] + QG // 2 * 80
+                + (32 * 4 if rows == "codes" else 0)) \
+        + (256 * 80 if converted else 0)
     stage = QG // 2 * (kpg * 8 + 4) * 4
-    return 256 * 4 * (2 if int8_rows else 1) + max(ring, stage)
+    return 256 * 4 * (2 if converted else 1) + max(ring, stage)
 
 
 def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,
@@ -531,10 +538,6 @@ def merge_groups(packed, qg_nt, *, kgp: int, tile: int, k: int):
     if not 1 <= k <= min(_FUSED_MAX_K, w):
         raise ValueError(f"k must be in [1, min({_FUSED_MAX_K}, w)], got "
                          f"{k}")
-    if w * 4 * _MERGE_ROWS_PER_BLOCK > _SMEM_LIMIT:
-        raise ValueError(f"rows of {w} words need "
-                         f"{w * 4 * _MERGE_ROWS_PER_BLOCK} B of shared "
-                         f"memory, over the {_SMEM_LIMIT} B a block may use")
     _check("packed", packed, torch.int32, (g_pad, qg, w), dev)
     _check("qg_nt", qg_nt, torch.int32, (g_pad,), dev)
     mb = torch.empty((g_pad, qg, k), dtype=torch.int32, device=dev)
@@ -552,7 +555,6 @@ def merge_groups(packed, qg_nt, *, kgp: int, tile: int, k: int):
     return mb, ts
 
 
-_MERGE_ROWS_PER_BLOCK = 8  # one warp per packed row (csrc/merge_groups.cu)
 _PAIR_CHUNK = 4096
 
 

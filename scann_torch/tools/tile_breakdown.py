@@ -1,10 +1,11 @@
-"""K1 and K2 (the tile x query-group scorers of csrc/tile_mma.cuh) on one
-CUDA card: where their time goes, and how close their sums come to float64.
+"""K1, K2 and K4 (the tile x query-group scorers of csrc/tile_mma.cuh) on
+one CUDA card: where their time goes, and how close their sums come to
+float64.
 
     python3 -m scann_torch.tools.tile_breakdown
 
-Builds csrc/pruned_sq.cu and csrc/pruned_rows.cu as they are and from
-edited copies of csrc/tile_mma.cuh:
+Builds csrc/pruned_sq.cu, csrc/pruned_rows.cu and csrc/pruned_codes.cu as
+they are and from edited copies of csrc/tile_mma.cuh:
   * "no selection": scores are computed but only a token of them is kept
     (the survivors' copy-out still runs), so the difference to the kernel
     is the survivor selection;
@@ -14,13 +15,18 @@ edited copies of csrc/tile_mma.cuh:
     spread of the timing;
   * "chained accumulator": every mma adds into the running sum inside the
     tensor core, where the kernel starts each mma from zero and adds its
-    partial with a rounded f32 add.
+    partial with a rounded f32 add;
+  * K4 only, "no selection, no decode": as "no selection", and the decode
+    step skipped (the product runs on whatever the converted tile holds),
+    so the difference to "no selection" is the decode and what is left is
+    the copies and the product.
 Time: each variant on a synthetic plan shaped like the benchmark's at
 leaves=100 (10,000 queries, 100 of 2000 leaves; tree-SQ: leaves of 1-4
 256-slot tiles, d_pad 104, kpg 4; reconstruct: leaves of 1-2 512-slot
-tiles, d_pad 128, kpg 8): 5 rounds over the variants in turn, each round
-the median of 10 CUDA-event timings; the line gives the median of the
-rounds and their range.
+tiles, d_pad 128, kpg 8; float32 lookup: the same tiles as 50 code blocks
+of 16 centers at 2 dimensions a block, d_pad 112, kpg 8): 5 rounds over
+the variants in turn, each round the median of 10 CUDA-event timings; the
+line gives the median of the rounds and their range.
 Accuracy: on smaller plans at several widths, with data of two scales
 (scann_torch/tools/tile_cases.py), every live survivor of the kernel, of
 the chained variant and of the plain version is rescored in float64 from
@@ -57,21 +63,42 @@ _CHAINED = [
      ': "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])'),
     ("mma_bf16(part[mi], af[mi],", "mma_bf16(acc[mi][j], af[mi],"),
     ("acc[mi][j][e] = __fadd_rn(acc[mi][j][e], part[mi][e]);", "(void)e;")]
+_NO_DECODE = ("sq = decode_codes<T>(", "if (0) sq = decode_codes<T>(")
 VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
             "sort 8 at kpg <= 4": [_SORT8],
             "chained accumulator": _CHAINED}
+K4_VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
+               "no selection, no decode": [(_SELECT, _NO_SELECT),
+                                           _NO_DECODE],
+               "chained accumulator": _CHAINED}
 KERNELS = {"k1": ("pruned_sq", "pruned_sq_score"),
-           "k2": ("pruned_rows", "pruned_rows_score")}
+           "k2": ("pruned_rows", "pruned_rows_score"),
+           "k4": ("pruned_codes", "pruned_codes_score")}
+# (d, kpg) of the bench-shaped plan and the accuracy widths of each kernel.
+BENCH = {"k1": (100, 4), "k2": (128, 8), "k4": (100, 8)}
+WIDTHS = {"k1": (100, 384, 768), "k2": (128, 256, 384),
+          "k4": (100, 384, 768)}
 
 
 def run_kernel(lib, kernel, case, kpg, measure_l2, out):
-    """One launch of a built K1 / K2 library on ``case`` into ``out``."""
+    """One launch of a built K1 / K2 / K4 library on ``case`` into
+    ``out``."""
     plan, qg, rows, scale, bias = case
     g_pad, w_pad = plan.qg_query.shape[0], plan.work_tile.shape[0]
     stream = torch.cuda.current_stream().cuda_stream
     mult = ctypes.c_float(2.0 if measure_l2 else 1.0)
     common = (plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
               qg.data_ptr(), rows.data_ptr())
+    if kernel == "k4":
+        cb, mean = scale
+        b_pad = rows.shape[-1]
+        err = lib.pruned_codes_score(
+            *common, cb.data_ptr(), mean.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), w_pad, w_pad // g_pad, kpg, b_pad,
+            cb.shape[0] // b_pad, cb.shape[1], int(measure_l2), stream)
+        if err:
+            raise RuntimeError(f"{kernel} launch failed ({err})")
+        return
     tail = (out.data_ptr(), w_pad, w_pad // g_pad, kpg, rows.shape[-1], mult,
             stream)
     if kernel == "k1":
@@ -81,6 +108,11 @@ def run_kernel(lib, kernel, case, kpg, measure_l2, out):
         err = lib.pruned_rows_score(*common, bias.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"{kernel} launch failed ({err})")
+
+
+def qg_width(case) -> int:
+    """d_pad of a case (the query groups' width)."""
+    return case[1].shape[-1]
 
 
 def _time(lib, kernel, case, kpg, out):
@@ -104,9 +136,10 @@ def main():
     raw_cases = dict(tile_cases.RAW_CASES)
     with tempfile.TemporaryDirectory() as tmp:
         for kernel, (lib_name, fn) in KERNELS.items():
+            variants = K4_VARIANTS if kernel == "k4" else VARIANTS
             libs = {v: build_variant(tmp, v, lib_name, fn, "tile_mma.cuh", e)
-                    for v, e in VARIANTS.items()}
-            d, kpg = (100, 4) if kernel == "k1" else (128, 8)
+                    for v, e in variants.items()}
+            d, kpg = BENCH[kernel]
             case = tile_cases.synthetic_case(
                 kernel, d, unit=True, measure_l2=False, nq=10_000, nl=2000,
                 leaves=100)
@@ -123,14 +156,18 @@ def main():
                 for name, lib in libs.items():
                     rounds[name].append(_time(lib, kernel, case, kpg, out))
             ms = {n: float(np.median(t)) for n, t in rounds.items()}
-            print(f"{kernel} time at d_pad {case[2].shape[-1]}, kpg {kpg}, "
+            split = f"; selection {ms['kernel'] - ms['no selection']:.3f} ms"
+            if kernel == "k4":
+                rest = ms["no selection, no decode"]
+                split += (f", decode {ms['no selection'] - rest:.3f} ms, "
+                          f"copies and product {rest:.3f} ms")
+            print(f"{kernel} time at d_pad {qg_width(case)}, kpg {kpg}, "
                   f"{int(plan.work_active.sum())} active items: "
                   + ", ".join(f"{n} {ms[n]:.3f} ms [{min(t):.3f}-"
                               f"{max(t):.3f}]" for n, t in rounds.items())
-                  + f"; selection {ms['kernel'] - ms['no selection']:.3f} ms")
+                  + split)
             del case, out
-            widths = (100, 384, 768) if kernel == "k1" else (128, 256, 384)
-            for d in widths:
+            for d in WIDTHS[kernel]:
                 for unit in (False, True):
                     for measure_l2 in (False, True):
                         kpg = 8

@@ -132,8 +132,8 @@ def load_searcher(artifacts_dir: str, device):
     if os.path.exists(os.path.join(artifacts_dir, _DOCIDS_FILE)):
         base.not_ported("docids", 15)
     scann_config = cfg._config_from_dict(blob["config"])
-    factory.check_supported(scann_config)
     meta = blob["meta"]
+    factory.check_supported(scann_config, dev, meta["dims"])
     with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
         arrays = {k: raw[k] for k in raw.files}
     for key, item in (("mut_vectors", 15), ("proj_matrix", 16),

@@ -10,14 +10,16 @@ repository's conftest imports JAX, hence --noconftest):
 
 Tolerance of K1 and K4 against their plain versions: unpacked values
 within rtol 2^-14 (identity perturbation plus summation order), packed
-identities equal on >= 99.9% of active survivors.  K3 at two dimensions
-per block: packed survivors bit-equal (exact products, one rounded sum per
-LUT entry, exact integer sums).  K2 as K4 (values within 2^-14 relative
+identities equal on >= 99.9% of active survivors; K4 at every width also
+within the same bar of float64 scores rescored from its codes, and at raw
+scale within 1.5x the plain version's float64 excess (as K1 and K2).  K3
+at two dimensions per block: packed survivors bit-equal (exact products,
+one rounded sum per LUT entry, exact integer sums).  K2 as K4 (values within 2^-14 relative
 plus 1e-5, identities >= 99.99%).  K5: values within 1e-5 relative plus
 1e-5, slot ids equal on >= 99.9% of groups, and where they differ the two
 values within that tolerance of each other (a tie broken by summation
 order).  K6: bit-equal on the rows of active groups (integer and compare
-work only)."""
+work only), and on every row at the widest row a scorer writes."""
 
 import numpy as np
 import pytest
@@ -236,6 +238,42 @@ def test_k4_kernel_matches_plain_version(cuda, measure_l2, cpb, dpb, b, kpg):
     assert ((a & 511) == (b_ & 511)).double().mean() >= 0.999
 
 
+def _hold_k4(case, got, want, kpg, measure_l2):
+    """K4's bar against its plain version (values within 2^-14 relative
+    plus 1e-5, identities equal on >= 99.9% of active survivors), and the
+    same bar against float64 scores rescored from the codes."""
+    a, b = _active_pair(case[0], got, want, kpg)
+    va, vb = ps._unpack(a)[0].double(), ps._unpack(b)[0].double()
+    assert a.numel()
+    assert torch.all((va - vb).abs() <= 2.0 ** -14 * vb.abs() + 1e-5)
+    assert ((a & 511) == (b & 511)).double().mean() >= 0.999
+    assert tile_cases.exact_excess(case, got, kpg, measure_l2).max() <= 1e-5
+
+
+# Widths past the 144 K4's shared memory once held (and 104 and the
+# bench's 112, under it), 16 centers at 1 and 2 dimensions a block, 256 at
+# 4, and 3 dimensions a block, a width that does not divide the kernel's
+# 32-dimension chunk (a block straddles two chunks), on synthetic plans at
+# the scale of an index of unit vectors.
+@pytest.mark.parametrize("d,cpb,dpb", [
+    (104, 16, 1), (112, 16, 2), (256, 16, 2), (384, 16, 2), (768, 16, 2),
+    (256, 256, 4), (768, 256, 4), (120, 16, 3)])
+@pytest.mark.parametrize("measure_l2", [False, True])
+@pytest.mark.parametrize("kpg", [8, 16])
+def test_k4_kernel_matches_plain_version_at_every_width(cuda, d, cpb, dpb,
+                                                        measure_l2, kpg):
+    case = tile_cases.synthetic_case("k4", d, unit=True,
+                                     measure_l2=measure_l2, seed=d + kpg,
+                                     cpb=cpb, dpb=dpb)
+    assert case[1].shape[-1] == d
+    before = pruned_lut.launches_codes
+    got = tile_cases.score("k4", case, kpg, measure_l2)
+    assert pruned_lut.launches_codes == before + 1
+    want = tile_cases.plain("k4", case, kpg, measure_l2)
+    torch.cuda.synchronize()
+    _hold_k4(case, got, want, kpg, measure_l2)
+
+
 def test_k3_k4_wrappers_reject_bad_inputs(cuda):
     plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(cuda, 7, 16, 2,
                                                         False)
@@ -382,16 +420,18 @@ def test_k2_wrapper_rejects_bad_inputs(cuda):
         ps.score_work(plan, qg, rows, bias, measure_l2=False, kpg=33)
 
 
-@pytest.mark.parametrize("lib,int8_rows,kpg", [("pruned_sq", True, 4),
-                                               ("pruned_rows", False, 8),
-                                               ("pruned_rows", False, 16)])
+@pytest.mark.parametrize("lib,rows,kpg,dpb", [
+    ("pruned_sq", "int8", 4, None), ("pruned_rows", "bf16", 8, None),
+    ("pruned_rows", "bf16", 16, None), ("pruned_codes", "codes", 8, 2),
+    ("pruned_codes", "codes", 16, 4), ("pruned_codes", "codes", 8, 3)])
 def test_k1_k2_shared_memory_is_the_python_rule_at_every_width(
-        cuda, lib, int8_rows, kpg):
-    """The C kernel's shared memory, as its occupancy export reports it,
-    is ps.tile_smem_bytes at every d_pad."""
+        cuda, lib, rows, kpg, dpb):
+    """The C kernel's shared memory (K1, K2 and K4), as its occupancy
+    export reports it, is ps.tile_smem_bytes at every d_pad."""
     for d_pad in (104, 128, 256, 768):
-        assert _cuda.occupancy(lib, d_pad, kpg)["smem_bytes"] == \
-            ps.tile_smem_bytes(int8_rows, kpg)
+        shape = (d_pad, kpg) if dpb is None else (d_pad, dpb, kpg)
+        assert _cuda.occupancy(lib, *shape)["smem_bytes"] == \
+            ps.tile_smem_bytes(rows, kpg)
 
 
 def _one_item_plan(dev, num_tiles):
@@ -405,7 +445,7 @@ def _one_item_plan(dev, num_tiles):
     return plan
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k4"])
 @pytest.mark.parametrize("measure_l2", [False, True])
 def test_one_item_plan_matches_plain_version(cuda, kernel, measure_l2):
     r = np.random.default_rng(70 + measure_l2)
@@ -414,7 +454,21 @@ def test_one_item_plan_matches_plain_version(cuda, kernel, measure_l2):
     t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
     q = t(r.standard_normal((1, d_pad)).astype(np.float32))
     qg = q.to(torch.bfloat16)[plan.qg_query.long()]
-    if kernel == "k1":
+    if kernel == "k4":
+        b = d_pad // 2
+        codes = r.integers(0, 16, (tiles * 512, b)).astype(np.uint8)
+        cb = t((0.3 * r.standard_normal((b, 16, 2))).astype(np.float32))
+        mean = t((0.1 * r.standard_normal(d_pad) * measure_l2).astype(
+            np.float32))
+        case = (plan, qg,
+                t(pruned_lut.pack_codes_tiles(codes, tiles)),
+                (pruned_lut.codes_table(cb, b), mean),
+                t(np.zeros((tiles, 512, 1), np.float32)))
+        got = tile_cases.score("k4", case, 8, measure_l2)
+        want = tile_cases.plain("k4", case, 8, measure_l2)
+        torch.cuda.synchronize()
+        _hold_k4(case, got, want, 8, measure_l2)
+    elif kernel == "k1":
         args = (plan, qg,
                 t(r.integers(-127, 128, (tiles, 256, d_pad)).astype(np.int8)),
                 t(r.uniform(1e-3, 1e-2, (tiles, 256, 1)).astype(np.float32)),
@@ -437,7 +491,7 @@ def test_one_item_plan_matches_plain_version(cuda, kernel, measure_l2):
 
 
 @pytest.mark.parametrize("kernel,kpg", [("k1", 4), ("k1", 8), ("k2", 8),
-                                        ("k2", 16)])
+                                        ("k2", 16), ("k4", 8), ("k4", 16)])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
 def test_exact_tie_groups_take_the_plain_versions_identities(cuda, kernel,
                                                              kpg, sign):
@@ -446,10 +500,11 @@ def test_exact_tie_groups_take_the_plain_versions_identities(cuda, kernel,
     ties: the packed identities alone order it, as in _group_top_packed
     (the larger packed float wins: the higher slot above zero, the lower
     below), and the kernel keeps the plain version's survivors bit for
-    bit."""
+    bit.  K4: the same with one code row a group over a codebook of small
+    integers (d_pad 208)."""
     r = np.random.default_rng(80 + kpg + (sign > 0))
     tile = 256 if kernel == "k1" else 512
-    d_pad, nl, nq, l = 200, 12, 200, 4
+    d_pad, nl, nq, l = 208 if kernel == "k4" else 200, 12, 200, 4
     ntiles = r.integers(1, 3, nl).astype(np.int32)
     tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
         np.int32)
@@ -464,12 +519,23 @@ def test_exact_tie_groups_take_the_plain_versions_identities(cuda, kernel,
     groups = num_tiles * tile // 32
     rows = np.repeat(r.integers(-4, 5, (groups, 1, d_pad)), 32, axis=1)
     rows = rows.reshape(num_tiles, tile, d_pad)
-    # |dot| <= 200 * 4 * 2: the bias fixes every score's sign.
+    # |dot| <= 208 * 4 * 2: the bias fixes every score's sign.
     bias = np.repeat(sign * r.integers(2000, 3000, (groups, 1)), 32, axis=1)
     bias = bias.reshape(num_tiles, tile, 1).astype(np.float32)
     q = r.integers(-2, 3, (nq, d_pad)).astype(np.float32)
     qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
-    if kernel == "k1":
+    if kernel == "k4":
+        b = d_pad // 2
+        codes = np.repeat(r.integers(0, 16, (groups, 1, b)), 32, axis=1)
+        codes3 = pruned_lut.pack_codes_tiles(
+            codes.reshape(-1, b).astype(np.uint8), num_tiles)
+        cb = t(r.integers(-4, 5, (b, 16, 2)).astype(np.float32))
+        args = (plan, qg, t(codes3), pruned_lut.codes_table(cb, b),
+                t(np.zeros(d_pad, np.float32)), t(bias))
+        got = pruned_lut.score_work_codes(*args, measure_l2=False, kpg=kpg)
+        want = pruned_lut.score_work_torch_codes(*args, measure_l2=False,
+                                                 kpg=kpg)
+    elif kernel == "k1":
         args = (plan, qg, t(rows.astype(np.int8)),
                 t(np.full((num_tiles, tile, 1), 0.25, np.float32)), t(bias))
         got = pruned_sq.score_work_sq(*args, measure_l2=False, kpg=kpg)
@@ -523,6 +589,80 @@ def test_cuda_reconstruct_search_over_128_dims_goes_through_k2(cuda, measure,
     assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.999
     same = gi == ci
     np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("measure", ["dot_product", "squared_l2"])
+def test_cuda_float32_lookup_search_over_144_dims_goes_through_k4(
+        cuda, measure, tmp_path):
+    """A float32-lookup tree-AH index of 200 dimensions (100 code blocks,
+    d_pad 208, past the 144 K4's shared memory once held) searches its
+    pruned path through K4 on the card and returns what the CPU plain path
+    returns on the same index."""
+    import dataclasses
+    r = np.random.default_rng(3)
+    db = r.standard_normal((20000, 200)).astype(np.float32)
+    q = r.standard_normal((200, 200)).astype(np.float32)
+    config = (scann_torch.builder(db, 10, measure)
+              .tree(num_leaves=32, num_leaves_to_search=4,
+                    training_sample_size=10000)
+              .score_ah(2, anisotropic_quantization_threshold=0.2,
+                        training_sample_size=10000)
+              .reorder(20).create_config())
+    config = dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
+        config.asymmetric_hash, lookup_type="float32"))
+    s = scann_torch.create_searcher(db, config, "cuda")
+    before = pruned_lut.launches_codes
+    gi, gd = s.search_batched(q, leaves_to_search=4)
+    assert pruned_lut.launches_codes == before + 1
+    assert s._p_mean.shape[0] == 208
+    s.serialize(str(tmp_path))
+    ci, cd = scann_torch.load_searcher(str(tmp_path), device="cpu"
+                                       ).search_batched(q, leaves_to_search=4)
+    assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.999
+    same = gi == ci
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_width_guards_refuse_before_training(cuda, tmp_path):
+    """On the card, widths K3 and K5 do not serve raise NotImplementedError
+    naming item 13 from the constructor, before any training: int8 lookup
+    over 200 code blocks (K3 serves 160), and a reconstruct searcher
+    without a tree over 400 dimensions (every search a K5 scan; K5 serves
+    384).  A reconstruct index with a tree at that width serves its pruned
+    search through K2, as the CPU plain path does; only its full scan
+    refuses."""
+    import dataclasses
+    import time
+    r = np.random.default_rng(4)
+    db = r.standard_normal((30000, 400)).astype(np.float32)
+
+    def config(lookup, tree):
+        b = scann_torch.builder(db, 10, "dot_product")
+        if tree:
+            b = b.tree(num_leaves=32, num_leaves_to_search=4,
+                       training_sample_size=10000)
+        c = b.score_ah(2, training_sample_size=10000).reorder(20) \
+            .create_config()
+        return dataclasses.replace(c, asymmetric_hash=dataclasses.replace(
+            c.asymmetric_hash, lookup_type=lookup))
+
+    for lookup, tree in (("int8", True), ("reconstruct", False)):
+        t0 = time.perf_counter()
+        with pytest.raises(NotImplementedError, match="item 13"):
+            scann_torch.create_searcher(db, config(lookup, tree), "cuda")
+        assert time.perf_counter() - t0 < 5.0
+    s = scann_torch.create_searcher(db, config("reconstruct", True), "cuda")
+    q = r.standard_normal((64, 400)).astype(np.float32)
+    before = ps.launches
+    idx, _ = s.search_batched(q, leaves_to_search=4)
+    assert ps.launches == before + 1
+    s.serialize(str(tmp_path))
+    cpu_idx, _ = scann_torch.load_searcher(
+        str(tmp_path), device="cpu").search_batched(q, leaves_to_search=4)
+    assert (idx >= 0).mean() > 0.5
+    assert (idx[:, :, None] == cpu_idx[:, None, :]).any(-1).mean() >= 0.99
+    with pytest.raises(NotImplementedError, match="item 13"):
+        s.search_batched(q, leaves_to_search=32)
 
 
 @pytest.mark.parametrize("measure_l2,nq,s,d,dups", [
@@ -643,6 +783,37 @@ def test_k6_kernel_bit_equal_to_plain_version(cuda, tile, kpg, k):
     assert live.any()
     assert torch.equal(mb[live], wmb[live])
     assert torch.equal(ts[live], wts[live])
+
+
+@pytest.mark.parametrize("k", [1, 32])
+def test_k6_kernel_bit_equal_at_the_widest_row(cuda, k):
+    """The widest row a scorer writes (16 tiles of 512 slots at 32
+    survivors a group: w 8192, which the wide-row kernel serves by
+    rescanning its columns) on groups whose tile counts run from 0
+    (all-dead rows) to 16 (nt < mnt on most), with the value bits on a
+    coarse grid (tie-heavy): bit-equal to the plain version on every
+    row."""
+    r = np.random.default_rng(90 + k)
+    g_pad, mnt, kpg, tile = 17, 16, 32, 512
+    gp = tile // 32
+    kgp = kpg * gp
+    w = mnt * kgp
+    scores = (r.integers(-8, 8, (g_pad, 128, w)) * 0.25).astype(np.float32)
+    scores[r.random(scores.shape) < 0.05] = -1e30
+    col = np.arange(w)
+    first = r.integers(0, 32, (g_pad, 128, mnt, 1, gp))
+    arg = (first + np.arange(kpg)[None, None, None, :, None]) % 32
+    ident = ((col // kgp) << 5)[None, None, :] | arg.reshape(g_pad, 128, w)
+    packed = torch.as_tensor(
+        ((scores.view(np.int32) & ~511) | ident).astype(np.int32),
+        device=cuda)
+    qg_nt = torch.arange(g_pad, dtype=torch.int32, device=cuda)
+    before = ps.launches_merge
+    mb, ts = ps.merge_groups(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    assert ps.launches_merge == before + 1
+    wmb, wts = ps.merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(mb, wmb) and torch.equal(ts, wts)
 
 
 @pytest.mark.parametrize("measure,tree", [

@@ -66,12 +66,12 @@ def test_new_kernels_state_what_they_replace():
 
 
 def test_k1_and_k2_share_the_tensor_core_tile_product():
-    """K1 and K2 run their products on bf16 mma.sync from one header, with
-    no f32 fmaf product loop left in either."""
+    """K1, K2 and K4 run their products on bf16 mma.sync from one header,
+    with no f32 fmaf product loop left in any."""
     header = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
     assert "fmaf" not in header
-    for name in ("pruned_sq", "pruned_rows"):
+    for name in ("pruned_sq", "pruned_rows", "pruned_codes"):
         source = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert '#include "tile_mma.cuh"' in source
         assert "fmaf" not in source and "__global__" not in source
@@ -122,7 +122,19 @@ def test_tile_breakdown_edits_still_apply():
     from scann_torch.tools import tile_breakdown
     from scann_torch.tools.variants import apply_edits
     src = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
-    for edits in tile_breakdown.VARIANTS.values():
+    for edits in (*tile_breakdown.VARIANTS.values(),
+                  *tile_breakdown.K4_VARIANTS.values()):
+        assert apply_edits(src, edits) != src or not edits
+
+
+def test_k6_breakdown_edits_still_apply():
+    """scann_torch/tools/k6_breakdown.py measures K6 by compiling edited
+    copies of csrc/merge_groups.cu; every edit must find its text exactly
+    once."""
+    from scann_torch.tools import k6_breakdown
+    from scann_torch.tools.variants import apply_edits
+    src = open(_cuda.source_path("merge_groups")).read()
+    for edits in k6_breakdown.VARIANTS.values():
         assert apply_edits(src, edits) != src or not edits
 
 

@@ -214,7 +214,7 @@ def test_k1_shared_memory_rule():
     dimension axis streams through a ring of 32-dimension chunks.  The
     staged survivors fit over the ring at every kpg the wrapper takes, so
     it is one size, within what an H100 block may use."""
-    sizes = {tps.tile_smem_bytes(True, kpg)
+    sizes = {tps.tile_smem_bytes("int8", kpg)
              for kpg in range(1, tps.SUBP + 1)}
     assert sizes == {256 * 8 + 4 * (256 * 32 + 64 * 80) + 256 * 80}
     assert max(sizes) <= tps._SMEM_LIMIT

@@ -319,4 +319,12 @@ def test_cuda_entry_points_refuse_other_devices():
     assert tpl.lut_smem_bytes(160) <= 232_448 < tpl.lut_smem_bytes(168)
     assert tpl.lut_smem_bytes(144, 16) <= 232_448 < \
         tpl.lut_smem_bytes(152, 16)
-    assert tpl.codes_smem_bytes(144) <= 232_448 < tpl.codes_smem_bytes(152)
+    # K4's block (csrc/tile_mma.cuh with the codes stage) takes no d_pad:
+    # the bias and squared-norm planes, a ring of 32-dimension chunks (32
+    # code bytes a slot, 64 bf16 queries in 80-byte rows, 32 mean values)
+    # and the decoded bf16 chunk, which the staged survivors reuse at
+    # every kpg the wrapper takes.
+    assert {tps.tile_smem_bytes("codes", kpg)
+            for kpg in range(1, tps.SUBP + 1)} == \
+        {256 * 8 + 4 * (256 * 32 + 64 * 80 + 32 * 4) + 256 * 80}
+    assert tps.tile_smem_bytes("codes", 32) <= tps._SMEM_LIMIT

@@ -156,7 +156,7 @@ def test_k2_shared_memory_rule():
     through a ring of 32-dimension chunks.  The staged survivors fit over
     the ring at every kpg the wrapper takes, so it is one size, within
     what an H100 block may use."""
-    sizes = {tps.tile_smem_bytes(False, kpg)
+    sizes = {tps.tile_smem_bytes("bf16", kpg)
              for kpg in range(1, tps.SUBP + 1)}
     assert sizes == {256 * 4 + 4 * (256 + 64) * 80}
     assert max(sizes) <= tps._SMEM_LIMIT
