@@ -593,12 +593,13 @@ def k6_wide_check(torch, seed=6):
 def guard_checks(scann_torch):
     """On the card, a K3 width that no survivor count serves (int8 lookup
     over 200 code blocks) and a no-tree reconstruct searcher over 512
-    dimensions (every search a K5 scan) raise NotImplementedError naming
-    item 13 before any training."""
-    for what, d, lookup, tree in (
-            ("K3 width", 400, "int8", True),
-            ("no-tree K5 width", 400, "reconstruct", False)):
-        db = np.zeros((2000, d), np.float32)
+    dimensions large enough that every search is a K5 scan (20,000 rows:
+    80 groups of 256 slots for 10 candidates) raise NotImplementedError
+    naming item 13 before any training."""
+    for what, d, lookup, tree, n in (
+            ("K3 width", 400, "int8", True, 2000),
+            ("no-tree K5 width", 400, "reconstruct", False, 20_000)):
+        db = np.zeros((n, d), np.float32)
         kw = dict(num_leaves=10, num_leaves_to_search=2,
                   training_sample_size=2000) if tree else {}
         config = ah_config(scann_torch, db, "dot_product", lookup, None, **kw)

@@ -16,10 +16,11 @@ from scann_torch.models import base
 from scann_torch.partitioning import kmeans_tree
 
 
-def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None):
+def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
+                    rows=None):
     """Raise NotImplementedError for any setting the port does not serve
     (on ``device``, for data of ``dims`` dimensions, where both are
-    given)."""
+    given, and ``rows`` datapoints, where given)."""
     c = scann_config
     if c.autopilot is not None:
         base.not_ported("autopilot", 17)
@@ -29,7 +30,7 @@ def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None):
         base.not_ported(f"distance measure {c.distance_measure!r}", 11)
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
-        tree_ah.check_supported(c, device, dims)
+        tree_ah.check_supported(c, device, dims, rows)
     else:
         if c.reordering is not None:
             base.not_ported("reordering without score_ah", 12)
@@ -61,7 +62,7 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
     database = np.asarray(database, dtype=np.float32)
     if database.ndim != 2:
         raise ValueError(f"database must be 2d, got shape {database.shape}")
-    check_supported(scann_config, dev, database.shape[1])
+    check_supported(scann_config, dev, database.shape[1], database.shape[0])
     if scann_config.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         return tree_ah.TreeAHSearcher(database, scann_config, dev)

@@ -31,8 +31,8 @@ Not ported yet (each raises NotImplementedError): stacked quantization,
 variable chunks, SOAR, AVQ, mutation, projection and a single-leaf tree;
 on a CUDA device, the widths K3 and K5 do not serve (check_supported):
 int8 lookup over more than 160 code blocks (144 where a search takes 16
-survivors a group), and a reconstruct-mode full scan over more than 384
-dimensions.  K4 and K2 serve any width.
+survivors a group), and a reconstruct-mode full scan through K5 over more
+than 384 dimensions.  K4 and K2 serve any width.
 """
 
 from __future__ import annotations
@@ -79,11 +79,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def check_supported(scann_config: cfg.ScannConfig, device=None,
-                    dims: Optional[int] = None):
+                    dims: Optional[int] = None, rows: Optional[int] = None):
     """Raise NotImplementedError for the tree-AH settings not ported yet.
     With a CUDA ``device`` and the data's ``dims``, also for the widths
     that K3 and K5 do not serve on the card (item 13), before any
-    training; the CPU's plain versions serve every width."""
+    training; the CPU's plain versions serve every width.  A no-tree
+    reconstruct searcher is refused where its default search is a K5
+    scan: over ``rows`` datapoints, or any number where ``rows`` is not
+    given."""
     ah = scann_config.asymmetric_hash
     if ah.quantization_scheme == "stacked":
         base.not_ported("stacked quantization", 16)
@@ -110,11 +113,39 @@ def check_supported(scann_config: cfg.ScannConfig, device=None,
                 f"{pruned_lut.lut_max_b_pad(pruned_scan.KPG)})", 13)
     if not tree and ah.lookup_type == RECONSTRUCT:
         d = _round_up(dims, 128)
-        if not fused_scan.serves_width(d):
+        slots = None if rows is None else _round_up(rows,
+                                                    _slot_chunk(rows, True))
+        if (not fused_scan.serves_width(d)
+                and (slots is None
+                     or _takes_k5(slots, _default_k_fetch(scann_config)))):
             base.not_ported(f"a reconstruct-mode searcher without a tree "
                             f"over {d} dimensions on CUDA (every search is "
                             f"a K5 scan; K5 serves "
                             f"{fused_scan.max_width()})", 13)
+
+
+def _default_k_fetch(scann_config: cfg.ScannConfig) -> int:
+    """The candidates a search takes before reordering by default."""
+    k = scann_config.num_neighbors
+    ro = scann_config.reordering
+    return max(k, ro.reordering_num_neighbors) if ro is not None else k
+
+
+def _slot_chunk(num_slots: int, recon: bool) -> int:
+    """Slots a chunk of the dense scan's layout of ``num_slots`` slots;
+    the layout pads to a multiple of it.  Small indexes align to the
+    fused scan's slot block in reconstruct mode."""
+    if num_slots >= _SCORE_CHUNK:
+        return _SCORE_CHUNK
+    return _round_up(num_slots, fused_scan.BS if recon else 128)
+
+
+def _takes_k5(num_slots: int, k_pre: int) -> bool:
+    """True when an unrestricted reconstruct-mode full scan over
+    ``num_slots`` padded slots goes through K5: enough 256-slot groups
+    that one candidate a group loses a negligible share of the top
+    ``k_pre``."""
+    return num_slots // fused_scan.SUB >= 4 * k_pre
 
 
 def _takes_k3(ah) -> bool:
@@ -143,7 +174,8 @@ class TreeAHSearcher(base.Searcher):
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
                  device: torch.device):
-        check_supported(scann_config, device, database.shape[1])
+        check_supported(scann_config, device, database.shape[1],
+                        database.shape[0])
         super().__init__(database, scann_config, device)
         self._init_config(scann_config)
         self._build()
@@ -171,7 +203,7 @@ class TreeAHSearcher(base.Searcher):
             tokens = np.zeros((n,), np.int32)
         else:
             tokens = self._train_partition(x_dev)
-            self._refuse_k3_width(self._default_k_fetch(), n)
+            self._refuse_k3_width(_default_k_fetch(self.config), n)
         self.datapoint_to_token = tokens[:, None]
 
         if self.residual and self.partitioner is not None:
@@ -192,12 +224,6 @@ class TreeAHSearcher(base.Searcher):
         self.index = self._layout_slots(codes, tokens,
                                         np.arange(n, dtype=np.int32))
         self._build_recon()
-
-    def _default_k_fetch(self) -> int:
-        """The candidates a search takes before reordering by default."""
-        k = self.config.num_neighbors
-        ro = self.config.reordering
-        return max(k, ro.reordering_num_neighbors) if ro is not None else k
 
     def _refuse_k3_width(self, k_fetch: int, num_slots: int):
         """On CUDA, NotImplementedError (item 13) when the pruned search
@@ -293,10 +319,7 @@ class TreeAHSearcher(base.Searcher):
         dpid = dpid[order]
         s = codes.shape[0]
         self._num_slots = s
-        # Small indexes align to the fused scan's slot block in
-        # reconstruct mode.
-        align = fused_scan.BS if self._recon_mode else 128
-        chunk = _SCORE_CHUNK if s >= _SCORE_CHUNK else _round_up(s, align)
+        chunk = _slot_chunk(s, self._recon_mode)
         self._chunk = chunk
         pad = _round_up(s, chunk) - s
         if pad:
@@ -543,9 +566,7 @@ class TreeAHSearcher(base.Searcher):
         if self._prepare_for_query(queries.shape[0], leaves, full_scan):
             return self._pruned_select(queries, k_pre, leaves, restrict)
         if (self._recon_mode and full_scan and restrict is None
-                # enough groups that top-k collision losses are negligible
-                and (self._recon_rows.shape[0] // fused_scan.SUB
-                     >= 4 * k_pre)):
+                and _takes_k5(self._recon_rows.shape[0], k_pre)):
             d = self._recon_rows.shape[1]
             if self.device.type == "cuda" and not fused_scan.serves_width(d):
                 base.not_ported(f"the reconstruct-mode full scan over {d} "

@@ -19,14 +19,20 @@ they are and from edited copies of csrc/tile_mma.cuh:
   * K4 only, "no selection, no decode": as "no selection", and the decode
     step skipped (the product runs on whatever the converted tile holds),
     so the difference to "no selection" is the decode and what is left is
-    the copies and the product.
+    the copies and the product;
+  * K4 only, "dpb at run time" (an edited csrc/pruned_codes.cu): 2 and 4
+    dimensions a block take the kernel that reads the width at run time
+    and the code bytes from shared memory (CodesN), where the kernel
+    fixes the width at compile time and holds the bytes in registers.
 Time: each variant on a synthetic plan shaped like the benchmark's at
 leaves=100 (10,000 queries, 100 of 2000 leaves; tree-SQ: leaves of 1-4
 256-slot tiles, d_pad 104, kpg 4; reconstruct: leaves of 1-2 512-slot
 tiles, d_pad 128, kpg 8; float32 lookup: the same tiles as 50 code blocks
-of 16 centers at 2 dimensions a block, d_pad 112, kpg 8): 5 rounds over
-the variants in turn, each round the median of 10 CUDA-event timings; the
-line gives the median of the rounds and their range.
+of 16 centers at 2 dimensions a block, d_pad 112, kpg 8; K4 also as 25
+blocks of 256 centers at 4 dimensions a block, d_pad 128, for the kernel
+and "dpb at run time"): 5 rounds over the variants in turn, each round the
+median of 10 CUDA-event timings; the line gives the median of the rounds
+and their range.
 Accuracy: on smaller plans at several widths, with data of two scales
 (scann_torch/tools/tile_cases.py), every live survivor of the kernel, of
 the chained variant and of the plain version is rescored in float64 from
@@ -64,13 +70,20 @@ _CHAINED = [
     ("mma_bf16(part[mi], af[mi],", "mma_bf16(acc[mi][j], af[mi],"),
     ("acc[mi][j][e] = __fadd_rn(acc[mi][j][e], part[mi][e]);", "(void)e;")]
 _NO_DECODE = ("sq = decode_codes<T>(", "if (0) sq = decode_codes<T>(")
+_RUNTIME_DPB = (
+    "  if (dpb == 2) return tile_mma::score<Codes2>(a, w_pad, stream);\n"
+    "  if (dpb == 4) return tile_mma::score<Codes4>(a, w_pad, stream);\n",
+    "")
 VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
             "sort 8 at kpg <= 4": [_SORT8],
             "chained accumulator": _CHAINED}
 K4_VARIANTS = {"kernel": [], "no selection": [(_SELECT, _NO_SELECT)],
                "no selection, no decode": [(_SELECT, _NO_SELECT),
                                            _NO_DECODE],
-               "chained accumulator": _CHAINED}
+               "chained accumulator": _CHAINED,
+               "dpb at run time": [_RUNTIME_DPB]}
+# The file a variant edits, where it is not csrc/tile_mma.cuh.
+EDITED = {"dpb at run time": "pruned_codes.cu"}
 KERNELS = {"k1": ("pruned_sq", "pruned_sq_score"),
            "k2": ("pruned_rows", "pruned_rows_score"),
            "k4": ("pruned_codes", "pruned_codes_score")}
@@ -129,6 +142,29 @@ def _time(lib, kernel, case, kpg, out):
     return float(np.median(times))
 
 
+def _rounds(libs, kernel, case, kpg):
+    """5 rounds over ``libs`` in turn on ``case``: {name: [ms a round]}
+    and the case's active items."""
+    plan = case[0]
+    mnt = plan.work_tile.shape[0] // plan.qg_query.shape[0]
+    seg = kpg * case[2].shape[1] // ps.SUBP
+    out = torch.empty((plan.qg_query.shape[0], ps.QG, mnt * seg),
+                      dtype=torch.int32, device="cuda")
+    for lib in libs.values():
+        run_kernel(lib, kernel, case, kpg, False, out)
+    torch.cuda.synchronize()
+    rounds = {name: [] for name in libs}
+    for _ in range(5):
+        for name, lib in libs.items():
+            rounds[name].append(_time(lib, kernel, case, kpg, out))
+    return rounds, int(plan.work_active.sum())
+
+
+def _line(rounds) -> str:
+    return ", ".join(f"{n} {float(np.median(t)):.3f} ms [{min(t):.3f}-"
+                     f"{max(t):.3f}]" for n, t in rounds.items())
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("tile_breakdown needs a CUDA card")
@@ -137,24 +173,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         for kernel, (lib_name, fn) in KERNELS.items():
             variants = K4_VARIANTS if kernel == "k4" else VARIANTS
-            libs = {v: build_variant(tmp, v, lib_name, fn, "tile_mma.cuh", e)
+            libs = {v: build_variant(tmp, v, lib_name, fn,
+                                     EDITED.get(v, "tile_mma.cuh"), e)
                     for v, e in variants.items()}
             d, kpg = BENCH[kernel]
             case = tile_cases.synthetic_case(
                 kernel, d, unit=True, measure_l2=False, nq=10_000, nl=2000,
                 leaves=100)
-            plan = case[0]
-            mnt = plan.work_tile.shape[0] // plan.qg_query.shape[0]
-            seg = kpg * case[2].shape[1] // ps.SUBP
-            out = torch.empty((plan.qg_query.shape[0], ps.QG, mnt * seg),
-                              dtype=torch.int32, device="cuda")
-            for lib in libs.values():
-                run_kernel(lib, kernel, case, kpg, False, out)
-            torch.cuda.synchronize()
-            rounds = {name: [] for name in libs}
-            for _ in range(5):
-                for name, lib in libs.items():
-                    rounds[name].append(_time(lib, kernel, case, kpg, out))
+            rounds, active = _rounds(libs, kernel, case, kpg)
             ms = {n: float(np.median(t)) for n, t in rounds.items()}
             split = f"; selection {ms['kernel'] - ms['no selection']:.3f} ms"
             if kernel == "k4":
@@ -162,11 +188,19 @@ def main():
                 split += (f", decode {ms['no selection'] - rest:.3f} ms, "
                           f"copies and product {rest:.3f} ms")
             print(f"{kernel} time at d_pad {qg_width(case)}, kpg {kpg}, "
-                  f"{int(plan.work_active.sum())} active items: "
-                  + ", ".join(f"{n} {ms[n]:.3f} ms [{min(t):.3f}-"
-                              f"{max(t):.3f}]" for n, t in rounds.items())
-                  + split)
-            del case, out
+                  f"{active} active items: {_line(rounds)}{split}")
+            if kernel == "k4":
+                del case
+                case = tile_cases.synthetic_case(
+                    kernel, d, unit=True, measure_l2=False, nq=10_000,
+                    nl=2000, leaves=100, cpb=256, dpb=4)
+                rounds, active = _rounds(
+                    {v: libs[v] for v in ("kernel", "dpb at run time")},
+                    kernel, case, kpg)
+                print(f"{kernel} time at 256 centers, 4 dimensions a block, "
+                      f"d_pad {qg_width(case)}, kpg {kpg}, {active} active "
+                      f"items: {_line(rounds)}")
+            del case
             for d in WIDTHS[kernel]:
                 for unit in (False, True):
                     for measure_l2 in (False, True):

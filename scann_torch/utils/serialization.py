@@ -133,7 +133,8 @@ def load_searcher(artifacts_dir: str, device):
         base.not_ported("docids", 15)
     scann_config = cfg._config_from_dict(blob["config"])
     meta = blob["meta"]
-    factory.check_supported(scann_config, dev, meta["dims"])
+    factory.check_supported(scann_config, dev, meta["dims"],
+                            meta["n_points"])
     with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
         arrays = {k: raw[k] for k in raw.files}
     for key, item in (("mut_vectors", 15), ("proj_matrix", 16),

@@ -816,6 +816,55 @@ def test_k6_kernel_bit_equal_at_the_widest_row(cuda, k):
     assert torch.equal(mb, wmb) and torch.equal(ts, wts)
 
 
+@pytest.mark.parametrize("mnt", [2, 4])
+def test_k6_kernel_orders_negative_zero_below_positive_zero(cuda, mnt):
+    """The one key K6 orders apart from the plain version: -0.0 (a score of
+    exactly -0.0 with identity bits zero) sits just below +0.0 in the
+    kernel's order-preserving image, where the plain version's float
+    compare calls them equal.  With both in a row the kernel takes +0.0,
+    then -0.0, one a pass; the plain version takes the zeros of the
+    largest tile first, both at once where they share it.  Every later
+    pass agrees, and so does every row with only one sign of zero.  Rows
+    of 256 columns take the direct kernel, of 512 the rescanning one."""
+    r = np.random.default_rng(mnt)
+    tile, kpg, k = 512, 8, 10
+    gp = tile // 32
+    kgp = kpg * gp
+    w = mnt * kgp
+    scores = -(1.0 + r.random((1, 128, w))).astype(np.float32)
+    bits = (scores.view(np.int32) & ~511) | r.integers(0, 512, (1, 128, w))
+    neg0 = np.int32(-2 ** 31)          # -0.0, identity bits zero
+    # Columns 0 (tile 0), gp (tile 0) and kgp (tile 1) are group 0 of
+    # their tile, so their identity bits are zero where the packed low
+    # bits are.
+    bits[0, 0, [0, kgp]] = [0, neg0]   # +0.0 tile 0, -0.0 tile 1
+    bits[0, 1, [0, gp]] = [0, neg0]    # +0.0 and -0.0, both tile 0
+    bits[0, 2, kgp] = neg0             # -0.0 alone
+    bits[0, 3, 0] = 0                  # +0.0 alone
+    packed = torch.as_tensor(bits.astype(np.int32), device=cuda)
+    qg_nt = torch.full((1,), mnt, dtype=torch.int32, device=cuda)
+    mb, ts = ps.merge_groups(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    wmb, wts = ps.merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile, k=k)
+    mb, ts, wmb, wts = (x[0].cpu().numpy() for x in (mb, ts, wmb, wts))
+    np.testing.assert_array_equal(mb[2:], wmb[2:])
+    np.testing.assert_array_equal(ts[2:], wts[2:])
+    assert mb[2, 0] == neg0 and mb[3, 0] == 0
+    # Kernel: +0.0 then -0.0, each a pass.
+    for row, t_neg in ((0, 1), (1, 0)):
+        assert list(mb[row, :2]) == [0, neg0]
+        assert list(ts[row, :2]) == [0, t_neg]
+    # Plain: row 0 takes tile 1's zero, then tile 0's; from pass 2 on the
+    # two agree.
+    assert list(wts[0, :2]) == [1, 0] and wmb[0, 1] == 0
+    np.testing.assert_array_equal(mb[0, 2:], wmb[0, 2:])
+    np.testing.assert_array_equal(ts[0, 2:], wts[0, 2:])
+    # Plain: row 1 takes both zeros of tile 0 in one pass, so it runs one
+    # pass ahead of the kernel.
+    assert wts[1, 0] == 0 and wmb[1, 0] in (0, neg0)
+    np.testing.assert_array_equal(mb[1, 2:], wmb[1, 1:-1])
+    np.testing.assert_array_equal(ts[1, 2:], wts[1, 1:-1])
+
+
 @pytest.mark.parametrize("measure,tree", [
     ("dot_product", True), ("squared_l2", True), ("dot_product", False),
     ("squared_l2", False)])

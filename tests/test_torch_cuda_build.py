@@ -116,15 +116,16 @@ def test_k3_breakdown_edits_still_apply():
 
 
 def test_tile_breakdown_edits_still_apply():
-    """scann_torch/tools/tile_breakdown.py measures K1 and K2 by compiling
-    edited copies of csrc/tile_mma.cuh; every edit must find its text
-    exactly once."""
+    """scann_torch/tools/tile_breakdown.py measures K1, K2 and K4 by
+    compiling edited copies of csrc/tile_mma.cuh (or of the file a variant
+    names in EDITED); every edit must find its text exactly once."""
     from scann_torch.tools import tile_breakdown
     from scann_torch.tools.variants import apply_edits
-    src = open(os.path.join(_cuda.CSRC, "tile_mma.cuh")).read()
-    for edits in (*tile_breakdown.VARIANTS.values(),
-                  *tile_breakdown.K4_VARIANTS.values()):
-        assert apply_edits(src, edits) != src or not edits
+    for variants in (tile_breakdown.VARIANTS, tile_breakdown.K4_VARIANTS):
+        for name, edits in variants.items():
+            src = open(os.path.join(_cuda.CSRC, tile_breakdown.EDITED.get(
+                name, "tile_mma.cuh"))).read()
+            assert apply_edits(src, edits) != src or not edits
 
 
 def test_k6_breakdown_edits_still_apply():

@@ -13,7 +13,10 @@
 * The width guards of ``tree_ah.check_supported``: on a CUDA device the
   widths K3 and K5 do not serve raise NotImplementedError naming item 13
   (checked without a card: the rule reads the device, it does not touch
-  it); on the CPU the same settings build and search.
+  it); on the CPU the same settings build and search.  A no-tree
+  reconstruct searcher is refused only where its default search is a K5
+  scan: an index too small for K5 takes the dense scan, which serves any
+  width.
 """
 
 import dataclasses
@@ -164,6 +167,27 @@ def test_check_supported_refuses_unserved_widths_on_cuda(d, lookup, tree,
         tree_ah.check_supported(config, CUDA, d)
 
 
+@pytest.mark.parametrize("rows,refused", [
+    (18432, False),     # 72 groups of 256 slots: under 4 x 20, dense scan
+    (18433, True),      # padded to 20480 slots: 80 groups, a K5 scan
+    (20480, True),
+    (10 ** 6, True)])
+def test_no_tree_reconstruct_guard_follows_the_index_size(rows, refused):
+    """Past K5's width, a no-tree reconstruct searcher is refused on a CUDA
+    device where its default search (20 candidates before reordering) is
+    a K5 scan, over the slots the layout pads the rows to; a smaller index
+    takes the dense scan, so it builds.  Without a row count the check
+    assumes a K5 scan."""
+    config = _config(400, "reconstruct", False)
+    tree_ah.check_supported(config, torch.device("cpu"), 400, rows)
+    tree_ah.check_supported(config, CUDA, 384, rows)
+    if refused:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            scann_torch.factory.check_supported(config, CUDA, 400, rows)
+    else:
+        scann_torch.factory.check_supported(config, CUDA, 400, rows)
+
+
 def _data(n, d, seed=0):
     r = np.random.default_rng(seed)
     c = r.standard_normal((16, d))
@@ -178,9 +202,11 @@ def test_cpu_builds_and_searches_the_widths_the_card_refuses(
         lookup, tree, tmp_path, monkeypatch):
     """The CPU's plain versions serve these widths; the same index, loaded
     for a CUDA device, is refused by the loader's check before any
-    tensor is made."""
-    db, q = _data(2000, 400)
-    config = _config(400, lookup, tree)
+    tensor is made.  The no-tree index is large enough (8200 rows, padded
+    to 40 groups of 256 slots for 10 candidates) that every search is a
+    K5 scan."""
+    db, q = _data(2000 if tree else 8200, 400)
+    config = _config(400, lookup, tree, reorder=20 if tree else 10)
     s = scann_torch.create_searcher(db, config, "cpu")
     idx, dist = s.search_batched(q)
     assert idx.shape == (8, 10) and (idx >= 0).all()
