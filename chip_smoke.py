@@ -57,8 +57,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
      lose no more than 0.002 of recall@10);
   9. the width guards: on the card a K3 width no survivor count serves
-     and a no-tree reconstruct searcher over 384 dimensions raise
-     NotImplementedError naming item 13 before any training; then the
+     and a no-tree reconstruct searcher over 384 dimensions whose
+     searches are K5 scans raise NotImplementedError naming item 13
+     before any training; then the
      occupancy line of the six kernels (registers a thread, dynamic shared
      memory a block, resident blocks an SM, at the main path's shapes), the
      kernels JSON line, the card line, and the final ok line.

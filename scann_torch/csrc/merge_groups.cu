@@ -177,36 +177,31 @@ merge_direct_kernel(const int32_t* __restrict__ packed,
   const int lane = threadIdx.x & 31;
   const long long row0 =
       (static_cast<long long>(blockIdx.x) * kWarps + warp) * R;
-  // Every load of the warp's rows first, then the keys, branch-free.
-  uint4 v[R][kN / 4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kN / 4; ++i) {
-      const int c0 = 4 * (lane + 32 * i);
-      v[r][i] = c0 < cols.w ? __ldg(reinterpret_cast<const uint4*>(
-                                  packed + (row0 + r) * cols.w + c0))
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
   Lane<kN> st[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int nt = qg_nt[(row0 + r) / kQG];
+    const int32_t* src = packed + (row0 + r) * cols.w;
     uint64_t l[kN], lo = 0;
     uint32_t bn = 0;   // 1 + the largest tile of a -2^127 column, or 0
 #pragma unroll
     for (int i = 0; i < kN / 4; ++i) {
       const int c0 = 4 * (lane + 32 * i);
-      const uint32_t vw[4] = {v[r][i].x, v[r][i].y, v[r][i].z, v[r][i].w};
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (c0 < cols.w) v = __ldg(reinterpret_cast<const uint4*>(src + c0));
+      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool in = c0 + j < cols.w;
+        l[4 * i + j] = 0;
+        if (c0 + j >= cols.w) continue;
         const uint64_t e = entry(vw[j], c0 + j, nt, cols);
         const uint32_t hi = static_cast<uint32_t>(e >> 32);
-        l[4 * i + j] = in && hi > kBigNegImg ? e : 0;
-        if (in && hi == kBigNegImg)
+        if (hi > kBigNegImg)
+          l[4 * i + j] = e;
+        else if (hi == kBigNegImg)
           bn = max(bn, static_cast<uint32_t>(e) + 1u);
-        if (in && hi < kBigNegImg && e > lo) lo = e;
+        else if (e > lo)
+          lo = e;
       }
     }
     sort_desc(l);

@@ -119,8 +119,8 @@ def check_supported(scann_config: cfg.ScannConfig, device=None,
                 and (slots is None
                      or _takes_k5(slots, _default_k_fetch(scann_config)))):
             base.not_ported(f"a reconstruct-mode searcher without a tree "
-                            f"over {d} dimensions on CUDA (every search is "
-                            f"a K5 scan; K5 serves "
+                            f"over {d} dimensions on CUDA (its searches "
+                            f"are K5 scans; K5 serves "
                             f"{fused_scan.max_width()})", 13)
 
 

@@ -9,19 +9,14 @@ Builds csrc/merge_groups.cu as it is and from edited copies of it:
     2;
   * "no passes": the direct kernels read, key and sort the rows and write
     each lane's head entry but run no selection pass, so the difference
-    to the kernel is the k passes;
-  * "loads with the keys": the direct kernels load each row's words in the
-    loop that keys them, one row after the other, and branch on each
-    column's key, where the kernel issues all of a warp's loads first
-    and keys the columns without branches.
+    to the kernel is the k passes.
 Each runs on two synthetic packed blocks shaped like the benchmark's at
 leaves=100 (9,813 groups of 128 rows: tree-AH's 2 tiles x 8 survivors x
 16 groups, w 256, k 30; tree-SQ's 4 tiles x 4 survivors x 8 groups, w 128,
 k 10), with standard-normal scores, identities as a scorer packs them and
 each group's tile count drawn from 1 to its tiles: 5 rounds over the
 variants in turn, each round the median of 10 CUDA-event timings; the line
-gives the median of the rounds and their range, then the registers a thread
-and blocks an SM of the kernel and of "loads with the keys".  The kernel and the row
+gives the median of the rounds and their range.  The kernel and the row
 variants must equal the plain version bit for bit; the "no passes"
 output is not meaningful.  The variants' sources and libraries go to a
 temporary directory.
@@ -29,13 +24,11 @@ temporary directory.
 
 from __future__ import annotations
 
-import ctypes
 import tempfile
 
 import numpy as np
 import torch
 
-from scann_torch import _cuda
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.tools.variants import build_variant
 
@@ -49,74 +42,10 @@ _NO_PASSES = ("  uint32_t om[R], ot[R];\n"
               "    ot[r] = static_cast<uint32_t>(st[r].tl) ^ st[r].fb_t;\n"
               "  }\n"
               "  for (int p = 0; p < 0; ++p) {")
-_LOADS_FIRST = """\
-  // Every load of the warp's rows first, then the keys, branch-free.
-  uint4 v[R][kN / 4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kN / 4; ++i) {
-      const int c0 = 4 * (lane + 32 * i);
-      v[r][i] = c0 < cols.w ? __ldg(reinterpret_cast<const uint4*>(
-                                  packed + (row0 + r) * cols.w + c0))
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
-  Lane<kN> st[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int nt = qg_nt[(row0 + r) / kQG];
-    uint64_t l[kN], lo = 0;
-    uint32_t bn = 0;   // 1 + the largest tile of a -2^127 column, or 0
-#pragma unroll
-    for (int i = 0; i < kN / 4; ++i) {
-      const int c0 = 4 * (lane + 32 * i);
-      const uint32_t vw[4] = {v[r][i].x, v[r][i].y, v[r][i].z, v[r][i].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool in = c0 + j < cols.w;
-        const uint64_t e = entry(vw[j], c0 + j, nt, cols);
-        const uint32_t hi = static_cast<uint32_t>(e >> 32);
-        l[4 * i + j] = in && hi > kBigNegImg ? e : 0;
-        if (in && hi == kBigNegImg)
-          bn = max(bn, static_cast<uint32_t>(e) + 1u);
-        if (in && hi < kBigNegImg && e > lo) lo = e;
-      }
-    }
-"""
-_LOADS_WITH_KEYS = """\
-  Lane<kN> st[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int nt = qg_nt[(row0 + r) / kQG];
-    const int32_t* src = packed + (row0 + r) * cols.w;
-    uint64_t l[kN], lo = 0;
-    uint32_t bn = 0;   // 1 + the largest tile of a -2^127 column, or 0
-#pragma unroll
-    for (int i = 0; i < kN / 4; ++i) {
-      const int c0 = 4 * (lane + 32 * i);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c0 < cols.w) v = __ldg(reinterpret_cast<const uint4*>(src + c0));
-      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        l[4 * i + j] = 0;
-        if (c0 + j >= cols.w) continue;
-        const uint64_t e = entry(vw[j], c0 + j, nt, cols);
-        const uint32_t hi = static_cast<uint32_t>(e >> 32);
-        if (hi > kBigNegImg)
-          l[4 * i + j] = e;
-        else if (hi == kBigNegImg)
-          bn = max(bn, static_cast<uint32_t>(e) + 1u);
-        else if (e > lo)
-          lo = e;
-      }
-    }
-"""
 VARIANTS = {"kernel": [],
             "1 row a warp": [(_ROWS, _ROWS.replace("2;", "1;"))],
             "4 rows a warp": [(_ROWS, _ROWS.replace("2;", "4;"))],
-            "no passes": [(_PASSES, _NO_PASSES)],
-            "loads with the keys": [(_LOADS_FIRST, _LOADS_WITH_KEYS)]}
+            "no passes": [(_PASSES, _NO_PASSES)]}
 # (tile, survivors a group, tiles a leaf, k) of the two blocks.
 BLOCKS = {"tree-AH": (512, 8, 2, 30), "tree-SQ": (256, 4, 4, 10)}
 
@@ -135,18 +64,6 @@ def packed_block(r, tile, kpg, mnt, g_pad=9813):
     nt = r.integers(1, mnt + 1, g_pad).astype(np.int32)
     return (torch.as_tensor(packed, device="cuda"),
             torch.as_tensor(nt, device="cuda"), kgp)
-
-
-def occupancy(lib, w) -> str:
-    """Registers a thread and resident blocks an SM of ``lib``'s kernel for
-    rows of w columns."""
-    fn = lib.merge_groups_occupancy
-    fn.argtypes, fn.restype = \
-        _cuda.SIGNATURES["merge_groups"]["merge_groups_occupancy"]
-    info = (ctypes.c_int * 4)()
-    if fn(w, info):
-        raise RuntimeError("K6 occupancy query failed")
-    return f"{info[0]} registers, {info[2]} blocks an SM"
 
 
 def main():
@@ -199,9 +116,7 @@ def main():
             print(f"K6 {name} block ({g_pad} x {ps.QG} x {w}, k {k}): "
                   + ", ".join(f"{v} {ms[v]:.3f} ms [{min(t):.3f}-"
                               f"{max(t):.3f}]" for v, t in rounds.items())
-                  + f"; passes {ms['kernel'] - ms['no passes']:.3f} ms; "
-                  + ", ".join(f"{v}: {occupancy(libs[v], w)}" for v in
-                              ("kernel", "loads with the keys")))
+                  + f"; passes {ms['kernel'] - ms['no passes']:.3f} ms")
             del packed, outs, want
 
 
