@@ -56,13 +56,36 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      scorer writes (w 8192, k 32), and one search at leaves=100 on each
      engine with SCANN_TORCH_FUSED_MERGE off and on (on must launch K6 and
      lose no more than 0.002 of recall@10);
-  9. the width guards: on the card a K3 width no survivor count serves
-     and a no-tree reconstruct searcher over 384 dimensions whose
-     searches are K5 scans raise NotImplementedError naming item 13
-     before any training; then the
-     occupancy line of the six kernels (registers a thread, dynamic shared
-     memory a block, resident blocks an SM, at the main path's shapes), the
-     kernels JSON line, the card line, and the final ok line.
+  9. the widths the card once refused: a GIST-960-shaped corpus
+     (make_sift_like below at 960 dimensions, the public
+     gist-960-euclidean's width; GIST_ROWS rows, cut from its 1,000,000
+     so the phase fits the script's time limit; its 1,000 queries),
+     squared L2, with exact float32 ground truth: a tree-AH int8-lookup
+     index (K3 at b_pad 480 against its plain version, 8 and 16
+     survivors, timed with its bound; one search that must launch K3)
+     and a no-tree reconstruct index (K5 against its plain version at the
+     index's d_pad 1024 and at d 960, timed with its bound; one search
+     that must launch K5), each cross-checked against the CPU plain path
+     on its own serialization;
+ 10. the tree-SQ + reorder main path (benchmarks/extra_configs.py config
+     3b): make_sift_like(1,000,000, 10,000, 128), squared L2, exact
+     float32 ground truth, tree(2000 leaves, 100 to search, 100,000
+     training samples) + score_brute_force("int8"), alone and with an
+     exact float32 reorder(40), swept at leaves 8 / 16 / 40 / 100 with
+     recall@10, QPS and stage times; every point must launch K1, and
+     recall@10 at leaves=8 with the reorder must reach
+     SIFT_RECALL_FLOOR_AT_8; the reorder index is cross-checked against
+     the CPU plain path;
+ 11. one search each of the other score_brute_force compositions on the
+     phase-3 corpus at full size, with recall@10 against its float32
+     truth and QPS: int8 and bfloat16 brute force, Tree-X float32 and
+     bfloat16 leaves at leaves=100 (the dense masked scan), cosine brute
+     force; and L1 brute force on 1,000 queries, its top 10 checked
+     against a numpy L1 top-10 on L1_CHECKED queries;
+then the occupancy line of the six kernels (registers a thread, dynamic
+shared memory a block, resident blocks an SM, at the main path's shapes;
+K3 and K5 also at the widths of phase 9), the kernels JSON line, the card
+line, and the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -124,6 +147,24 @@ TIMING_REPS = 20
 # line.
 TILE_MMA = "mma.sync m16n8k16 bf16 (csrc/tile_mma.cuh), 4-stage cp.async ring"
 PLAIN_TIMING_REPS = 5
+# Phase 9: the GIST-960 shape.  Rows cut from gist-960-euclidean's
+# 1,000,000 to fit the script's time limit; its 1,000 queries.
+GIST_DIM, GIST_ROWS, GIST_QUERIES = 960, 200_000, 1_000
+GIST_TREE = dict(num_leaves=400, num_leaves_to_search=40,
+                 training_sample_size=100_000)
+# Phase 10: benchmarks/extra_configs.py config 3b.  Floor: the TPU
+# reference's recall@10 0.9940 at leaves=8 (BENCH_EXTRA.md, secondary
+# configs) less the 1 pt build-to-build spread and 0.5 pt for the RNG.
+SIFT_N, SIFT_Q, SIFT_D = 1_000_000, 10_000, 128
+SIFT_TREE = dict(num_leaves=2000, num_leaves_to_search=100,
+                 training_sample_size=100_000)
+SIFT_SWEEP = (8, 16, 40, 100)
+SIFT_REORDER = 40
+SIFT_RECALL_FLOOR_AT_8 = 0.979
+# Phase 11: L1 brute force runs on this many queries, and this many of
+# them are checked against a numpy L1 top-10 (each a full pass over the
+# corpus on the host).
+L1_QUERIES, L1_CHECKED = 1_000, 20
 
 # The benchmark corpus: a verbatim copy of bench.make_glove_like (and its
 # constants); tests/test_torch_isolation.py holds the two equal.
@@ -146,6 +187,31 @@ def make_glove_like(n, nq, d, seed=0):
              + TOPIC_NOISE * r.standard_normal((m, d)).astype(np.float32))
         x /= np.linalg.norm(x, axis=1, keepdims=True)
         return x.astype(np.float32)
+
+    return draw(n, seed + 1), draw(nq, seed + 2)
+
+
+# The tree-SQ + reorder corpus: a verbatim copy of
+# benchmarks/extra_configs.make_sift_like; tests/test_torch_isolation.py
+# holds the two equal.
+def make_sift_like(n=1_000_000, nq=10_000, d=128, seed=0):
+    """SIFT-ish: non-negative, un-normalized, *hierarchical* cluster
+    structure (topics -> subtopics -> points) so nearest neighbors are
+    genuinely close — flat noise-only mixtures make the true top-10
+    near-equidistant at 1M scale, which no fixed-bit quantizer (ours or
+    the reference's) can rank."""
+    rng = np.random.default_rng(seed)
+    n_topics, subs_per_topic = 1024, 40
+    topics = rng.gamma(2.0, 20.0, (n_topics, d)).astype(np.float32)
+    sub_offsets = 6.0 * rng.standard_normal(
+        (n_topics * subs_per_topic, d)).astype(np.float32)
+
+    def draw(m, s2):
+        r = np.random.default_rng(s2)
+        sub = r.integers(0, n_topics * subs_per_topic, m)
+        x = (topics[sub // subs_per_topic] + sub_offsets[sub]
+             + 1.5 * r.standard_normal((m, d)).astype(np.float32))
+        return np.maximum(x, 0.0).astype(np.float32)
 
     return draw(n, seed + 1), draw(nq, seed + 2)
 
@@ -274,8 +340,8 @@ def k1_bound(plan, rows3, kpg):
 
 def ah_inputs(torch, searcher, queries, leaves, measure_l2):
     """The exact K3 / K4 inputs of the main path for this batch: (plan,
-    qg_rows, codes, codebook table, squared norms (K3) or mean (K4),
-    bias).  A squared-L2 case on a dot-product index takes the mean of
+    the batch's bf16 queries (K3) or the gathered query groups (K4),
+    codes, codebook table, squared norms (K3) or mean (K4), bias).  A squared-L2 case on a dot-product index takes the mean of
     its decoded rows, as an L2 index has, centers the queries on it and
     derives the tables for it, as the searcher does once per index."""
     from scann_torch.ops import pruned_lut
@@ -295,26 +361,37 @@ def ah_inputs(torch, searcher, queries, leaves, measure_l2):
             d_pad // searcher.model.dims_per_block, measure_l2=measure_l2)
     else:
         tables = (searcher._p_cb, mean)
-    return (plan, q_bf[plan.qg_query.long()], searcher._p_codes, *tables,
-            searcher._p_bias)
+    q_in = q_bf if searcher._int8_lut else q_bf[plan.qg_query.long()]
+    return (plan, q_in, searcher._p_codes, *tables, searcher._p_bias)
 
 
-def k3_bound(plan, codes3p, dpb, kpg):
+def k3_plain(plan, q_bf, *rest, **kw):
+    """K3's plain version on ah_inputs' arguments (it takes the gathered
+    query groups)."""
+    from scann_torch.ops import pruned_lut
+    return pruned_lut.score_work_torch_lut(
+        plan, q_bf[plan.qg_query.long()], *rest, **kw)
+
+
+def k3_bound(plan, nq, codes3p, dpb, kpg):
     """Least time (ms) for the K3 work of this plan on one H100.  Bytes:
-    each distinct input once (active tiles' packed codes and bias, active
-    groups' bf16 queries, the compact codebook and norms, the work tables)
-    and each active output segment once.  Operations: the LUT product of
-    each active group at the bf16 tensor-core peak plus one int8 LUT entry
-    added per (slot, block, query) of each active item at the int8 peak.
-    The lookup itself is a table read, no arithmetic: the one-hot matmul
-    the TPU kernel spends on it is not work the function needs."""
+    each distinct input once (active tiles' packed codes and bias, the
+    batch's nq bf16 queries, the compact codebook and norms, the work
+    tables and the group-row -> query map) and each active output segment
+    once.  Operations: each query's LUT product (a LUT depends only on
+    the query and the codebook) at the bf16 tensor-core peak plus one
+    int8 LUT entry added per (slot, block, query) of each active item at
+    the int8 peak.  The lookup itself is a table read, no arithmetic: the
+    one-hot matmul the TPU kernel spends on it is not work the function
+    needs."""
     n_active, tiles, groups = plan_counts(plan)
     tile, b2 = codes3p.shape[1], codes3p.shape[2]
     w, d_pad = b2 * 2 * 16, b2 * 2 * dpb
-    nbytes = (tiles * tile * (b2 + 4) + groups * 128 * d_pad * 2
+    nbytes = (tiles * tile * (b2 + 4) + nq * d_pad * 2
               + w * (dpb + 1) * 4 + plan.work_tile.shape[0] * 8
+              + plan.qg_query.numel() * 4
               + n_active * 128 * kpg * (tile // 32) * 4)
-    t_ops = (2.0 * groups * w * 128 * dpb / BF16_FLOPS
+    t_ops = (2.0 * nq * w * dpb / BF16_FLOPS
              + 1.0 * n_active * tile * b2 * 2 * 128 / INT8_OPS)
     return _bound(nbytes, t_ops) + (n_active,)
 
@@ -433,6 +510,263 @@ def wide_checks(torch, name, widths, kpgs, shapes=((16, 2),)):
                 f"version's {plain:.3g}")
     torch.cuda.empty_cache()
     return worst
+
+
+def exact_truth(scann_torch, db, queries, measure):
+    """Exact float32 brute-force top-10 on the card."""
+    bf = scann_torch.builder(db, K, measure).score_brute_force().build()
+    truth, _ = bf.search_batched(queries)
+    return truth
+
+
+def wide_phase(torch, scann_torch):
+    """Phase 9; returns (K3 record at b_pad 480, K5 record at d 960,
+    summary dict)."""
+    from scann_torch.ops import fused_scan
+    from scann_torch.ops import pruned_lut
+    t0 = time.perf_counter()
+    db, queries = make_sift_like(GIST_ROWS, GIST_QUERIES, GIST_DIM, seed=9)
+    q_dev = torch.as_tensor(queries, device="cuda")
+    truth = exact_truth(scann_torch, db, queries, "squared_l2")
+    log(f"GIST-960-shaped corpus {db.shape} + {queries.shape} and its "
+        f"truth in {time.perf_counter() - t0:.1f} s")
+    leaves = GIST_TREE["num_leaves_to_search"]
+    out, k3, k5 = {}, {"max_abs_err": 0.0}, {}
+
+    # Tree-AH, int8 lookup: K3 at b_pad 480.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = scann_torch.create_searcher(db, ah_config(
+        scann_torch, db, "squared_l2", "int8", "float32", **GIST_TREE),
+        "cuda")
+    s._ensure_pruned()
+    torch.cuda.synchronize()
+    out["tree_ah_build_s"] = time.perf_counter() - t0
+    b_pad = s._p_codes.shape[-1] * 2
+    log(f"GIST tree-AH int8 lookup build: {out['tree_ah_build_s']:.1f} s, "
+        f"{s.partitioner.num_leaves} leaves, b_pad {b_pad}")
+    if b_pad != GIST_DIM // 2:
+        raise AssertionError(f"b_pad {b_pad}, expected {GIST_DIM // 2}")
+    dpb = s.model.dims_per_block
+    for kpg in (8, 16):
+        a3 = ah_inputs(torch, s, q_dev, leaves, True)
+        got = pruned_lut.score_work_lut(*a3, measure_l2=True, kpg=kpg)
+        want = k3_plain(*a3, measure_l2=True, kpg=kpg)
+        torch.cuda.synchronize()
+        err, _ = compare_packed(torch, "K3 at b_pad 480", got, want, a3[0])
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        log(f"K3 vs plain (b_pad {b_pad}, l2, kpg {kpg}): bit-equal, w_pad "
+            f"{a3[0].work_tile.shape[0]}, active "
+            f"{int(a3[0].work_active.sum())}")
+        if kpg == 8:
+            k3["ms"] = time_ms(torch, lambda: pruned_lut.score_work_lut(
+                *a3, measure_l2=True, kpg=8))
+            k3["plain_ms"] = time_ms(torch, lambda: k3_plain(
+                *a3, measure_l2=True, kpg=8), reps=PLAIN_TIMING_REPS)
+            k3["bound_ms"], k3["bound_by"], n_act = k3_bound(
+                a3[0], GIST_QUERIES, a3[2], dpb, 8)
+            log(f"K3 at b_pad {b_pad}, leaves={leaves}, {GIST_QUERIES} "
+                f"queries, kpg 8: {k3['ms']:.3f} ms (plain "
+                f"{k3['plain_ms']:.3f} ms), bound {k3['bound_ms']:.4f} ms "
+                f"by {k3['bound_by']} ({n_act} active items)")
+        del a3, got, want
+    timer = StageTimer(torch)
+    s.stage_hook = timer
+    pruned_lut.launches_lut = 0
+    idx, dist, wall, stages, launched = timed_search(
+        torch, s, timer, queries, lambda: pruned_lut.launches_lut,
+        leaves_to_search=leaves, pre_reorder_num_neighbors=AH_REORDER)
+    s.stage_hook = None
+    check_results(queries, db, idx, dist, "GIST tree-AH", False)
+    if launched == 0:
+        raise AssertionError("the GIST tree-AH search did not launch K3")
+    k3["launches"] = pruned_lut.launches_lut
+    out["tree_ah"] = {"leaves": leaves, "pre": AH_REORDER,
+                      "recall": recall_at_k(idx, truth),
+                      "qps": GIST_QUERIES / wall, "k3_launches": launched,
+                      "stage_ms": stages}
+    log(f"GIST tree-AH int8 lookup leaves={leaves} pre={AH_REORDER}: "
+        f"recall@10 {out['tree_ah']['recall']:.4f}, qps "
+        f"{out['tree_ah']['qps']:.0f}, K3 launches {launched}, stage ms "
+        f"{stages}")
+    cross_check(scann_torch, s, queries, "GIST tree-AH int8 lookup", db,
+                leaves_to_search=leaves, pre_reorder_num_neighbors=AH_REORDER)
+    s = None
+    torch.cuda.empty_cache()
+
+    # Reconstruct mode without a tree: K5 at d 960 (d_pad 1024).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = scann_torch.create_searcher(db, ah_config(
+        scann_torch, db, "squared_l2", "reconstruct", "float32"), "cuda")
+    torch.cuda.synchronize()
+    out["no_tree_build_s"] = time.perf_counter() - t0
+    rows, bias = flat._recon_rows, flat._recon_bias
+    _, q_bf = flat._recon_queries(q_dev, rows.shape[1])
+    log(f"GIST reconstruct without a tree: build "
+        f"{out['no_tree_build_s']:.1f} s, {rows.shape[0]} slots x d_pad "
+        f"{rows.shape[1]}")
+    # d 960: the first 960 dimensions (the rest are the layout's zeros).
+    rows_960 = rows[:, :GIST_DIM].contiguous()
+    q_960 = q_bf[:, :GIST_DIM].contiguous()
+    for what, qq, rr in (("d_pad 1024", q_bf, rows), ("d 960", q_960,
+                                                       rows_960)):
+        got = fused_scan.fused_scan_groupmax(qq, rr, bias, measure_l2=True)
+        want = fused_scan.fused_scan_groupmax_torch(qq, rr, bias,
+                                                    measure_l2=True)
+        torch.cuda.synchronize()
+        err, agree = compare_groupmax(torch, got, want, qq, rr, bias, 2.0)
+        k5["max_abs_err"] = max(k5.get("max_abs_err", 0.0), err)
+        log(f"K5 vs plain ({what}, l2, {qq.shape[0]} queries x "
+            f"{rr.shape[0]} slots): max |err| {err:.3g}, slots agree "
+            f"{agree:.6f}")
+        del got, want
+    k5["ms"] = time_ms(torch, lambda: fused_scan.fused_scan_groupmax(
+        q_960, rows_960, bias, measure_l2=True))
+    k5["plain_ms"] = time_ms(torch, lambda: fused_scan.fused_scan_groupmax_torch(
+        q_960, rows_960, bias, measure_l2=True), reps=PLAIN_TIMING_REPS)
+    k5["bound_ms"], k5["bound_by"] = k5_bound(GIST_QUERIES, rows_960)
+    log(f"K5 at d 960, {GIST_QUERIES} queries x {rows.shape[0]} slots: "
+        f"{k5['ms']:.3f} ms (plain {k5['plain_ms']:.3f} ms), bound "
+        f"{k5['bound_ms']:.4f} ms by {k5['bound_by']}")
+    del rows_960, q_960, q_bf
+    flat.stage_hook = timer
+    fused_scan.launches = 0
+    idx, dist, wall, stages, launched = timed_search(
+        torch, flat, timer, queries, lambda: fused_scan.launches)
+    flat.stage_hook = None
+    check_results(queries, db, idx, dist, "GIST reconstruct", False)
+    if launched == 0:
+        raise AssertionError("the GIST no-tree search did not launch K5")
+    k5["launches"] = fused_scan.launches
+    out["no_tree"] = {"recall": recall_at_k(idx, truth),
+                      "qps": GIST_QUERIES / wall, "k5_launches": launched,
+                      "stage_ms": stages}
+    log(f"GIST reconstruct without a tree: recall@10 "
+        f"{out['no_tree']['recall']:.4f}, qps {out['no_tree']['qps']:.0f}, "
+        f"K5 launches {launched}, stage ms {stages}")
+    cross_check(scann_torch, flat, queries, "GIST reconstruct without a "
+                "tree", db, leaves_to_search=0)
+    return k3, k5, out
+
+
+def sift_phase(torch, scann_torch):
+    """Phase 10: config 3b; returns its summary dict."""
+    from scann_torch.ops import pruned_sq
+    t0 = time.perf_counter()
+    db, queries = make_sift_like(SIFT_N, SIFT_Q, SIFT_D)
+    truth = exact_truth(scann_torch, db, queries, "squared_l2")
+    log(f"SIFT-shaped corpus {db.shape} + {queries.shape} and its truth in "
+        f"{time.perf_counter() - t0:.1f} s")
+    timer = StageTimer(torch)
+    out = {}
+    for reorder in (None, SIFT_REORDER):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = (scann_torch.builder(db, K, "squared_l2").tree(**SIFT_TREE)
+             .score_brute_force(quantize="int8"))
+        if reorder:
+            b = b.reorder(reorder)
+        s = b.build()
+        torch.cuda.synchronize()
+        name = f"reorder {reorder}" if reorder else "tree-SQ alone"
+        rec = {"build_s": time.perf_counter() - t0, "points": []}
+        log(f"SIFT {name}: build {rec['build_s']:.1f} s, "
+            f"{s.partitioner.num_leaves} leaves")
+        s.stage_hook = timer
+        pruned_sq.launches = 0
+        for leaves in SIFT_SWEEP:
+            idx, dist, wall, stages, launched = timed_search(
+                torch, s, timer, queries, lambda: pruned_sq.launches,
+                leaves_to_search=leaves)
+            check_results(queries, db, idx, dist, f"SIFT {name}", False)
+            if launched == 0:
+                raise AssertionError(f"SIFT {name} leaves={leaves} did not "
+                                     f"launch K1")
+            rec["points"].append({"leaves": leaves,
+                                  "recall": recall_at_k(idx, truth),
+                                  "qps": SIFT_Q / wall,
+                                  "k1_launches": launched,
+                                  "stage_ms": stages})
+            log(f"SIFT {name} leaves={leaves}: recall@10 "
+                f"{rec['points'][-1]['recall']:.4f}, qps "
+                f"{SIFT_Q / wall:.0f}, K1 launches {launched}, stage ms "
+                f"{stages}")
+        s.stage_hook = None
+        rec["k1_launches"] = pruned_sq.launches
+        out[name] = rec
+        if reorder:
+            at8 = rec["points"][0]["recall"]
+            if at8 < SIFT_RECALL_FLOOR_AT_8:
+                raise AssertionError(
+                    f"SIFT tree-SQ + reorder({reorder}) recall@10 {at8:.4f} "
+                    f"at leaves=8 is under {SIFT_RECALL_FLOOR_AT_8}")
+            cross_check(scann_torch, s, queries, f"SIFT {name}", db,
+                        leaves_to_search=SIFT_SWEEP[0])
+        s = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def composition_phase(torch, scann_torch, db, queries, truth):
+    """Phase 11: the other score_brute_force compositions on the phase-3
+    corpus; returns its summary dict."""
+    out = {}
+    tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
+                training_sample_size=TRAIN_SAMPLE)
+    timer = StageTimer(torch)
+    for name, measure, quantize, with_tree in (
+            ("brute force int8", "dot_product", "int8", False),
+            ("brute force bfloat16", "dot_product", "bfloat16", False),
+            ("Tree-X float32 leaves", "dot_product", "float32", True),
+            ("Tree-X bfloat16 leaves", "dot_product", "bfloat16", True),
+            ("cosine brute force", "cosine", "float32", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = scann_torch.builder(db, K, measure)
+        if with_tree:
+            b = b.tree(**tree)
+        s = b.score_brute_force(quantize=quantize).build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        s.stage_hook = timer
+        idx, dist, wall, stages, _ = timed_search(
+            torch, s, timer, queries, lambda: 0,
+            **({"leaves_to_search": LEAVES_TO_SEARCH} if with_tree else {}))
+        s.stage_hook = None
+        # The corpus is unit rows: cosine ranks as dot product does.
+        check_results(queries, db, idx, 1.0 - dist if measure == "cosine"
+                      else dist, name, quantize == "float32")
+        out[name] = {"build_s": build_s, "recall": recall_at_k(idx, truth),
+                     "qps": N_QUERY / wall, "stage_ms": stages}
+        log(f"{name}: build {build_s:.1f} s, recall@10 "
+            f"{out[name]['recall']:.4f}, qps {out[name]['qps']:.0f}, stage "
+            f"ms {stages}")
+        s = None
+        torch.cuda.empty_cache()
+    s = scann_torch.builder(db, K, "l1").score_brute_force().build()
+    q1 = queries[:L1_QUERIES]
+    s.stage_hook = timer
+    idx, dist, wall, stages, _ = timed_search(torch, s, timer, q1, lambda: 0)
+    s.stage_hook = None
+    check_results(q1, db, idx, dist, "L1 brute force", False)
+    found = 0
+    for i in range(L1_CHECKED):
+        l1 = np.abs(db - q1[i]).sum(1)
+        want = np.argpartition(l1, K)[:K]
+        found += len(set(idx[i]) & set(want))
+        if not np.allclose(np.sort(l1[want]), dist[i], rtol=1e-4):
+            raise AssertionError(f"L1 distances of query {i} differ from "
+                                 f"numpy's")
+    agree = found / (L1_CHECKED * K)
+    if agree < 0.99:
+        raise AssertionError(f"L1 top-10 agrees with numpy on {agree:.4f}")
+    out["L1 brute force"] = {"queries": L1_QUERIES, "qps": L1_QUERIES / wall,
+                             "numpy_agree": agree, "stage_ms": stages}
+    log(f"L1 brute force on {L1_QUERIES} queries: qps "
+        f"{L1_QUERIES / wall:.0f}, top-10 ids agree with numpy's on "
+        f"{L1_CHECKED} queries {agree:.4f}, stage ms {stages}")
+    return out
 
 
 def k2_bound(plan, rows3, kpg):
@@ -591,31 +925,6 @@ def k6_wide_check(torch, seed=6):
     return w
 
 
-def guard_checks(scann_torch):
-    """On the card, a K3 width that no survivor count serves (int8 lookup
-    over 200 code blocks) and a no-tree reconstruct searcher over 512
-    dimensions large enough that every search is a K5 scan (20,000 rows:
-    80 groups of 256 slots for 10 candidates) raise NotImplementedError
-    naming item 13 before any training."""
-    for what, d, lookup, tree, n in (
-            ("K3 width", 400, "int8", True, 2000),
-            ("no-tree K5 width", 400, "reconstruct", False, 20_000)):
-        db = np.zeros((n, d), np.float32)
-        kw = dict(num_leaves=10, num_leaves_to_search=2,
-                  training_sample_size=2000) if tree else {}
-        config = ah_config(scann_torch, db, "dot_product", lookup, None, **kw)
-        t0 = time.perf_counter()
-        try:
-            scann_torch.create_searcher(db, config, "cuda")
-        except NotImplementedError as e:
-            if "item 13" not in str(e):
-                raise
-            log(f"{what} (d {d}, {lookup}) refused in "
-                f"{time.perf_counter() - t0:.3f} s: {e}")
-        else:
-            raise AssertionError(f"{what}: d {d} built on the card")
-
-
 def wide_codes_search(scann_torch):
     """A float32-lookup tree-AH index of 200 dimensions (d_pad 208, past
     the 144 K4 once served) builds and searches on the card, launches K4
@@ -711,19 +1020,28 @@ def check_results(queries, db, idx, dist, what, exact_distances):
                                  f"products of the returned rows")
 
 
-def cross_check(scann_torch, searcher, queries, what, **kw):
+def cross_check(scann_torch, searcher, queries, what, l2_db=None, **kw):
     """The same index, serialized and searched on the CPU plain path,
     returns what the CUDA path returns for a few queries (at leaves=100
-    unless ``kw`` says otherwise)."""
+    unless ``kw`` says otherwise): ids equal on 99% and distances within
+    1e-4 relative; a squared-L2 index passes its rows as ``l2_db``, and
+    its distances are held relative to |d| + ||q||^2 + ||x||^2 (they are
+    computed from those terms)."""
     kw = kw or {"leaves_to_search": LEAVES_TO_SEARCH}
+    q = queries[:16]
     with tempfile.TemporaryDirectory() as tmp:
         searcher.serialize(tmp)
         cpu = scann_torch.load_searcher(tmp, device="cpu")
-        i_cpu, d_cpu = cpu.search_batched(queries[:16], **kw)
-    i_gpu, d_gpu = searcher.search_batched(queries[:16], **kw)
+        i_cpu, d_cpu = cpu.search_batched(q, **kw)
+    i_gpu, d_gpu = searcher.search_batched(q, **kw)
     same = i_cpu == i_gpu
     agree = float(np.mean(same))
-    if agree < 0.99 or not np.allclose(d_cpu[same], d_gpu[same], rtol=1e-4):
+    scale = np.abs(d_cpu)
+    if l2_db is not None:
+        scale = scale + (q ** 2).sum(1)[:, None] + (
+            l2_db[np.maximum(i_cpu, 0)] ** 2).sum(-1)
+    err = np.abs(d_cpu - d_gpu)[same]
+    if agree < 0.99 or not np.all(err <= 1e-4 * scale[same] + 1e-8):
         raise AssertionError(f"{what}: CUDA and CPU paths disagree: ids "
                              f"{agree:.4f}")
     log(f"{what}: CUDA vs CPU plain path on 16 queries: ids agree "
@@ -768,16 +1086,17 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
 
     # Kernel phase: K3 and K4 at the main path's inputs.
     k3, k4 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
-    k3["occupancy"] = _cuda.occupancy("pruned_lut",
-                                      main._p_codes.shape[-1] * 2, 8)
+    k3["occupancy"] = {
+        f"b_pad {b}, kpg {kpg}": _cuda.occupancy("pruned_lut", b, kpg)
+        for b in (main._p_codes.shape[-1] * 2, GIST_DIM // 2)
+        for kpg in (8, 16)}
     for measure_l2 in (False, True):
         for kpg in (8, 16):
             tag = f"{'l2' if measure_l2 else 'dot'}, kpg {kpg}"
             a3 = ah_inputs(torch, main, q_dev, LEAVES_TO_SEARCH, measure_l2)
             got = pruned_lut.score_work_lut(
                 *a3, measure_l2=measure_l2, kpg=kpg)
-            want = pruned_lut.score_work_torch_lut(
-                *a3, measure_l2=measure_l2, kpg=kpg)
+            want = k3_plain(*a3, measure_l2=measure_l2, kpg=kpg)
             torch.cuda.synchronize()
             err, ident = compare_packed(torch, "K3", got, want, a3[0])
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
@@ -804,9 +1123,8 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
             del got, want
             if not measure_l2 and kpg == 8:    # the main path's case
                 for rec, fn, plain, args, bound in (
-                        (k3, pruned_lut.score_work_lut,
-                         pruned_lut.score_work_torch_lut, a3,
-                         k3_bound(a3[0], a3[2], dpb, kpg)),
+                        (k3, pruned_lut.score_work_lut, k3_plain, a3,
+                         k3_bound(a3[0], N_QUERY, a3[2], dpb, kpg)),
                         (k4, pruned_lut.score_work_codes,
                          pruned_lut.score_work_torch_codes, a4,
                          k4_bound(a4[0], a4[2], 16, dpb, kpg))):
@@ -1013,7 +1331,7 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
 
     # K5 on the full-scan layout, at the main path's shape.
     rows, bias = s._recon_rows, s._recon_bias
-    k5 = {"occupancy": _cuda.occupancy("fused_scan", rows.shape[1])}
+    k5 = {"occupancy": _cuda.occupancy("fused_scan")}
     _, q_bf = s._recon_queries(q_dev, rows.shape[1])
     for measure_l2 in (False, True):
         # Squared L2 on the same rows: the bias plane an L2 index has.
@@ -1283,11 +1601,16 @@ def main():
     k2, k5, recon_summary = recon_phase(torch, scann_torch, db, queries,
                                         truth, q_dev)
 
-    # K6 at the widest row a scorer writes; the fault-3a guards.
+    # K6 at the widest row a scorer writes.
     k6["widest_row"] = k6_wide_check(torch)
     k6["occupancy"] = {w: _cuda.occupancy("merge_groups", w)
                        for w in (128, 256, k6["widest_row"])}
-    guard_checks(scann_torch)
+
+    # 9-11. the widths once refused, tree-SQ + reorder, the other
+    # compositions.
+    k3_wide, k5_wide, wide_summary = wide_phase(torch, scann_torch)
+    sift_summary = sift_phase(torch, scann_torch)
+    compositions = composition_phase(torch, scann_torch, db, queries, truth)
 
     # K6's line: the tree-AH block (the wider rows, k 30); both blocks'
     # numbers are in the summary.
@@ -1296,7 +1619,10 @@ def main():
                "index_bytes_per_vector": index_bytes / N_DB,
                "points": points, "merge": sq_merges, "tree_ah": ah_summary,
                "reconstruct": recon_summary,
-               "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")}}
+               "k6": {b: k6[b] for b in ("tree_sq", "tree_ah")},
+               "wide": {**wide_summary, "k3_b_pad_480": k3_wide,
+                        "k5_d_960": k5_wide},
+               "sift_tree_sq": sift_summary, "compositions": compositions}
     log("summary " + json.dumps(summary))
     # What the card makes of the six kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
@@ -1305,11 +1631,11 @@ def main():
         "pruned_sq": {"d_pad": d_pad, "kpg": 4, **k1["occupancy"]},
         "pruned_rows": {"d_pad": recon_summary["d_pad"], "kpg": 8,
                         **k2["occupancy"]},
-        "pruned_lut": {"b_pad": ah_summary["b_pad"], **k3["occupancy"]},
+        "pruned_lut": k3["occupancy"],
         "pruned_codes": {"d_pad": ah_summary["k4_d_pad"], "dpb": 2,
                          "kpg": 8, **k4["occupancy"]},
-        "fused_scan": {"d_pad": recon_summary["d_pad"],
-                       **k5["occupancy"]},
+        "fused_scan": {"d_pad": [recon_summary["d_pad"], GIST_DIM, 1024],
+                       "the same at every d": True, **k5["occupancy"]},
         "merge_groups": {f"w {w}": o
                          for w, o in k6["occupancy"].items()}}))
     # library_ms is None for all six: no single PyTorch call computes a

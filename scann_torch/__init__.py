@@ -1,25 +1,36 @@
 """scann_torch: the PyTorch/CUDA port of scann_tpu.
 
 A second package beside ``scann_tpu`` (the JAX reference, held against it
-by tests/test_torch_*.py).  It serves two engines end to end, each with
-build, serialization and batched search through hand-written CUDA kernels:
-tree-SQ (k-means tree, tile-major residual int8 leaves, the pruned int8
-scorer csrc/pruned_sq.cu) and tree-AH (product codes with anisotropic
-encoding, with or without a tree; the int8-LUT scorer csrc/pruned_lut.cu,
-the decode scorer csrc/pruned_codes.cu, and in reconstruct mode the
-decoded-row scorer csrc/pruned_rows.cu and the fused full scan
-csrc/fused_scan.cu; then float32 / bfloat16 / residual-int8 reordering),
-plus the float32 brute force used for ground truth.  Both engines can
-merge through csrc/merge_groups.cu (SCANN_TORCH_FUSED_MERGE=1).  Entry
-points run on CUDA unless the caller asks for the CPU::
+by tests/test_torch_*.py).  It serves, each with build, serialization and
+batched search:
+
+* tree-SQ (k-means tree, tile-major residual int8 leaves, the pruned int8
+  scorer csrc/pruned_sq.cu), with or without float32 / bfloat16 /
+  residual-int8 / per-dimension int8 reordering;
+* tree-AH (product codes with anisotropic encoding, with or without a
+  tree; the int8-LUT scorer csrc/pruned_lut.cu, the decode scorer
+  csrc/pruned_codes.cu, and in reconstruct mode the decoded-row scorer
+  csrc/pruned_rows.cu and the fused full scan csrc/fused_scan.cu; then the
+  same reorderings), at every width;
+* every other score_brute_force composition, plain torch: brute force
+  over float32, int8 or bfloat16 rows, Tree-X with float32, bfloat16 or
+  global-int8 dense leaves and the single-leaf tree, each with or
+  without reordering; dot product, squared L2 and cosine, and float32
+  brute-force L1.
+
+Both pruned engines can merge through csrc/merge_groups.cu
+(SCANN_TORCH_FUSED_MERGE=1).  Entry points run on CUDA unless the caller
+asks for the CPU::
 
     import scann_torch
-    searcher = (scann_torch.builder(db, 10, "dot_product")
+    searcher = (scann_torch.builder(db, 10, "squared_l2")
                 .tree(num_leaves=2000, num_leaves_to_search=100,
-                      training_sample_size=250_000)
+                      training_sample_size=100_000)
                 .score_brute_force(quantize="int8")
+                .reorder(40)
                 .build())
-    neighbors, distances = searcher.search_batched(queries)
+    neighbors, distances = searcher.search_batched(queries,
+                                                   leaves_to_search=8)
 
     searcher = (scann_torch.builder(db, 10, "dot_product")
                 .tree(num_leaves=2000, num_leaves_to_search=100,
@@ -27,6 +38,9 @@ points run on CUDA unless the caller asks for the CPU::
                 .score_ah(2, anisotropic_quantization_threshold=0.2)
                 .reorder(100)
                 .build())
+
+    searcher = (scann_torch.builder(db, 10, "cosine")
+                .score_brute_force(quantize="bfloat16").build())
 
 The package imports torch and numpy only (never jax or scann_tpu).
 """

@@ -31,7 +31,8 @@ SIGNATURES = {
         "pruned_sq_occupancy": ([_I, _I, _P], _I),
     },
     "pruned_lut": {
-        "pruned_lut_score": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
+        "pruned_lut_build": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+        "pruned_lut_score": ([_P] * 8 + [_I] * 4 + [_P], _I),
         "pruned_lut_occupancy": ([_I, _I, _P], _I),
     },
     "pruned_codes": {
@@ -44,7 +45,7 @@ SIGNATURES = {
     },
     "fused_scan": {
         "fused_scan_groupmax": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
-        "fused_scan_occupancy": ([_I, _P], _I),
+        "fused_scan_occupancy": ([_P], _I),
     },
     "merge_groups": {
         "merge_groups_topk": ([_P] * 4 + [_I] * 5 + [_P], _I),

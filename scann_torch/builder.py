@@ -90,8 +90,8 @@ class ScannBuilder:
         return self
 
     def score_brute_force(self, quantize=cfg.FLOAT32) -> "ScannBuilder":
-        """Configure exact scoring (int8 leaves under tree(), float32
-        alone)."""
+        """Configure exact scoring: float32, int8 or bfloat16 rows, alone
+        (brute force) or as a tree's leaves (int8: residual tree-SQ)."""
         if self._bf is not None:
             raise ValueError("score_bf has already been configured")
         self._bf = cfg.BruteForceConfig(quantize=_quantize_name(quantize))

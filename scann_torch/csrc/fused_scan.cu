@@ -20,12 +20,19 @@
 // products run on the tensor cores as wgmma.mma_async m64n256k16 (bf16 in,
 // f32 accumulators), so a 256-slot candidate group is one wgmma N extent
 // and its maximum is a reduction inside the accumulator registers:
-//   * a block of two warpgroups owns 128 queries (64 each); its query tile
-//     (128 x d bf16) stays in shared memory for the whole block;
-//   * it walks the 8 groups of one 2048-slot block; a group's 256 rows
-//     come in chunks of 64 dimensions (256 x 128 B = 32 KB), a ring of 4
-//     stages filled with cp.async, so three chunks are in flight while the
-//     tensor cores work on the fourth;
+//   * a block of two warpgroups owns 128 queries (64 each) and walks the
+//     8 groups of one 2048-slot block;
+//   * both operands stream along the dimension axis in chunks of 64 (one
+//     128-byte row a chunk): a stage holds a group's 256 row chunks
+//     (32 KB) and the 128 query chunks of the same dimensions (16 KB), a
+//     ring of 4 stages filled with cp.async, so three stages are in
+//     flight while the tensor cores work on the fourth, and shared memory
+//     is 4 x 48 KB at every d.  The accumulators of the 128 queries x 256
+//     slots stay in registers across a group's chunks;
+//   * the loop runs groups outer and chunks inner, so a query chunk is
+//     copied once a group (8 times a block), from L2: the accumulators of
+//     a second group would not fit the registers, and the query bytes are
+//     half a row chunk's;
 //   * tiles are stored in the 128-byte swizzled K-major layout the wgmma
 //     descriptors read (16-byte chunk c of row r at c ^ (r & 7)), which is
 //     also free of bank conflicts for the cp.async writes;
@@ -33,14 +40,14 @@
 //     rows (columns 8j + 2t + {0, 1}); it scans them in rising slot order
 //     with a strict compare, then two __shfl_xor_sync steps across the
 //     quad that hold a row take the maximum, preferring the lower slot on
-//     equal values.  No shared memory and no score matrix.
+//     equal values.  No score matrix.
 // Row traffic: the grid runs the query tiles of one 2048-slot block next
 // to each other (blockIdx.x = query tile), so the 79 blocks of a 10,000-
 // query batch read a slot block at about the same time: the rows come from
 // device memory about once (S * d * 2 bytes, 319 MB at bench scale) and
 // from L2 for the other query tiles (Q / 128 passes, 25 GB through L2).
-// Each block also reads its query tile once (Q * d * 2 * S / 2048 bytes,
-// 1.6 GB through L2 at bench scale).
+// Each block also reads its query tile once a group (Q * d * 2 * S / 256
+// bytes, 12.8 GB through L2 at bench scale).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,8 +62,9 @@ constexpr int kGroups = kBS / kSub;
 constexpr int kKC = 64;           // dimensions per chunk: one 128-byte row
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
-constexpr int kStageBytes = kSub * kKC * 2;    // 32 KB
-constexpr int kQChunkBytes = kQT * kKC * 2;    // 16 KB
+constexpr int kRowChunkBytes = kSub * kKC * 2;   // 32 KB
+constexpr int kQChunkBytes = kQT * kKC * 2;      // 16 KB
+constexpr int kStageBytes = kRowChunkBytes + kQChunkBytes;
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile.
 __device__ __forceinline__ uint32_t swizzled(uint32_t r, uint32_t c) {
@@ -163,16 +171,17 @@ fused_scan_kernel(const uint16_t* __restrict__ queries,
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
       ~1023u;
   const int n_kc = d / kKC;
-  const uint32_t q_s = base;                          // n_kc x 128 rows
-  const uint32_t r_s = base + n_kc * kQChunkBytes;    // kStages x 256 rows
+  const uint32_t r_s = base;   // kStages x (256 row + 128 query chunks)
   const int tid = threadIdx.x;
   const int q_block = blockIdx.x * kQT;
   const size_t slot_base = static_cast<size_t>(blockIdx.y) * kBS;
   const size_t row_bytes = static_cast<size_t>(d) * 2;
   const char* rsrc = reinterpret_cast<const char*>(rows);
+  const char* qsrc = reinterpret_cast<const char*>(queries) +
+                     static_cast<size_t>(q_block) * row_bytes;
   const int steps = kGroups * n_kc;   // (group, chunk) in order
 
-  auto load_rows = [&](int step) {
+  auto load_stage = [&](int step) {
     const int gi = step / n_kc;
     const int kc = step - gi * n_kc;
     const uint32_t dst = r_s + (step % kStages) * kStageBytes;
@@ -184,24 +193,20 @@ fused_scan_kernel(const uint16_t* __restrict__ queries,
       const int c = i & 7;
       cp_async16(dst + swizzled(r, c), src + r * row_bytes + c * 16);
     }
+    const uint32_t qdst = dst + kRowChunkBytes;
+#pragma unroll
+    for (int k = 0; k < kQT * 8 / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i >> 3;
+      const int c = i & 7;
+      cp_async16(qdst + swizzled(r, c), qsrc + r * row_bytes + kc * 128 +
+                                            c * 16);
+    }
   };
 
-  {  // The query tile joins the first group of copies.
-    const char* qsrc = reinterpret_cast<const char*>(queries) +
-                       static_cast<size_t>(q_block) * row_bytes;
-    const int chunks = d / 8;   // 16-byte chunks per query row
-    for (int i = tid; i < kQT * chunks; i += kThreads) {
-      const int r = i / chunks;
-      const int c = i - r * chunks;
-      cp_async16(q_s + (c >> 3) * kQChunkBytes + swizzled(r, c & 7),
-                 qsrc + r * row_bytes + c * 16);
-    }
-  }
-  load_rows(0);
-  cp_async_commit();
 #pragma unroll
-  for (int s = 1; s < kStages - 1; ++s) {
-    if (s < steps) load_rows(s);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_stage(s);
     cp_async_commit();
   }
 
@@ -222,13 +227,13 @@ fused_scan_kernel(const uint16_t* __restrict__ queries,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     // The stage refilled here was read by step - 1, finished everywhere.
-    if (step + kStages - 1 < steps) load_rows(step + kStages - 1);
+    if (step + kStages - 1 < steps) load_stage(step + kStages - 1);
     cp_async_commit();
 
     const int gi = step / n_kc;
     const int kc = step - gi * n_kc;
-    const uint32_t a0 = q_s + kc * kQChunkBytes + wg * 64 * 128;
     const uint32_t b0 = r_s + (step % kStages) * kStageBytes;
+    const uint32_t a0 = b0 + kRowChunkBytes + wg * 64 * 128;
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -293,15 +298,15 @@ fused_scan_kernel(const uint16_t* __restrict__ queries,
 
 }  // namespace
 
-static int fused_scan_smem_bytes(int d) {
-  return (d / kKC) * kQChunkBytes + kStages * kStageBytes + 1024;
+static int fused_scan_smem_bytes() {
+  return kStages * kStageBytes + 1024;
 }
 
 extern "C" int fused_scan_groupmax(const void* queries, const void* rows,
                                    const void* bias, void* vals, void* idx,
                                    int q_pad, int s, int d, float scale,
                                    void* stream) {
-  const int smem = fused_scan_smem_bytes(d);
+  const int smem = fused_scan_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -316,11 +321,11 @@ extern "C" int fused_scan_groupmax(const void* queries, const void* rows,
 }
 
 // Registers a thread, dynamic shared memory a block, resident blocks an SM
-// and local (spill) bytes a thread of the kernel at d dimensions, into
-// info[0..3].
-extern "C" int fused_scan_occupancy(int d, void* info) {
+// and local (spill) bytes a thread of the kernel (the same at every d),
+// into info[0..3].
+extern "C" int fused_scan_occupancy(void* info) {
   int* o = static_cast<int*>(info);
-  const int smem = fused_scan_smem_bytes(d);
+  const int smem = fused_scan_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaFuncAttributes attr;

@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel scann_tpu/ops/pruned_lut.py
 // score_work_pallas_lut (_lut_kernel, pallas_call at :332).  Contract
 // (shared with the plain torch version scann_torch/ops/pruned_lut.py
-// score_work_torch_lut): for every query group g with an active item,
-//   lutf[w, q] = sum_k cb[w, k] * query[g, q, block(w)*dpb + k]   (f32)
+// score_work_torch_lut): for every query group g with an active item and
+// every query row q of it (query qq = qg_query[g, q]),
+//   lutf[w, q] = sum_k cb[w, k] * query[qq, block(w)*dpb + k]   (f32)
 //   lutf       = scale * lutf - csq[w]        (scale 2 under squared L2)
 //   m[q]       = max(max_w |lutf[w, q]|, 1e-20)
 //   lut[w, q]  = clip(rint(lutf * (127 / m[q])), -127, 127)       (int8)
@@ -22,32 +23,46 @@
 // the TPU kernel did them, as a one-hot x LUT product, they become int8
 // tensor-core work: mma.sync m16n8k32 s8 x s8 -> s32, queries the M side,
 // slots the N side, a k-step of 32 = two code blocks x 16 centers.
-//   * A block owns 64 of a query group's 128 queries (two blocks a group):
-//     its LUT is 64 rows of b_pad*16 signed bytes, each row padded by 16
-//     bytes so the ldmatrix loads of the A fragments are free of bank
-//     conflicts, and two blocks fit on an SM at the bench's b_pad 56 (the
-//     registers allow no third).  The per-query m[q] needs no other query,
-//     so the split changes no bit.  The LUT is built in two passes over
-//     the codebook product (the first for the per-query maximum), each
-//     entry summed in the plain version's order; at 2 dimensions per
-//     block a block's codebook rows come as 16-byte loads (one scalar load
-//     per entry, broadcast to the warp, would bound it).
+//   * The LUT depends only on the query and the codebook, so a pre-pass
+//     kernel (lut_build_kernel) builds each query's int8 LUT and inv[q]
+//     once per batch into device memory, instead of once per (group,
+//     query row): bit-equal, and at 100 leaves about 125 times less work.
+//     A thread covers a quarter of one query's blocks, in two passes over
+//     the codebook product (the first for the per-query maximum, which
+//     spans the whole LUT), each entry summed in the plain version's
+//     order; at 2 dimensions per block a block's codebook rows come as
+//     16-byte loads broadcast to the warp.
+//   * The scorer's block owns 64 of a query group's 128 queries (two
+//     blocks a group, two blocks an SM, so one block's selection
+//     overlaps the other's product) and walks each tile as two 256-slot
+//     slabs, a warp per 32-slot candidate group of the slab (8 warps).
+//     Both operands that grow with the width stream in chunks of 32 code
+//     blocks through a 2-stage cp.async ring, one step per (tile, slab,
+//     chunk): the 64 queries' LUT rows of the chunk (gathered through
+//     qg_query, 512 bytes each, each staged row padded by 16 bytes so
+//     the ldmatrix loads of the A fragments are free of bank conflicts)
+//     and the slab's code words of the chunk (16 bytes a slot).  The
+//     int32 accumulators stay in registers across a slab's chunks, so
+//     shared memory does not grow with b_pad (106-122 KB).  Up to b_pad
+//     64 (the benchmark's 56 among them) the whole LUT is one chunk,
+//     copied once a block and kept, and a slab is one step of its codes;
+//     wider LUTs are copied again for each slab from L2.
 //   * The one-hot B operand is built in registers, never stored: a thread
 //     holds 4 consecutive k of slot column n, so its register is
 //     1 << 8 * (nibble - 4 * (lane & 3)), zero when that byte lies outside
-//     [0, 4) (shl.b32 clamps the shift).  The nibbles come from the tile's
-//     codes, staged in shared memory.
-//   * A warp owns one 32-slot candidate group x the block's 64 queries
-//     (16 mma a k-step, 64 accumulators a thread); the 16 groups of a tile
-//     take two rounds of the 8 warps.  The integer sums are exact, so the
-//     output is bit-equal to the plain version.
+//     [0, 4) (shl.b32 clamps the shift).
+//   * A warp computes its group x the block's 64 queries (16 mma a k-step,
+//     64 accumulators a thread).  The integer sums are exact, so the
+//     output is bit-equal to the plain version at every width.
 //   * Epilogue: a query's 32 scores of the group lie in the 4 lanes of a
 //     quad, 8 registers each.  survivors::quad_top_kpg sorts each lane's 8
 //     once, then a pass is two shuffles of the heads and one pop, for the
-//     8 queries of a thread at once.  The survivors of a round's 8 groups
-//     go through shared memory, so each (query, pass) leaves as one full
-//     32-byte sector instead of 8 scattered words.  The selection, not the
-//     product, is the larger part of the time.
+//     8 queries of a thread at once.  The survivors of the slab's 8
+//     groups go through shared memory, so each (query, pass) leaves as
+//     one full 32-byte sector instead of 8 scattered words.  The
+//     accumulators are zeroed after the selection: zeroed at the top of a
+//     tile's first chunk instead, they stay live through the selection
+//     and spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,12 +77,56 @@ using survivors::kSubp;
 
 constexpr int kTile = 512;                // slots per leaf tile
 constexpr int kGroups = kTile / kSubp;    // 16 candidate groups
-constexpr int kThreads = 256;             // 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kSlab = 256;                // slots of a tile a block scores
+constexpr int kWarps = kSlab / kSubp;     // a warp per candidate group
+constexpr int kThreads = kWarps * 32;
 constexpr int kQH = kQG / 2;              // queries per block
-constexpr int kParts = kThreads / kQH;    // LUT-build threads per query
 constexpr int kCenters = 16;
-constexpr int kLutPad = 16;               // bytes added to each LUT row
+constexpr int kBuildThreads = 256;        // LUT pre-pass: 64 queries x 4
+constexpr int kParts = kBuildThreads / kQH;  // LUT-build threads per query
+constexpr int kCB = 32;                   // code blocks a streamed chunk
+constexpr int kResident = 64;             // b_pad up to this: one chunk
+constexpr int kStages = 2;
+// A staged LUT row is the chunk's bytes plus 16 (an odd number of 16-byte
+// units, so an ldmatrix phase's 8 rows fall on 8 bank groups).
+constexpr int kLutRingB = kStages * kQH * (kCB * kCenters + 16);
+
+static_assert(kQH * (kResident * kCenters + 16) <= kLutRingB,
+              "a resident LUT fits the streamed ring");
+
+// The chunk layout of a b_pad: up to kResident blocks the whole LUT is one
+// chunk, copied once a block and kept; wider LUTs stream in kCB chunks.
+struct Chunks {
+  int cb;         // blocks a chunk
+  int n;          // chunks
+  int lut_row_b;  // bytes a staged LUT row
+  int cstride;    // staged code words a slot (9 where 8 would put a
+                  // warp's 8 rows on 4 banks)
+  int lut_b;      // bytes of the LUT space (one resident LUT, or the ring)
+  int code_b;     // bytes a code stage
+  __host__ __device__ explicit Chunks(int b_pad) {
+    cb = b_pad <= kResident ? b_pad : kCB;
+    n = (b_pad + cb - 1) / cb;
+    lut_row_b = cb * kCenters + 16;
+    cstride = cb / 8 + (cb == kResident);
+    lut_b = b_pad <= kResident ? kQH * lut_row_b : kLutRingB;
+    code_b = kSlab * cstride * 4;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
@@ -150,20 +209,24 @@ __device__ __forceinline__ void lut_entries(
   }
 }
 
-// The int8 LUT of the block's 64 queries, lut_s[q * stride + w], and
-// inv_s[q]: thread (q, r) covers blocks r, r + kParts, ...; two passes
-// over the entries, the first for the per-query maximum.
+// The int8 LUT of 64 queries of the batch, lut[qq * b_pad*16 + w], and
+// inv[qq]: thread (q, r) covers blocks r, r + kParts, ... of query
+// blockIdx.x * 64 + q; two passes over the entries, the first for the
+// per-query maximum.
 template <int kDpb>
-__device__ __forceinline__ void build_lut(
-    const __nv_bfloat16* __restrict__ qg_rows, const float* __restrict__ cb,
-    const float* __restrict__ csq, int8_t* lut_s, float* inv_s,
-    float* pmax_s, int g, int half, int b_pad, int dpb, int d_pad,
-    int stride, float scale) {
+__global__ void __launch_bounds__(kBuildThreads)
+lut_build_kernel(const __nv_bfloat16* __restrict__ q_rows,
+                 const float* __restrict__ cb, const float* __restrict__ csq,
+                 int8_t* __restrict__ lut, float* __restrict__ inv, int nq,
+                 int b_pad, int dpb, int d_pad, float scale) {
+  __shared__ float pmax_s[kParts * kQH];
   const int q = threadIdx.x & (kQH - 1);
   const int r = threadIdx.x / kQH;
+  const int qq = blockIdx.x * kQH + q;
+  const bool live = qq < nq;
   const __nv_bfloat16* qrow =
-      qg_rows + (static_cast<size_t>(g) * kQG + half * kQH + q) * d_pad;
-  int8_t* lrow = lut_s + q * stride;
+      q_rows + static_cast<size_t>(live ? qq : nq - 1) * d_pad;
+  int8_t* lrow = lut + static_cast<size_t>(qq) * b_pad * kCenters;
   float mx = 0.f;
   for (int j = r; j < b_pad; j += kParts) {
     float lv[kCenters];
@@ -173,11 +236,12 @@ __device__ __forceinline__ void build_lut(
   }
   pmax_s[r * kQH + q] = mx;
   __syncthreads();
+  if (!live) return;
   float m = pmax_s[q];
   for (int p = 1; p < kParts; ++p) m = fmaxf(m, pmax_s[p * kQH + q]);
   m = fmaxf(m, 1e-20f);
   const float mult = __fdiv_rn(127.f, m);
-  if (r == 0) inv_s[q] = __fmul_rn(m, static_cast<float>(1.0 / 127.0));
+  if (r == 0) inv[qq] = __fmul_rn(m, static_cast<float>(1.0 / 127.0));
   for (int j = r; j < b_pad; j += kParts) {
     float lv[kCenters];
     lut_entries<kDpb>(cb, csq, qrow, j, dpb, scale, lv);
@@ -201,12 +265,12 @@ __device__ __forceinline__ void build_lut(
 __global__ void __launch_bounds__(kThreads, 2)
 pruned_lut_kernel(const int32_t* __restrict__ work_tile,
                   const int32_t* __restrict__ work_active,
-                  const __nv_bfloat16* __restrict__ qg_rows,
+                  const int32_t* __restrict__ qg_query,
+                  const int8_t* __restrict__ lut,
+                  const float* __restrict__ inv,
                   const uint8_t* __restrict__ codes,
-                  const float* __restrict__ cb, const float* __restrict__ csq,
                   const float* __restrict__ bias, int32_t* __restrict__ out,
-                  int mnt, int kpg, int b_pad, int dpb, int d_pad,
-                  float scale) {
+                  int mnt, int kpg, int b_pad) {
   const int g = blockIdx.x >> 1;
   const int half = blockIdx.x & 1;        // queries half*64 .. +63
   int n_act = 0;  // active items of a group are its first ntiles(leaf)
@@ -214,99 +278,152 @@ pruned_lut_kernel(const int32_t* __restrict__ work_tile,
   if (n_act == 0) return;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const int wdim = b_pad * kCenters;
-  const int stride = wdim + kLutPad;      // bytes per LUT row (query)
-  const int cwords = b_pad / 8;           // code words per slot
-  int8_t* lut_s = reinterpret_cast<int8_t*>(smem);             // kQH rows
-  float* inv_s = reinterpret_cast<float*>(smem + kQH * stride);  // kQH
-  float* pmax_s = inv_s + kQH;                                 // kParts x kQH
-  float* bias_s = pmax_s + kParts * kQH;                       // kTile
-  uint32_t* code_s = reinterpret_cast<uint32_t*>(bias_s + kTile);
-  // A round's survivors, stage_s[q * qstride + pass * 8 + warp]: the 8
-  // groups of a round are one 32-byte sector of each (query, pass).
-  int32_t* stage_s = reinterpret_cast<int32_t*>(code_s + kTile * cwords);
+  const uint32_t lut_ring =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const Chunks ch(b_pad);
+  const bool resident = ch.n == 1;
+  const uint32_t code_ring = lut_ring + ch.lut_b;
+  const uint32_t* code_s =
+      reinterpret_cast<const uint32_t*>(smem + ch.lut_b);
+  float* bias_s = reinterpret_cast<float*>(smem + ch.lut_b +
+                                           kStages * ch.code_b);  // 2 slabs
+  const uint32_t bias_sa =
+      static_cast<uint32_t>(__cvta_generic_to_shared(bias_s));
+  float* inv_s = bias_s + 2 * kSlab;                           // kQH
+  int* qq_s = reinterpret_cast<int*>(inv_s + kQH);             // kQH
+  // A slab's survivors, stage_s[q * qstride + pass * 8 + group]: the 8
+  // groups of a (query, pass) are one 32-byte sector.
+  int32_t* stage_s = reinterpret_cast<int32_t*>(qq_s + kQH);
   const int qstride = kpg * kWarps + 4;   // + 4: conflict-free writes
 
-  // ---- per-group LUT; two dimensions per block (the benchmark's
-  // `score_ah(2)`) has its codebook rows come as 16-byte loads.
-  if (dpb == 2)
-    build_lut<2>(qg_rows, cb, csq, lut_s, inv_s, pmax_s, g, half, b_pad, dpb,
-                 d_pad, stride, scale);
-  else
-    build_lut<0>(qg_rows, cb, csq, lut_s, inv_s, pmax_s, g, half, b_pad, dpb,
-                 d_pad, stride, scale);
+  const int tid = threadIdx.x;
+  if (tid < kQH) {
+    const int qq = qg_query[g * kQG + half * kQH + tid];
+    qq_s[tid] = qq;
+    inv_s[tid] = inv[qq];
+  }
+  __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int cb = ch.cb;
+  const int lut_stage_b = kQH * ch.lut_row_b;
+  // Steps run (tile, slab, chunk) in order; a slab's step u = t * 2 + slab.
+  const int steps = n_act * 2 * ch.n;
+  const size_t lut_row = static_cast<size_t>(b_pad) * kCenters;
+  const int code_row = b_pad / 2;              // code bytes a slot
+
+  auto issue = [&](int step) {
+    const int u = step / ch.n;
+    const int c = step - u * ch.n;
+    const int slab = u & 1;
+    const int nb = min(cb, b_pad - c * cb);    // a multiple of 8
+    const int tile = work_tile[g * mnt + (u >> 1)];
+    if (!resident || step == 0) {
+      const uint32_t dst =
+          lut_ring + (resident ? 0 : step % kStages) * lut_stage_b;
+      for (int i = tid; i < kQH * nb; i += kThreads) {
+        const int q = i / nb;
+        const int p = i - q * nb;
+        cp_async16(dst + q * ch.lut_row_b + p * 16,
+                   lut + qq_s[q] * lut_row + (c * cb + p) * kCenters);
+      }
+    }
+    const int nw = nb / 8;
+    const uint32_t cdst = code_ring + (step % kStages) * ch.code_b;
+    const uint8_t* csrc =
+        codes + (static_cast<size_t>(tile) * kTile + slab * kSlab) * code_row +
+        c * (cb / 2);
+    for (int i = tid; i < kSlab * nw; i += kThreads) {
+      const int slot = i / nw;
+      const int w = i - slot * nw;
+      cp_async4(cdst + (slot * ch.cstride + w) * 4,
+                csrc + slot * code_row + w * 4);
+    }
+    if (c == 0) {
+      const float* bsrc =
+          bias + static_cast<size_t>(tile) * kTile + slab * kSlab;
+      for (int i = tid; i < kSlab / 4; i += kThreads)
+        cp_async16(bias_sa + ((u & 1) * kSlab + i * 4) * 4, bsrc + i * 4);
+    }
+  };
+
+  const int warp = tid >> 5;              // candidate group of the slab
+  const int lane = tid & 31;
   const int gq = lane >> 2;               // fragment row / column group
   const int tq = lane & 3;                // thread in the quad
   const uint32_t t32 = 32u * tq;
   const int seg = kpg * kGroups;
   const size_t width = static_cast<size_t>(mnt) * seg;
-  // ldmatrix row address of this lane: matrices (rows 0-7 | 8-15) x
-  // (bytes 0-15 | 16-31) of a 16-query x 32-byte A tile.
+  // ldmatrix row address of this lane within a LUT stage: matrices (rows
+  // 0-7 | 8-15) x (bytes 0-15 | 16-31) of a 16-query x 32-byte A tile.
   const uint32_t a_lane =
-      static_cast<uint32_t>(__cvta_generic_to_shared(lut_s)) +
-      ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + (lane >> 4) * 16;
-  for (int t = 0; t < n_act; ++t) {
-    const int tile = work_tile[g * mnt + t];
-    __syncthreads();  // LUT complete; previous tile's staging consumed
-    const uint32_t* csrc = reinterpret_cast<const uint32_t*>(
-        codes + static_cast<size_t>(tile) * kTile * (b_pad / 2));
-    for (int i = threadIdx.x; i < kTile * cwords; i += kThreads)
-      code_s[i] = csrc[i];
-    for (int i = threadIdx.x; i < kTile; i += kThreads)
-      bias_s[i] = bias[static_cast<size_t>(tile) * kTile + i];
-    __syncthreads();
+      ((lane & 7) + ((lane >> 3) & 1) * 8) * ch.lut_row_b + (lane >> 4) * 16;
 
-    for (int gi = warp; gi < kGroups; gi += kWarps) {
-      // acc[mi][j]: queries 16 mi + gq (+8), slots 8 j + 2 tq (+1) of the
-      // group (the m16n8 accumulator layout).
-      int acc[4][4][4];
+  // acc[mi][j]: queries 16 mi + gq (+8), slots 8 j + 2 tq (+1) of the
+  // group (the m16n8 accumulator layout), summed over a tile's chunks.
+  int acc[4][4][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
-      // Slot 8 j + gq of the group is this thread's one-hot column j.
-      const uint32_t* crow = code_s + (gi * kSubp + gq) * cwords;
-      for (int jw = 0; jw < cwords; ++jw) {
-        uint32_t cw[4];   // 4 code bytes = 4 k-steps of each column
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
+  issue(0);
+  cp_async_commit();
+  for (int step = 0; step < steps; ++step) {
+    // The stage refilled here was read by step - 1, finished everywhere.
+    if (step + 1 < steps) issue(step + 1);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();   // step's chunk has landed for every thread
+    const int u = step / ch.n;
+    const int c = step - u * ch.n;
+    const int t = u >> 1;
+    const int nw = min(cb, b_pad - c * cb) / 8;
+    const uint32_t a_base =
+        lut_ring + (resident ? 0 : step % kStages) * lut_stage_b + a_lane;
+    // Slot 8 j + gq of the group is this thread's one-hot column j.
+    const int cstride = ch.cstride;
+    const uint32_t* crow = code_s + (step % kStages) * (ch.code_b / 4) +
+                           (warp * kSubp + gq) * cstride;
+    for (int jw = 0; jw < nw; ++jw) {
+      uint32_t cw[4];   // 4 code bytes = 4 k-steps of each column
 #pragma unroll
-        for (int j = 0; j < 4; ++j) cw[j] = crow[j * 8 * cwords + jw];
+      for (int j = 0; j < 4; ++j) cw[j] = crow[j * 8 * cstride + jw];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kstep = jw * 4 + i;   // blocks 2 kstep, 2 kstep + 1
-          uint32_t a[4][4];
+      for (int i = 0; i < 4; ++i) {
+        const int kstep = jw * 4 + i;   // blocks 2 kstep, 2 kstep + 1
+        uint32_t a[4][4];
 #pragma unroll
-          for (int mi = 0; mi < 4; ++mi)
-            ldmatrix_x4(a[mi], a_lane + mi * 16 * stride + kstep * 32);
+        for (int mi = 0; mi < 4; ++mi)
+          ldmatrix_x4(a[mi], a_base + mi * 16 * ch.lut_row_b + kstep * 32);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t byte = cw[j] >> (8 * i);
-            const uint32_t b0 = one_hot(byte & 15u, t32);
-            const uint32_t b1 = one_hot((byte >> 4) & 15u, t32);
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t byte = cw[j] >> (8 * i);
+          const uint32_t b0 = one_hot(byte & 15u, t32);
+          const uint32_t b1 = one_hot((byte >> 4) & 15u, t32);
 #pragma unroll
-            for (int mi = 0; mi < 4; ++mi) mma_s8(acc[mi][j], a[mi], b0, b1);
-          }
+          for (int mi = 0; mi < 4; ++mi) mma_s8(acc[mi][j], a[mi], b0, b1);
         }
       }
-      // Row 2 mi + h of the selection is query 16 mi + 8 h + gq.
+    }
+    if (c == ch.n - 1) {
+      // Slab u & 1 of tile t is complete.  Row 2 mi + h of the selection
+      // is query 16 mi + 8 h + gq.
       float pv[8][8];
       float bj[8];
+      const float* bt = bias_s + (u & 1) * kSlab + warp * kSubp;
 #pragma unroll
       for (int s = 0; s < 8; ++s)
-        bj[s] = bias_s[gi * kSubp + 8 * (s >> 1) + 2 * tq + (s & 1)];
+        bj[s] = bt[8 * (s >> 1) + 2 * tq + (s & 1)];
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float inv = inv_s[16 * mi + 8 * h + gq];
+          const float iv = inv_s[16 * mi + 8 * h + gq];
 #pragma unroll
           for (int s = 0; s < 8; ++s) {
             const float sc = survivors::scale_bias(
-                small_int_to_float(acc[mi][s >> 1][2 * h + (s & 1)]), inv,
+                small_int_to_float(acc[mi][s >> 1][2 * h + (s & 1)]), iv,
                 bj[s]);
             pv[2 * mi + h][s] = survivors::pack(
                 sc, survivors::identity(t, 8 * (s >> 1) + 2 * tq + (s & 1)));
@@ -317,36 +434,68 @@ pruned_lut_kernel(const int32_t* __restrict__ work_tile,
         return stage_s + (16 * (r >> 1) + 8 * (r & 1) + gq) * qstride + warp;
       });
       __syncthreads();
-      // Copy the round's survivors out, 16 bytes a thread and step.
-      const int col0 = t * seg + (gi - warp);
-      for (int i = threadIdx.x; i < kQH * kpg * 2; i += kThreads) {
+      // Copy the slab's survivors out, 16 bytes a thread and step.
+      for (int i = tid; i < kQH * kpg * 2; i += kThreads) {
         const int q = i / (kpg * 2);
         const int p = (i >> 1) - q * kpg;
         const int h = (i & 1) * 4;
         *reinterpret_cast<uint4*>(
             out + (static_cast<size_t>(g) * kQG + half * kQH + q) * width +
-            col0 + p * kGroups + h) =
+            t * seg + p * kGroups + (u & 1) * kWarps + h) =
             *reinterpret_cast<const uint4*>(stage_s + q * qstride +
                                             p * kWarps + h);
       }
-      __syncthreads();
+      // The next slab's sums start here, after the selection: zeroed at
+      // the top of its first chunk instead, the accumulators would stay
+      // live through the selection and spill.
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
     }
+    __syncthreads();   // the stage is free for the copy of step + 2
   }
 }
 
 }  // namespace
 
 static int pruned_lut_smem_bytes(int b_pad, int kpg) {
-  return kQH * (b_pad * kCenters + kLutPad) + (kQH + kParts * kQH + kTile) * 4 +
-         kTile * (b_pad / 2) + kQH * (kpg * kWarps + 4) * 4;
+  const Chunks ch(b_pad);
+  return ch.lut_b + kStages * ch.code_b + (2 * kSlab + 2 * kQH) * 4 +
+         kQH * (kpg * kWarps + 4) * 4;
+}
+
+// The int8 LUTs of nq queries (q_rows (nq, d_pad) bf16) into lut
+// (nq, b_pad * 16) int8 and inv (nq,) f32.
+extern "C" int pruned_lut_build(const void* q_rows, const void* cb,
+                                const void* csq, void* lut, void* inv, int nq,
+                                int b_pad, int dpb, int d_pad, float scale,
+                                void* stream) {
+  const int blocks = (nq + kQH - 1) / kQH;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(q_rows);
+  const float* c = static_cast<const float*>(cb);
+  const float* s = static_cast<const float*>(csq);
+  int8_t* l = static_cast<int8_t*>(lut);
+  float* v = static_cast<float*>(inv);
+  // Two dimensions per block (the benchmark's `score_ah(2)`) has its
+  // codebook rows come as 16-byte loads.
+  if (dpb == 2)
+    lut_build_kernel<2><<<blocks, kBuildThreads, 0, st>>>(
+        q, c, s, l, v, nq, b_pad, dpb, d_pad, scale);
+  else
+    lut_build_kernel<0><<<blocks, kBuildThreads, 0, st>>>(
+        q, c, s, l, v, nq, b_pad, dpb, d_pad, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pruned_lut_score(const void* work_tile, const void* work_active,
-                                const void* qg_rows, const void* codes,
-                                const void* cb, const void* csq,
+                                const void* qg_query, const void* lut,
+                                const void* inv, const void* codes,
                                 const void* bias, void* out, int g_pad, int mnt,
-                                int kpg, int b_pad, int dpb, int d_pad,
-                                float scale, void* stream) {
+                                int kpg, int b_pad, void* stream) {
   const int smem = pruned_lut_smem_bytes(b_pad, kpg);
   cudaError_t err = cudaFuncSetAttribute(
       pruned_lut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -355,15 +504,15 @@ extern "C" int pruned_lut_score(const void* work_tile, const void* work_active,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(work_tile),
       static_cast<const int32_t*>(work_active),
-      static_cast<const __nv_bfloat16*>(qg_rows),
-      static_cast<const uint8_t*>(codes), static_cast<const float*>(cb),
-      static_cast<const float*>(csq), static_cast<const float*>(bias),
-      static_cast<int32_t*>(out), mnt, kpg, b_pad, dpb, d_pad, scale);
+      static_cast<const int32_t*>(qg_query), static_cast<const int8_t*>(lut),
+      static_cast<const float*>(inv), static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(bias), static_cast<int32_t*>(out), mnt, kpg,
+      b_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers a thread, dynamic shared memory a block, resident blocks an SM
-// and local (spill) bytes a thread of the kernel at b_pad code blocks and
+// and local (spill) bytes a thread of the scorer at b_pad code blocks and
 // kpg survivors a group, into info[0..3].
 extern "C" int pruned_lut_occupancy(int b_pad, int kpg, void* info) {
   int* o = static_cast<int*>(info);

@@ -1,10 +1,15 @@
 """Searcher factory: config -> searcher (port of scann_tpu/factory.py).
 
-asymmetric_hash, with or without partitioning -> TreeAHSearcher (with
-optional reordering); partitioning + brute_force(int8) -> TreeXSearcher
-(residual-int8 tree-SQ); brute_force(float32) alone -> BruteForceSearcher.
-Every other composition raises NotImplementedError naming the ROADMAP item
-that will port it; no setting is silently dropped.
+asymmetric_hash, with or without partitioning -> TreeAHSearcher;
+partitioning + brute_force -> TreeXSearcher (residual-int8 tree-SQ, or
+float32 / bfloat16 / global-int8 dense leaves); brute_force alone ->
+BruteForceSearcher (float32, int8 or bfloat16 rows).  Any of them may
+reorder (float32, bfloat16, residual or per-dimension int8 rows).  Cosine
+runs as dot product over unit rows (normalized here) and unit queries;
+L1 is float32 brute force only (config.py refuses the rest).  Every other
+composition raises NotImplementedError naming the ROADMAP item that will
+port it; no setting is silently dropped.  Typed (int8 / uint8) input
+datasets are cast to float32 (item 11 ports their native rows).
 """
 
 from __future__ import annotations
@@ -18,34 +23,21 @@ from scann_torch.partitioning import kmeans_tree
 
 def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
                     rows=None):
-    """Raise NotImplementedError for any setting the port does not serve
-    (on ``device``, for data of ``dims`` dimensions, where both are
-    given, and ``rows`` datapoints, where given)."""
+    """Raise NotImplementedError for any setting the port does not serve.
+    The port serves every width and index size on every device; ``device``,
+    ``dims`` and ``rows`` are accepted for the loader's and the
+    constructor's calls."""
+    del device, dims, rows
     c = scann_config
     if c.autopilot is not None:
         base.not_ported("autopilot", 17)
     if c.projection is not None:
         base.not_ported("projection", 16)
-    if c.distance_measure not in (cfg.DOT_PRODUCT, cfg.SQUARED_L2):
-        base.not_ported(f"distance measure {c.distance_measure!r}", 11)
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
-        tree_ah.check_supported(c, device, dims, rows)
-    else:
-        if c.reordering is not None:
-            base.not_ported("reordering without score_ah", 12)
-        quantize = c.brute_force.quantize
-        if c.partitioning is None:
-            if quantize != cfg.FLOAT32:
-                base.not_ported(f"{quantize} brute force", 11)
-            return
-        if quantize != cfg.INT8:
-            base.not_ported(f"Tree-X {quantize} leaves", 21)
-        if c.partitioning.num_leaves <= 1:
-            base.not_ported("single-leaf Tree-X (dense global-int8 leaves)",
-                             21)
+        tree_ah.check_supported(c)
     if c.partitioning is None:
-        return      # the non-partitioned AH searcher
+        return
     bad = kmeans_tree.unsupported_partitioning(c.partitioning)
     if bad is not None:
         base.not_ported(f"partitioning {bad}", 14)
@@ -63,6 +55,11 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
     if database.ndim != 2:
         raise ValueError(f"database must be 2d, got shape {database.shape}")
     check_supported(scann_config, dev, database.shape[1], database.shape[0])
+    if scann_config.distance_measure == cfg.COSINE:
+        # Cosine = dot product over unit vectors (queries normalize at
+        # search time, base.Searcher.search_batched).
+        norms = np.linalg.norm(database, axis=1, keepdims=True)
+        database = database / np.maximum(norms, 1e-20)
     if scann_config.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         return tree_ah.TreeAHSearcher(database, scann_config, dev)

@@ -12,12 +12,14 @@ never depend on the batch they ride in.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from scann_torch import config as cfg
 from scann_torch.ops import distance as dist_ops
+from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
 
 
@@ -68,10 +70,11 @@ def _row_quantize(delta):
 
 class ReorderHelper:
     """Rescoring of candidate lists against a compressed copy of the
-    dataset: float32, bfloat16, or residual int8 (rows stored as per-row
+    dataset: float32, bfloat16, residual int8 (rows stored as per-row
     int8 of x - c_primary_leaf; the exact f32 q.c_leaf is added back at
-    rescore time).  Non-residual int8 rows (per-dimension multipliers,
-    optionally noise-shaped) are not ported yet."""
+    rescore time), or int8 with per-dimension multipliers (optionally
+    noise-shaped), which serves int8 reordering without a tree and
+    ``reorder(..., quantize="int8", residual=False)``."""
 
     def __init__(self, database, measure: str,
                  reorder_cfg: cfg.ReorderConfig, residual_tokens=None,
@@ -81,10 +84,10 @@ class ReorderHelper:
         self._leaf = None
         self._centers = None
         self._row_scale = None
+        self._inv_mult = None
         x = database.float()
-        if reorder_cfg.quantize == cfg.INT8:
-            if residual_tokens is None or centers is None:
-                not_ported("non-residual int8 reordering", 12)
+        if (reorder_cfg.quantize == cfg.INT8 and residual_tokens is not None
+                and centers is not None):
             tokens = torch.as_tensor(residual_tokens, device=x.device).to(
                 torch.int32)
             c_rows = centers[tokens.long()]
@@ -96,6 +99,15 @@ class ReorderHelper:
             # ||x_hat||^2 of the reconstructed row c + delta_hat (L2 path).
             deq = q8.float() * scale[:, None] + c_rows
             self._sq_norms = (deq * deq).sum(-1)
+        elif reorder_cfg.quantize == cfg.INT8:
+            thr = reorder_cfg.anisotropic_quantization_threshold
+            if math.isnan(thr):
+                sq = quant_ops.scalar_quantize(x)
+            else:
+                sq = quant_ops.scalar_quantize_noise_shaped(x, thr)
+            self._db = sq.data
+            self._inv_mult = sq.inverse_multipliers
+            self._sq_norms = sq.sq_norms
         elif reorder_cfg.quantize == cfg.BFLOAT16:
             self._db = x.to(torch.bfloat16)
             self._sq_norms = (x * x).sum(-1)
@@ -121,7 +133,12 @@ class ReorderHelper:
                 q_sq - 2.0 * dots + self._sq_norms[safe], 0.0)
             return torch.where(valid, sim, float("-inf"))
         q, q_sq = queries, None
-        if self._db.dtype == torch.bfloat16:
+        if self._inv_mult is not None:
+            # The multipliers fold into the query, so the cross term is
+            # q . dequant(x); the query norm is the original query's.
+            q = queries * self._inv_mult[None, :]
+            q_sq = (queries * queries).sum(-1)
+        elif self._db.dtype == torch.bfloat16:
             q = queries.to(torch.bfloat16)
             q_sq = (queries * queries).sum(-1)
         return dist_ops.one_to_many_gathered(
@@ -309,6 +326,11 @@ class Searcher:
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim != 2:
             raise ValueError(f"queries must be 2d, got shape {queries.shape}")
+        if self.config.distance_measure == cfg.COSINE:
+            # Cosine is the dot product of unit vectors: the factory
+            # normalized the database.
+            norms = np.linalg.norm(queries, axis=1, keepdims=True)
+            queries = queries / np.maximum(norms, 1e-20)
         if queries.shape[1] != self.dims:
             raise ValueError(
                 f"query dimensionality {queries.shape[1]} does not match "

@@ -28,11 +28,8 @@ residual and no pruned layout: every query is a full scan.  The base class
 then reorders the best candidates exactly.
 
 Not ported yet (each raises NotImplementedError): stacked quantization,
-variable chunks, SOAR, AVQ, mutation, projection and a single-leaf tree;
-on a CUDA device, the widths K3 and K5 do not serve (check_supported):
-int8 lookup over more than 160 code blocks (144 where a search takes 16
-survivors a group), and a reconstruct-mode full scan through K5 over more
-than 384 dimensions.  K4 and K2 serve any width.
+variable chunks, SOAR, AVQ, mutation, projection and a single-leaf tree.
+Every scorer serves every width on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -78,15 +75,9 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def check_supported(scann_config: cfg.ScannConfig, device=None,
-                    dims: Optional[int] = None, rows: Optional[int] = None):
-    """Raise NotImplementedError for the tree-AH settings not ported yet.
-    With a CUDA ``device`` and the data's ``dims``, also for the widths
-    that K3 and K5 do not serve on the card (item 13), before any
-    training; the CPU's plain versions serve every width.  A no-tree
-    reconstruct searcher is refused where its default search is a K5
-    scan: over ``rows`` datapoints, or any number where ``rows`` is not
-    given."""
+def check_supported(scann_config: cfg.ScannConfig):
+    """Raise NotImplementedError for the tree-AH settings not ported
+    yet."""
     ah = scann_config.asymmetric_hash
     if ah.quantization_scheme == "stacked":
         base.not_ported("stacked quantization", 16)
@@ -99,36 +90,6 @@ def check_supported(scann_config: cfg.ScannConfig, device=None,
     if (scann_config.partitioning is not None
             and scann_config.partitioning.num_leaves <= 1):
         base.not_ported("a single-leaf tree under score_ah", 13)
-    ro = scann_config.reordering
-    if ro is not None and ro.quantize == cfg.INT8 and not ro.residual:
-        base.not_ported("non-residual int8 reordering", 12)
-    if dims is None or device is None or torch.device(device).type != "cuda":
-        return
-    tree = scann_config.partitioning is not None
-    if tree and _takes_k3(ah):
-        b_pad = _code_blocks(dims, ah.dimensions_per_block)
-        if b_pad > pruned_lut.lut_max_b_pad(pruned_scan.KPG):
-            base.not_ported(
-                f"int8 lookup over {b_pad} code blocks on CUDA (K3 serves "
-                f"{pruned_lut.lut_max_b_pad(pruned_scan.KPG)})", 13)
-    if not tree and ah.lookup_type == RECONSTRUCT:
-        d = _round_up(dims, 128)
-        slots = None if rows is None else _round_up(rows,
-                                                    _slot_chunk(rows, True))
-        if (not fused_scan.serves_width(d)
-                and (slots is None
-                     or _takes_k5(slots, _default_k_fetch(scann_config)))):
-            base.not_ported(f"a reconstruct-mode searcher without a tree "
-                            f"over {d} dimensions on CUDA (its searches "
-                            f"are K5 scans; K5 serves "
-                            f"{fused_scan.max_width()})", 13)
-
-
-def _default_k_fetch(scann_config: cfg.ScannConfig) -> int:
-    """The candidates a search takes before reordering by default."""
-    k = scann_config.num_neighbors
-    ro = scann_config.reordering
-    return max(k, ro.reordering_num_neighbors) if ro is not None else k
 
 
 def _slot_chunk(num_slots: int, recon: bool) -> int:
@@ -148,17 +109,6 @@ def _takes_k5(num_slots: int, k_pre: int) -> bool:
     return num_slots // fused_scan.SUB >= 4 * k_pre
 
 
-def _takes_k3(ah) -> bool:
-    """True when the pruned path of these settings takes K3 (int8 lookup
-    over 4-bit codes)."""
-    return ah.lookup_type == cfg.INT8 and ah.clusters_per_block == 16
-
-
-def _code_blocks(dims: int, dims_per_block: int) -> int:
-    """b_pad of the pruned code layout: the code blocks padded to 8."""
-    return _round_up(-(-dims // dims_per_block), pruned_lut._BLK)
-
-
 def _survivors_per_group(k_fetch: int, num_slots: int,
                          num_leaves: int) -> int:
     """kpg of a pruned search: the worst-case density of wanted candidates
@@ -174,8 +124,7 @@ class TreeAHSearcher(base.Searcher):
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
                  device: torch.device):
-        check_supported(scann_config, device, database.shape[1],
-                        database.shape[0])
+        check_supported(scann_config)
         super().__init__(database, scann_config, device)
         self._init_config(scann_config)
         self._build()
@@ -203,7 +152,6 @@ class TreeAHSearcher(base.Searcher):
             tokens = np.zeros((n,), np.int32)
         else:
             tokens = self._train_partition(x_dev)
-            self._refuse_k3_width(_default_k_fetch(self.config), n)
         self.datapoint_to_token = tokens[:, None]
 
         if self.residual and self.partitioner is not None:
@@ -224,22 +172,6 @@ class TreeAHSearcher(base.Searcher):
         self.index = self._layout_slots(codes, tokens,
                                         np.arange(n, dtype=np.int32))
         self._build_recon()
-
-    def _refuse_k3_width(self, k_fetch: int, num_slots: int):
-        """On CUDA, NotImplementedError (item 13) when the pruned search
-        would run K3 at a kpg whose LUT does not fit a block: from b_pad
-        152, K3 serves 8 survivors a group and not 16.  The build calls it
-        once the partition is trained, for the default budget, before any
-        encoding; a search calls it for its own budget."""
-        if self.device.type != "cuda" or not _takes_k3(self.ah_cfg):
-            return
-        kpg = self._kpg_override or _survivors_per_group(
-            k_fetch, num_slots, self.partitioner.num_leaves)
-        b_pad = _code_blocks(self.dims, self.ah_cfg.dimensions_per_block)
-        if b_pad > pruned_lut.lut_max_b_pad(kpg):
-            base.not_ported(f"int8 lookup over {b_pad} code blocks at {kpg} "
-                            f"survivors a group on CUDA (K3 serves "
-                            f"{pruned_lut.lut_max_b_pad(kpg)})", 13)
 
     def _train_partition(self, x_dev) -> np.ndarray:
         """Train the tree and return the final primary token of each row."""
@@ -567,11 +499,6 @@ class TreeAHSearcher(base.Searcher):
             return self._pruned_select(queries, k_pre, leaves, restrict)
         if (self._recon_mode and full_scan and restrict is None
                 and _takes_k5(self._recon_rows.shape[0], k_pre)):
-            d = self._recon_rows.shape[1]
-            if self.device.type == "cuda" and not fused_scan.serves_width(d):
-                base.not_ported(f"the reconstruct-mode full scan over {d} "
-                                f"dimensions on CUDA (K5 serves "
-                                f"{fused_scan.max_width()})", 13)
             return self._fused_select(queries, k_pre)
         return self._dense_select(queries, k_pre, leaves, full_scan,
                                   restrict)
@@ -756,20 +683,21 @@ class TreeAHSearcher(base.Searcher):
             allow = allow & (dp >= 0)
             p_bias = p_bias + torch.where(allow.reshape(p_bias.shape), 0.0,
                                           _PAD_PENALTY)
-        qg_rows = q_bf[plan.qg_query.long()]           # (G_pad, QG, d_pad)
+        # K3 takes the batch's queries whole (its LUT pre-pass builds one
+        # LUT per query); K2 and K4 take the gathered query groups.
+        qg_rows = (None if self._int8_lut and not recon_path
+                   else q_bf[plan.qg_query.long()])   # (G_pad, QG, d_pad)
         l2 = self.measure == cfg.SQUARED_L2
         k_fetch = k_pre
         kpg = self._kpg_override or _survivors_per_group(
             k_fetch, self._num_slots, num_leaves)
-        if not recon_path:
-            self._refuse_k3_width(k_fetch, self._num_slots)
         self._stage("plan")
         if recon_path:
             packed = pruned_scan.score_work(
                 plan, qg_rows, self._p_rows, p_bias, measure_l2=l2, kpg=kpg)
         elif self._int8_lut:
             packed = pruned_lut.score_work_lut(
-                plan, qg_rows, self._p_codes, self._p_cb, self._p_csq,
+                plan, q_bf, self._p_codes, self._p_cb, self._p_csq,
                 p_bias, measure_l2=l2, kpg=kpg)
         else:
             packed = pruned_lut.score_work_codes(

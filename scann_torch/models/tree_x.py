@@ -1,13 +1,25 @@
-"""Tree-X searcher with residual per-row int8 leaves (tree-SQ).
+"""Tree-X searcher: partitioning + exact leaf scoring (port of
+scann_tpu/models/tree_x.py).
 
-Port of the residual-int8 mode of scann_tpu/models/tree_x.py: rows are
-stored as x = c_leaf + scale_row * int8[d], tile-major per leaf (256-slot
-tiles), and a batch scores only its selected leaves through the pruned
-path: tokenize -> plan (pruned_scan.invert) -> score (K1,
-ops/pruned_sq.py) -> merge (pruned_scan.merge_candidates, which adds the
-exact f32 q.c_leaf per pair).  Plans over MAX_PLAN_WORK items and the full
-scan run the dense masked scan over every slot instead.  Float32 / bf16 /
-global-int8 leaves are not ported yet (ROADMAP item 21).
+Two layouts, as in the JAX package:
+
+* residual per-row int8 leaves (tree-SQ, ``score_brute_force("int8")``
+  with more than one leaf): rows are stored as x = c_leaf + scale_row *
+  int8[d], tile-major per leaf (256-slot tiles), and a batch scores only
+  its selected leaves through the pruned path: tokenize -> plan
+  (pruned_scan.invert) -> score (K1, ops/pruned_sq.py) -> merge
+  (pruned_scan.merge_candidates, which adds the exact f32 q.c_leaf per
+  pair).  Plans over MAX_PLAN_WORK items and the full scan run the dense
+  masked scan over every slot instead.
+* dense leaf-sorted rows for everything else: float32 or bfloat16 leaves,
+  a single-leaf tree, and int8 leaves whose partition outgrew the pruned
+  tile budget (global per-dimension int8 multipliers, ops/quantize.py).
+  Every search is the dense masked scan: all rows scored chunk by chunk
+  for the batch, masked by each query's selected leaves.  Plain torch: no
+  Pallas kernel of the JAX package is involved.
+
+A ``reorder`` rescores the best candidates exactly (models/base.py); its
+residual int8 rows take the final primary tokens and the centers.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ from scann_torch import config as cfg
 from scann_torch.models import base
 from scann_torch.ops import pruned_scan
 from scann_torch.ops import pruned_sq
+from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
 from scann_torch.partitioning import kmeans_tree
 
@@ -35,7 +48,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 class TreeXSearcher(base.Searcher):
-    """Partitioned exact scoring (tree + score_brute_force(int8))."""
+    """Partitioned exact scoring (tree + score_brute_force)."""
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
                  device: torch.device):
@@ -44,6 +57,7 @@ class TreeXSearcher(base.Searcher):
         self.measure = cfg.internal_measure(scann_config.distance_measure)
         self.quantize_mode = scann_config.brute_force.quantize
         self._sq_mode = False
+        self._inv_mult = None
         self._build()
 
     def _build(self):
@@ -52,35 +66,74 @@ class TreeXSearcher(base.Searcher):
         self.partitioner = kmeans_tree.KMeansTreePartitioner.train(
             x_dev, self.part_cfg, self.measure, self.config.seed)
         tokens = self.partitioner.tokenize_database(x_dev).cpu().numpy()
-        if self.quantize_mode != cfg.INT8 or self.partitioner.num_leaves <= 1:
-            base.not_ported("Tree-X float32/bfloat16/global-int8 leaves", 21)
-        # Max-size bound per partition for the pruned scorer (MAX_NTILES
-        # tiles per leaf): split oversized partitions, retokenize against
-        # the grown center set, split again, then cap what is left.
-        nl = self.part_cfg.num_leaves
-        hard_cap = pruned_scan.MAX_NTILES * _SQ_TILE
-        cap = int(min(hard_cap, max(2.0 * n / max(nl, 1), _SQ_TILE)))
-        centers_np = self.partitioner.centers.cpu().numpy()
-        tokens, grown = kmeans_tree.split_oversized(x_dev, tokens,
-                                                    centers_np, cap)
-        if grown.shape[0] != centers_np.shape[0]:
-            centers_np = grown
-            self._register_centers(centers_np)
-            tokens = self.partitioner.tokenize_database(x_dev).cpu().numpy()
+        tree_sq = (self.quantize_mode == cfg.INT8
+                   and self.partitioner.num_leaves > 1)
+        if tree_sq:
+            # Max-size bound per partition for the pruned scorer
+            # (MAX_NTILES tiles per leaf): split oversized partitions,
+            # retokenize against the grown center set, split again, then
+            # cap what is left.
+            nl = self.part_cfg.num_leaves
+            hard_cap = pruned_scan.MAX_NTILES * _SQ_TILE
+            cap = int(min(hard_cap, max(2.0 * n / max(nl, 1), _SQ_TILE)))
+            centers_np = self.partitioner.centers.cpu().numpy()
             tokens, grown = kmeans_tree.split_oversized(x_dev, tokens,
                                                         centers_np, cap)
             if grown.shape[0] != centers_np.shape[0]:
                 centers_np = grown
                 self._register_centers(centers_np)
-        counts = np.bincount(tokens, minlength=centers_np.shape[0])
-        if counts.max() > hard_cap:
-            tokens = kmeans_tree.cap_partition_sizes(x_dev, tokens,
-                                                     centers_np, hard_cap)
+                tokens = self.partitioner.tokenize_database(
+                    x_dev).cpu().numpy()
+                tokens, grown = kmeans_tree.split_oversized(
+                    x_dev, tokens, centers_np, cap)
+                if grown.shape[0] != centers_np.shape[0]:
+                    centers_np = grown
+                    self._register_centers(centers_np)
+            counts = np.bincount(tokens, minlength=centers_np.shape[0])
+            if counts.max() > hard_cap:
+                tokens = kmeans_tree.cap_partition_sizes(
+                    x_dev, tokens, centers_np, hard_cap)
+        self._finish_deferred_reorder(x_dev, tokens)
         self.datapoint_to_token = tokens[:, None]
-        if not self._build_sq(x_dev, tokens):
-            base.not_ported("Tree-X leaves over the pruned tile budget "
-                             "(dense global-int8 layout)", 21)
+        if not (tree_sq and self._build_sq(x_dev, tokens)):
+            # Dense leaf-sorted rows; int8 leaves whose layout the pruned
+            # scorer declines take global int8 multipliers.
+            self._build_dense(x_dev, tokens)
         self._build_x_dev = None
+
+    def _build_dense(self, x_dev, tokens):
+        """Leaf-sorted rows for the dense masked scan, padded to a multiple
+        of its chunk (padding: dpid -1)."""
+        n = x_dev.shape[0]
+        order = np.argsort(tokens, kind="stable")
+        self._num_slots = n
+        chunk = _SCORE_CHUNK if n >= _SCORE_CHUNK else _round_up(n, 128)
+        self._chunk = chunk
+        s_pad = _round_up(n, chunk)
+        dev = self.device
+        rows = torch.zeros((s_pad, x_dev.shape[1]), dtype=torch.float32,
+                           device=dev)
+        rows[:n] = x_dev[torch.from_numpy(order).to(dev)]
+        leaf = np.zeros((s_pad,), np.int32)
+        leaf[:n] = tokens[order]
+        dpid = np.full((s_pad,), -1, np.int32)
+        dpid[:n] = order
+        self.slot_leaf = torch.from_numpy(leaf).to(dev)
+        self.slot_dpid = torch.from_numpy(dpid).to(dev)
+        self._inv_mult = None
+        self._sq_norms = None
+        if self.quantize_mode == cfg.INT8:
+            sq = quant_ops.scalar_quantize(rows)
+            self.slot_rows = sq.data
+            self._inv_mult = sq.inverse_multipliers
+            self._sq_norms = sq.sq_norms
+        elif self.quantize_mode == cfg.BFLOAT16:
+            self.slot_rows = quant_ops.bfloat16_quantize(rows)
+            self._sq_norms = (rows * rows).sum(-1)
+        else:
+            self.slot_rows = rows
+            if self.measure == cfg.SQUARED_L2:
+                self._sq_norms = (rows * rows).sum(-1)
 
     def _build_sq(self, x_dev, tokens) -> bool:
         """Tile-major residual per-row int8 leaves.  Returns False when a
@@ -129,6 +182,7 @@ class TreeXSearcher(base.Searcher):
         self.slot_scale = scale.reshape(total_tiles, _SQ_TILE, 1)
         self._bias2 = bias.reshape(total_tiles, _SQ_TILE, 1)
         self._sq_norms = sq if l2 else None
+        self._inv_mult = None
         self.slot_leaf = leaf_t
         self.slot_dpid = dpid_t
         self._p_tile_start = torch.from_numpy(tile_start).to(dev)
@@ -150,7 +204,7 @@ class TreeXSearcher(base.Searcher):
     def _select_candidates(self, queries, k_pre: int, leaves: int,
                            full_scan: bool = False, restrict=None):
         num_leaves = self.partitioner.num_leaves
-        if not full_scan and leaves < num_leaves:
+        if self._sq_mode and not full_scan and leaves < num_leaves:
             _, w_pad = pruned_scan.plan_capacities(
                 queries.shape[0], min(leaves, num_leaves), num_leaves,
                 self._p_num_tiles, self._p_max_ntiles)
@@ -160,9 +214,13 @@ class TreeXSearcher(base.Searcher):
                                   restrict)
 
     def _dense_select(self, queries, k_pre, leaves, full_scan, restrict):
-        """Masked scan over every slot (full scan, or plans over the work
-        budget): per slot sim = scale * (q_bf16 . int8) + q.c_leaf (dot),
-        or 2 q.x_hat - ||x_hat||^2 - ||q||^2 (squared L2)."""
+        """Masked scan over every slot (the dense layouts' every search; in
+        tree-SQ the full scan and plans over the work budget).  Per slot:
+        tree-SQ sim = scale * (q_bf16 . int8) + q.c_leaf (dot), or
+        2 q.x_hat - ||x_hat||^2 - ||q||^2 (squared L2); dense rows
+        sim = q' . x (dot), or -(||q||^2 - 2 q'.x + ||x||^2), with q' the
+        query times the int8 multipliers, or rounded to bf16, or as it is
+        for float32 rows."""
         nq = queries.shape[0]
         num_leaves = self.partitioner.num_leaves
         leaves = max(1, min(leaves, num_leaves))
@@ -176,15 +234,23 @@ class TreeXSearcher(base.Searcher):
                                      device=dev)
             mask_dense.scatter_(1, leaf_ids.long(), True)
         self._stage("tokenize")
-        d_pad = self.slot_rows.shape[-1]
-        rows = self.slot_rows.reshape(-1, d_pad)
-        scale_flat = self.slot_scale.reshape(-1)
+        rows = self.slot_rows.reshape(-1, self.slot_rows.shape[-1])
         leaf_all = self.slot_leaf.long()
         dpid_all = self.slot_dpid
-        q_bf = torch.nn.functional.pad(
-            queries, (0, d_pad - queries.shape[1])).to(torch.bfloat16).float()
-        q_c = queries @ self.partitioner.centers.T     # (nq, num_leaves)
         q_sq = (queries * queries).sum(-1)
+        sq_res = self._sq_mode
+        if sq_res:
+            scale_flat = self.slot_scale.reshape(-1)
+            q_op = torch.nn.functional.pad(
+                queries, (0, rows.shape[1] - queries.shape[1])).to(
+                    torch.bfloat16).float()
+            q_c = queries @ self.partitioner.centers.T   # (nq, num_leaves)
+        elif self._inv_mult is not None:
+            q_op = queries * self._inv_mult[None, :]
+        elif rows.dtype == torch.bfloat16:
+            q_op = queries.to(torch.bfloat16).float()
+        else:
+            q_op = queries
         chunk = self._chunk
         k_fetch = min(k_pre, dpid_all.shape[0])
         out_v, out_s = [], []
@@ -195,13 +261,17 @@ class TreeXSearcher(base.Searcher):
                 cs = slice(start, start + chunk)
                 leaf_c = leaf_all[cs]
                 dpid_c = dpid_all[cs]
-                dots = q_bf[qb] @ rows[cs].float().T
-                qx = dots * scale_flat[cs][None, :] + q_c[qb][:, leaf_c]
-                if self.measure == cfg.DOT_PRODUCT:
-                    sim = qx
-                else:
-                    sim = (2.0 * qx - self._sq_norms[cs][None, :]
+                dots = q_op[qb] @ rows[cs].float().T
+                if sq_res:
+                    qx = dots * scale_flat[cs][None, :] + q_c[qb][:, leaf_c]
+                    sim = (qx if self.measure == cfg.DOT_PRODUCT else
+                           2.0 * qx - self._sq_norms[cs][None, :]
                            - q_sq[qb][:, None])
+                elif self.measure == cfg.DOT_PRODUCT:
+                    sim = dots
+                else:
+                    sim = -(q_sq[qb][:, None] - 2.0 * dots
+                            + self._sq_norms[cs][None, :])
                 valid = (dpid_c >= 0)[None, :] & mask_dense[qb][:, leaf_c]
                 if restrict is not None:
                     allow = restrict[torch.clamp(

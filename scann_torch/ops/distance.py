@@ -19,28 +19,44 @@ def dot_products(queries, database):
     return queries.float() @ database.float().T
 
 
-def squared_l2(queries, database):
+def squared_l2(queries, database, db_sq_norms=None, query_sq_norms=None):
     """(q, d) x (n, d) -> (q, n) squared L2 distances via the
-    ||q||^2 - 2 q.x + ||x||^2 expansion, clamped at 0."""
-    db_sq_norms = (database.float() ** 2).sum(-1)
-    query_sq_norms = (queries.float() ** 2).sum(-1)
+    ||q||^2 - 2 q.x + ||x||^2 expansion, clamped at 0.  ``db_sq_norms``
+    may be stored ones (int8 rows keep the norms of their dequantized
+    values); with an int8 database whose multipliers are folded into the
+    query, pass ``query_sq_norms`` of the original queries."""
+    if db_sq_norms is None:
+        db_sq_norms = (database.float() ** 2).sum(-1)
+    if query_sq_norms is None:
+        query_sq_norms = (queries.float() ** 2).sum(-1)
     dots = dot_products(queries, database)
     d = query_sq_norms[:, None] - 2.0 * dots + db_sq_norms[None, :]
     return torch.clamp_min(d, 0.0)
 
 
-def similarity(queries, database, measure):
-    """Similarity scores, higher == closer, for dot product or squared L2."""
+def l1_distance(queries, database):
+    """(q, d) x (n, d) -> (q, n) Manhattan distances: elementwise, no
+    product decomposition, so callers chunk the database axis by d."""
+    return (queries.float()[:, None, :]
+            - database.float()[None, :, :]).abs().sum(-1)
+
+
+def similarity(queries, database, measure, db_sq_norms=None,
+               query_sq_norms=None):
+    """Similarity scores, higher == closer, for dot product, squared L2 or
+    L1."""
     if measure == cfg.DOT_PRODUCT:
         return dot_products(queries, database)
     if measure == cfg.SQUARED_L2:
-        return -squared_l2(queries, database)
+        return -squared_l2(queries, database, db_sq_norms, query_sq_norms)
+    if measure == cfg.L1:
+        return -l1_distance(queries, database)
     raise ValueError(f"unsupported distance measure: {measure}")
 
 
 def similarity_to_user_distance(sim, measure):
     """Internal similarity -> user distance: dot_product returns dot
-    products, squared_l2 squared distances, cosine 1 - cos."""
+    products, squared_l2 and l1 distances, cosine 1 - cos."""
     if measure == cfg.DOT_PRODUCT:
         return sim
     if measure == cfg.COSINE:

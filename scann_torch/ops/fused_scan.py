@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
+from scann_torch.ops.pruned_scan import _check
 
 # Kernel launches made by fused_scan_groupmax (CPU calls never count).
 launches = 0
@@ -91,44 +91,32 @@ def fused_scan_groupmax_torch(queries, rows, bias, *, measure_l2=False):
     return vals, idx
 
 
-_STAGES = 4   # ring of 256-slot x 64-dimension bf16 row chunks
+_STAGES = 4   # ring of stages: 256-slot row + 128-query chunks of 64 dims
 
 
-def smem_bytes(d: int) -> int:
-    """Shared memory of one K5 block: the bf16 query tile (all dimensions),
-    the ring of row chunks, and 1 KB to align the swizzled tiles
+def smem_bytes() -> int:
+    """Shared memory of one K5 block, the same at every width: the ring of
+    bf16 row and query chunks, and 1 KB to align the swizzled tiles
     (csrc/fused_scan.cu)."""
-    return QT * d * 2 + _STAGES * SUB * 64 * 2 + 1024
-
-
-def serves_width(d: int) -> bool:
-    """True when the kernel's query tile of d dimensions fits a block."""
-    return smem_bytes(d) <= _SMEM_LIMIT
-
-
-def max_width() -> int:
-    """The widest d (a multiple of 128) the kernel serves: 384."""
-    d = 128
-    while serves_width(d + 128):
-        d += 128
-    return d
+    return _STAGES * (SUB + QT) * 64 * 2 + 1024
 
 
 def fused_scan_groupmax(queries, rows, bias, *, measure_l2=False):
     """queries (Q, D) bf16, rows (S, D) bf16, bias (S,) f32, with S a
-    multiple of BS and D of 128 (callers pad: pad_for_kernel).  Returns
+    multiple of BS and D of 64, the kernel's chunk (callers pad:
+    pad_for_kernel, to 128 as the JAX package does).  Returns
     (vals (Q, S // SUB) f32, idx int32 global slot ids): the best slot of
     every SUB-slot group, unsorted.  Q is free: the batch is padded to the
     kernel's query tile and the padding dropped.  CPU tensors run the
-    plain version; CUDA tensors launch the CUDA kernel (or raise: there is
-    no fallback on the GPU)."""
+    plain version; CUDA tensors launch the CUDA kernel at any D (or raise:
+    there is no fallback on the GPU)."""
     q, d = queries.shape
     s, d2 = rows.shape
-    if d != d2 or s % BS or d % 128 or bias.shape != (s,):
+    if d != d2 or s % BS or d % 64 or bias.shape != (s,):
         raise ValueError(f"unsupported shapes: queries {tuple(queries.shape)}"
                          f", rows {tuple(rows.shape)}, bias "
                          f"{tuple(bias.shape)} (rows need a multiple of {BS} "
-                         f"slots and of 128 dimensions)")
+                         f"slots and of 64 dimensions)")
     if rows.device.type == "cpu":
         return fused_scan_groupmax_torch(queries, rows, bias,
                                          measure_l2=measure_l2)
@@ -137,10 +125,6 @@ def fused_scan_groupmax(queries, rows, bias, *, measure_l2=False):
     global launches
     from scann_torch import _cuda
     dev = rows.device
-    if smem_bytes(d) > _SMEM_LIMIT:
-        raise ValueError(f"{d} dimensions need {smem_bytes(d)} B of shared "
-                         f"memory for the query tile, over the "
-                         f"{_SMEM_LIMIT} B a block may use")
     _check("queries", queries, torch.bfloat16, (q, d), dev)
     _check("rows", rows, torch.bfloat16, (s, d), dev)
     _check("bias", bias, torch.float32, (s,), dev)

@@ -3,11 +3,13 @@
 Port of scann_tpu/ops/pruned_lut.py.  Only the codes live in device
 memory, tile-major per leaf (512-slot tiles); two scorers read them:
 
-* ``score_work_lut`` (K3, int8 lookup with 16 centers per block): per
-  query group the LUT ``centered codebook . q`` (``2 q.c - ||c||^2`` under
-  squared L2) is quantized per query to int8 (multiplier 127 / max|entry|),
-  and each slot's score is the int32 sum of its blocks' LUT entries,
+* ``score_work_lut`` (K3, int8 lookup with 16 centers per block): the LUT
+  ``centered codebook . q`` (``2 q.c - ||c||^2`` under squared L2) of each
+  query is quantized per query to int8 (multiplier 127 / max|entry|), and
+  each slot's score is the int32 sum of its blocks' LUT entries,
   dequantized, plus the slot's bias.  Codes are pair-packed 4 bits each.
+  On the card the LUTs are built once per query by a pre-pass kernel; the
+  plain version builds them per query group row, with the same bits.
 * ``score_work_codes`` (K4, float lookup, and 256 centers per block): each
   tile is decoded through the bf16 codebook (minus the mean), rounded to
   bf16 and multiplied with the bf16 query group in f32; under squared L2
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops.pruned_scan import _SMEM_LIMIT, _check
+from scann_torch.ops.pruned_scan import _check
 
 # Kernel launches made by score_work_lut / score_work_codes (CPU calls
 # never count).
@@ -227,46 +229,29 @@ def _common_checks(plan, qg_rows, codes, bias, kpg, d_pad, dev):
         raise ValueError(f"kpg must be in [1, {ps.SUBP}], got {kpg}")
     _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
     _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)
-    _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, ps.QG, d_pad), dev)
+    if qg_rows is not None:
+        _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, ps.QG, d_pad),
+               dev)
     _check("bias", bias, torch.float32,
            (num_tiles, tile) + (1,) * (bias.dim() - 2), dev)
     return g_pad, w_pad, w_pad // g_pad
 
 
-_LUT_QUERIES = ps.QG // 2   # queries per K3 block (two blocks a group)
-_LUT_PAD = 16               # bytes added to each query's LUT row
-_LUT_PARTS = 4              # LUT-build threads per query
-
-
-def lut_smem_bytes(b_pad: int, kpg: int = ps.KPG) -> int:
-    """Shared memory of one K3 block: the int8 LUT of its 64 queries (a row
-    of b_pad*16 entries plus 16 bytes each), the per-query planes, one
-    tile's bias and packed codes, and the survivors of 8 groups
-    (csrc/pruned_lut.cu)."""
-    return _LUT_QUERIES * (b_pad * _LUT_CENTERS + _LUT_PAD) \
-        + (_LUT_QUERIES * (1 + _LUT_PARTS) + ps.TILE) * 4 \
-        + ps.TILE * (b_pad // 2) + _LUT_QUERIES * (kpg * 8 + 4) * 4
-
-
-def lut_max_b_pad(kpg: int) -> int:
-    """The widest b_pad (a multiple of 8) whose K3 block fits the shared
-    memory of one H100 block at kpg survivors a group: 160 at kpg <= 8,
-    144 at 16."""
-    b_pad = _BLK
-    while lut_smem_bytes(b_pad + _BLK, kpg) <= _SMEM_LIMIT:
-        b_pad += _BLK
-    return b_pad
-
-
-def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
+def score_work_lut(plan, q_rows, codes3p, cb_k, csq, bias, *,
                    measure_l2: bool, kpg: int = ps.KPG):
-    """K3 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU).  cb_k and
-    csq are the index's lut_tables() (centering the codebook is done once
-    per index; the JAX package does it per call, outside its kernel); the
-    LUT product itself runs inside the kernel."""
+    """K3 scorer.  q_rows: (nq, d_pad) bf16, the batch's queries (the
+    plan's qg_query maps each group row to one of them); the rest as for
+    score_work_torch_lut.  CPU tensors run the plain version on the
+    gathered query groups; CUDA tensors launch the CUDA kernels (or raise:
+    there is no fallback on the GPU): a pre-pass that builds each query's
+    int8 LUT once into device memory, then the scorer, which streams the
+    LUT and the codes through shared memory in chunks, so it serves every
+    b_pad.  cb_k and csq are the index's lut_tables() (centering the
+    codebook is done once per index; the JAX package does it per call,
+    outside its kernel)."""
     if codes3p.device.type == "cpu":
-        return score_work_torch_lut(plan, qg_rows, codes3p, cb_k, csq, bias,
+        return score_work_torch_lut(plan, q_rows[plan.qg_query.long()],
+                                    codes3p, cb_k, csq, bias,
                                     measure_l2=measure_l2, kpg=kpg)
     if codes3p.device.type != "cuda":
         raise ValueError(f"unsupported device {codes3p.device}")
@@ -277,33 +262,40 @@ def score_work_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
     b_pad = b2 * 2
     if b_pad % _BLK:
         raise ValueError(f"b_pad {b_pad} must be a multiple of {_BLK}")
-    if lut_smem_bytes(b_pad, kpg) > _SMEM_LIMIT:
-        raise ValueError(
-            f"{b_pad} code blocks with {kpg} survivors a group need "
-            f"{lut_smem_bytes(b_pad, kpg)} B of shared memory for the int8 "
-            f"LUT, over the {_SMEM_LIMIT} B a block may use")
     dims_per_block = cb_k.shape[1]
     d_pad = b_pad * dims_per_block
-    g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3p, bias, kpg,
+    nq = q_rows.shape[0]
+    g_pad, w_pad, mnt = _common_checks(plan, None, codes3p, bias, kpg,
                                        d_pad, dev)
+    _check("q_rows", q_rows, torch.bfloat16, (nq, d_pad), dev)
+    _check("qg_query", plan.qg_query, torch.int32, (g_pad, ps.QG), dev)
     _check("codes3p", codes3p, torch.uint8, (num_tiles, tile, b2), dev)
     _check("cb_k", cb_k, torch.float32,
            (b_pad * _LUT_CENTERS, dims_per_block), dev)
     _check("csq", csq, torch.float32, (b_pad * _LUT_CENTERS,), dev)
+    if nq == 0:
+        raise ValueError("q_rows holds no query")
     if cb_k.data_ptr() % 16 or csq.data_ptr() % 16:
         raise ValueError("cb_k and csq must start on a 16-byte boundary "
                          "(the kernel reads them 16 bytes at a time)")
+    lut = torch.empty((nq, b_pad * _LUT_CENTERS), dtype=torch.int8,
+                      device=dev)
+    inv = torch.empty((nq,), dtype=torch.float32, device=dev)
     out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     lib = _cuda.library("pruned_lut")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pruned_lut_score(
-            plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
-            qg_rows.data_ptr(), codes3p.data_ptr(), cb_k.data_ptr(),
-            csq.data_ptr(), bias.data_ptr(), out.data_ptr(), g_pad, mnt, kpg,
-            b_pad, dims_per_block, d_pad,
-            ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
+        err = lib.pruned_lut_build(
+            q_rows.data_ptr(), cb_k.data_ptr(), csq.data_ptr(),
+            lut.data_ptr(), inv.data_ptr(), nq, b_pad, dims_per_block,
+            d_pad, ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
+        if err == 0:
+            err = lib.pruned_lut_score(
+                plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
+                plan.qg_query.data_ptr(), lut.data_ptr(), inv.data_ptr(),
+                codes3p.data_ptr(), bias.data_ptr(), out.data_ptr(), g_pad,
+                mnt, kpg, b_pad, stream)
     if err != 0:
         raise RuntimeError(f"pruned_lut kernel launch failed: "
                            f"{_cuda.error_string(lib, err)} ({err})")

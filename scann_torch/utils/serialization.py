@@ -2,15 +2,16 @@
 
 Port of scann_tpu/utils/serialization.py for the searchers the port
 serves: TreeAHSearcher (product codes with int8 / float32 / reconstruct
-lookup, with or without a tree, with float32, bfloat16 or residual-int8
-reordering), TreeXSearcher in
-residual-int8 mode and the float32 BruteForceSearcher.  Keys, dtypes and
-the config/meta blob are the JAX package's, so each package loads the
+lookup, with or without a tree), TreeXSearcher (residual-int8 tree-SQ, or
+float32 / bfloat16 / global-int8 dense leaves) and BruteForceSearcher
+(float32, int8 or bfloat16 rows), each with or without float32, bfloat16,
+residual-int8 or per-dimension int8 reordering.  Keys, dtypes and the
+config/meta blob are the JAX package's, so each package loads the
 other's index: the port searches an index built by scann_tpu (the search
 parity tests), and scann_tpu loads an index built by the port.  Loading
 turns the numpy arrays into tensors on the requested device; index dtypes
 stay those of the files (int32 tables, int8 rows, f32 planes and centers;
-bfloat16 reorder rows travel as their uint16 bit patterns).
+bfloat16 rows travel as their uint16 bit patterns).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def collect_assets(searcher):
     rh = getattr(searcher, "reorder_helper", None)
     if rh is not None:
         put("reorder_db", rh._db)
+        put("reorder_inv_mult", rh._inv_mult)
         put("reorder_sq_norms", rh._sq_norms)
         if rh._leaf is not None:
             # Residual int8 reordering: the primary-leaf table and per-row
@@ -65,6 +67,8 @@ def collect_assets(searcher):
     tname = meta["type"]
     if tname == "BruteForceSearcher":
         put("bf_db", searcher._db)
+        put("bf_inv_mult", searcher._inv_mult)
+        put("bf_sq_norms", searcher._sq_norms)
         put("bf_valid", searcher._valid)
     elif tname == "TreeAHSearcher":
         from scann_torch.utils import native
@@ -94,18 +98,21 @@ def collect_assets(searcher):
         put("slot_rows", searcher.slot_rows)
         put("slot_leaf", searcher.slot_leaf)
         put("slot_dpid", searcher.slot_dpid)
+        put("tx_inv_mult", searcher._inv_mult)
         put("tx_sq_norms", searcher._sq_norms)
         put("datapoint_to_token",
             np.asarray(searcher.datapoint_to_token, np.int32))
         meta["num_slots"] = searcher._num_slots
         meta["chunk"] = searcher._chunk
-        meta["tx_mode"] = "residual_int8"
-        meta["max_ntiles"] = searcher._p_max_ntiles
-        meta["num_tiles"] = searcher._p_num_tiles
-        put("tx_scale", searcher.slot_scale)
-        put("tx_bias2", searcher._bias2)
-        put("tx_tile_start", searcher._p_tile_start)
-        put("tx_ntiles", searcher._p_ntiles)
+        if searcher._sq_mode:
+            # Residual int8 tile-major leaves (the pruned path).
+            meta["tx_mode"] = "residual_int8"
+            meta["max_ntiles"] = searcher._p_max_ntiles
+            meta["num_tiles"] = searcher._p_num_tiles
+            put("tx_scale", searcher.slot_scale)
+            put("tx_bias2", searcher._bias2)
+            put("tx_tile_start", searcher._p_tile_start)
+            put("tx_ntiles", searcher._p_ntiles)
         put("centers", searcher.partitioner.centers)
     else:
         raise ValueError(f"cannot serialize searcher type {tname}")
@@ -139,7 +146,7 @@ def load_searcher(artifacts_dir: str, device):
         arrays = {k: raw[k] for k in raw.files}
     for key, item in (("mut_vectors", 15), ("proj_matrix", 16),
                       ("centers_int8", 14), ("upper_centers", 14),
-                      ("block_dims", 16), ("reorder_inv_mult", 12)):
+                      ("block_dims", 16)):
         if key in arrays:
             base.not_ported(f"index asset {key}", item)
     if meta.get("query_spilling_type", "fixed_number") != "fixed_number":
@@ -166,8 +173,10 @@ def load_searcher(artifacts_dir: str, device):
         from scann_torch.models import brute_force
         s = object.__new__(brute_force.BruteForceSearcher)
         _init_base(s, scann_config, meta, dev, tensor)
-        s.quantize_mode = cfg.FLOAT32
+        s.quantize_mode = scann_config.brute_force.quantize
         s._db = tensor("bf_db")
+        s._inv_mult = tensor("bf_inv_mult")
+        s._sq_norms = tensor("bf_sq_norms")
         s._valid = tensor("bf_valid")
         if s._valid is None:
             s._valid = torch.ones((s._db.shape[0],), dtype=torch.bool,
@@ -208,30 +217,31 @@ def load_searcher(artifacts_dir: str, device):
         return s
     if tname == "TreeXSearcher":
         from scann_torch.models import tree_x
-        if meta.get("tx_mode") != "residual_int8":
-            base.not_ported("Tree-X float32/bfloat16/global-int8 leaves",
-                             21)
         s = object.__new__(tree_x.TreeXSearcher)
         _init_base(s, scann_config, meta, dev, tensor)
         s.part_cfg = scann_config.partitioning
         s.measure = cfg.internal_measure(scann_config.distance_measure)
         s.quantize_mode = scann_config.brute_force.quantize
         s.slot_rows = tensor("slot_rows")
-        tile = s.slot_rows.shape[1]
         s.slot_leaf = tensor("slot_leaf")
         s.slot_dpid = tensor("slot_dpid")
+        s._inv_mult = tensor("tx_inv_mult")
         s._sq_norms = tensor("tx_sq_norms")
         s._num_slots = meta["num_slots"]
         s._chunk = meta["chunk"]
-        s._sq_mode = True
-        s.slot_scale = tensor("tx_scale").reshape(-1, tile, 1)
-        s._bias2 = tensor("tx_bias2").reshape(-1, tile, 1)
-        s._p_tile_start = tensor("tx_tile_start")
-        s._p_ntiles = tensor("tx_ntiles")
-        s._p_max_ntiles = meta["max_ntiles"]
-        s._p_num_tiles = meta["num_tiles"]
+        s._sq_mode = meta.get("tx_mode") == "residual_int8"
+        if s._sq_mode:
+            tile = s.slot_rows.shape[1]
+            s.slot_scale = tensor("tx_scale").reshape(-1, tile, 1)
+            s._bias2 = tensor("tx_bias2").reshape(-1, tile, 1)
+            s._p_tile_start = tensor("tx_tile_start")
+            s._p_ntiles = tensor("tx_ntiles")
+            s._p_max_ntiles = meta["max_ntiles"]
+            s._p_num_tiles = meta["num_tiles"]
         s.datapoint_to_token = arrays["datapoint_to_token"]
         s.partitioner = partitioner()
+        if s.reorder_helper is not None and s.reorder_helper._leaf is not None:
+            s.reorder_helper._centers = s.partitioner.centers
         return s
     raise ValueError(f"unknown searcher type in artifacts: {tname}")
 
@@ -250,6 +260,7 @@ def _init_base(s, scann_config, meta, dev, tensor):
         rh.measure = cfg.internal_measure(scann_config.distance_measure)
         rh.config = scann_config.reordering
         rh._db = tensor("reorder_db")
+        rh._inv_mult = tensor("reorder_inv_mult")
         rh._sq_norms = tensor("reorder_sq_norms")
         rh._leaf = tensor("reorder_leaf")
         rh._row_scale = tensor("reorder_row_scale")

@@ -208,7 +208,21 @@ def test_reorder_helper_rescore(measure, quantize):
     # rounding scales with the terms, not with a near-zero distance.
     np.testing.assert_allclose(got[live], want[live], rtol=1e-5, atol=1e-5)
     if residual:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            tbase.ReorderHelper(
-                torch.from_numpy(x), measure,
-                tcfg.ReorderConfig(quantize="int8", residual=False))
+        # Non-residual int8 rows (per-dimension multipliers, as without a
+        # tree), now served: equal rows and multipliers, the same scores.
+        raw = jcfg.ReorderConfig(reordering_num_neighbors=40,
+                                 quantize="int8", residual=False)
+        jh = jbase.ReorderHelper(jnp.asarray(x), measure, raw)
+        th = tbase.ReorderHelper(
+            torch.from_numpy(x), measure,
+            tcfg.ReorderConfig(reordering_num_neighbors=40,
+                               quantize="int8", residual=False))
+        np.testing.assert_array_equal(th._db.numpy(), np.asarray(jh._db))
+        np.testing.assert_allclose(th._inv_mult.numpy(),
+                                   np.asarray(jh._inv_mult), rtol=1e-6)
+        want = np.asarray(jh.rescore(jnp.asarray(q), jnp.asarray(cand),
+                                     jh.state()))
+        got = th.rescore(torch.from_numpy(q),
+                         torch.from_numpy(cand)).numpy()
+        np.testing.assert_allclose(got[live], want[live], rtol=1e-5,
+                                   atol=1e-5)

@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA card (marker ``cuda``): the K1-K6
 CUDA kernels against their plain torch versions, the CUDA search paths
-(tree-SQ, tree-AH in every lookup mode, the fused merge) against the CPU
+(tree-SQ, tree-AH in every lookup mode, the fused merge, and every
+score_brute_force composition: brute force, Tree-X dense leaves, tree-SQ +
+reorder) against the CPU
 plain path on the same index, and the wrappers' refusal of bad inputs.
 They skip without a card.  On a machine with one (no JAX needed; the
 repository's conftest imports JAX, hence --noconftest):
@@ -144,7 +146,8 @@ def _ah_case(dev, seed, cpb, dpb, l2, b=50, nl=40, nq=300, l=6,
              max_tiles=3):
     """A tree-AH scoring problem, by default at the bench's block count (50
     blocks, b_pad 56), in the port's layout (d_pad = b_pad * dpb), with
-    leaves of 1 to ``max_tiles`` tiles."""
+    leaves of 1 to ``max_tiles`` tiles; the queries come ungathered (K3
+    takes them so, K4 takes q[plan.qg_query])."""
     r = np.random.default_rng(seed)
     b_pad = -(-b // 8) * 8
     d_pad = b_pad * dpb
@@ -169,8 +172,8 @@ def _ah_case(dev, seed, cpb, dpb, l2, b=50, nl=40, nq=300, l=6,
         mean[:b * dpb] = 0.1 * r.standard_normal(b * dpb)
     q = np.zeros((nq, d_pad), np.float32)
     q[:, :b * dpb] = r.standard_normal((nq, b * dpb))
-    qg = t(q).to(torch.bfloat16)[plan.qg_query.long()]
-    return plan, qg, codes, pad_slot, t(cb), t(mean), t(bias), num_tiles
+    return (plan, t(q).to(torch.bfloat16), codes, pad_slot, t(cb), t(mean),
+            t(bias), num_tiles)
 
 
 def _active_pair(plan, got, want, kpg):
@@ -181,21 +184,24 @@ def _active_pair(plan, got, want, kpg):
     return got.reshape(act.shape)[act], want.reshape(act.shape)[act]
 
 
-@pytest.mark.parametrize("measure_l2,kpg,b,max_tiles,dpb", [
-    (False, 8, 50, 3, 2), (True, 8, 50, 3, 2), (False, 16, 50, 3, 2),
-    (True, 16, 50, 3, 2),
-    # The widest LUTs the kernel admits at 8 and 16 survivors a group
-    # (b_pad 160 and 144, one block per SM).
-    (True, 8, 160, 3, 2), (False, 16, 144, 3, 2),
+# b_pad 56 (the bench), and 168, 256 and 480 (GIST-960 at 2 dimensions a
+# block): widths whose LUT the kernel's shared memory once refused (above
+# 160 at 8 survivors a group, 144 at 16); at 168 and up the LUT streams
+# through the ring in chunks of 32 blocks, copied again for every tile.
+_K3_WIDTHS = [(l2, kpg, b, 3, 2) for b in (50, 168, 256, 480)
+              for kpg in (8, 16) for l2 in (False, True)]
+
+
+@pytest.mark.parametrize("measure_l2,kpg,b,max_tiles,dpb", _K3_WIDTHS + [
     # Every leaf one tile (one item a group), and leaves of up to 5 tiles
-    # (groups with inactive items).
-    (False, 16, 50, 1, 2), (True, 8, 50, 5, 2),
+    # (groups with inactive items), at a resident and a streamed width.
+    (False, 16, 50, 1, 2), (True, 8, 50, 5, 2), (True, 8, 200, 5, 2),
     # One dimension per block: the LUT build's general path (an entry is
     # one exact product, so bit-equality holds whatever the order).
-    (True, 8, 50, 3, 1)])
+    (True, 8, 50, 3, 1), (False, 16, 100, 3, 1)])
 def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg, b,
                                               max_tiles, dpb):
-    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(
+    plan, q, codes, pad, cb, mean, bias, nt = _ah_case(
         cuda, 20 + kpg + measure_l2 + b + max_tiles, 16, dpb, measure_l2,
         b=b, max_tiles=max_tiles)
     if max_tiles > 1:
@@ -204,12 +210,13 @@ def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg, b,
         np.where(pad[:, None], 0, codes).astype(np.uint8), nt), device=cuda)
     cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3p.shape[-1] * 2,
                                       measure_l2=measure_l2)
-    args = (plan, qg, codes3p, cb_k, csq, bias)
     before = pruned_lut.launches_lut
-    got = pruned_lut.score_work_lut(*args, measure_l2=measure_l2, kpg=kpg)
+    got = pruned_lut.score_work_lut(plan, q, codes3p, cb_k, csq, bias,
+                                    measure_l2=measure_l2, kpg=kpg)
     assert pruned_lut.launches_lut == before + 1
-    want = pruned_lut.score_work_torch_lut(*args, measure_l2=measure_l2,
-                                           kpg=kpg)
+    want = pruned_lut.score_work_torch_lut(
+        plan, q[plan.qg_query.long()], codes3p, cb_k, csq, bias,
+        measure_l2=measure_l2, kpg=kpg)
     torch.cuda.synchronize()
     a, b = _active_pair(plan, got, want, kpg)
     assert a.numel() and torch.equal(a, b)
@@ -219,12 +226,12 @@ def test_k3_kernel_bit_equal_to_plain_version(cuda, measure_l2, kpg, b,
 @pytest.mark.parametrize("cpb,dpb,b,kpg", [(16, 2, 50, 8), (16, 2, 50, 16),
                                             (256, 4, 25, 8)])
 def test_k4_kernel_matches_plain_version(cuda, measure_l2, cpb, dpb, b, kpg):
-    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(
+    plan, q, codes, pad, cb, mean, bias, nt = _ah_case(
         cuda, 40 + cpb + kpg + measure_l2, cpb, dpb, measure_l2, b=b)
     codes3 = torch.as_tensor(pruned_lut.pack_codes_tiles(
         np.where(pad[:, None], 255, codes).astype(np.uint8), nt),
         device=cuda)
-    args = (plan, qg, codes3,
+    args = (plan, q[plan.qg_query.long()], codes3,
             pruned_lut.codes_table(cb, codes3.shape[-1]), mean, bias)
     before = pruned_lut.launches_codes
     got = pruned_lut.score_work_codes(*args, measure_l2=measure_l2, kpg=kpg)
@@ -275,21 +282,25 @@ def test_k4_kernel_matches_plain_version_at_every_width(cuda, d, cpb, dpb,
 
 
 def test_k3_k4_wrappers_reject_bad_inputs(cuda):
-    plan, qg, codes, pad, cb, mean, bias, nt = _ah_case(cuda, 7, 16, 2,
-                                                        False)
+    plan, q, codes, pad, cb, mean, bias, nt = _ah_case(cuda, 7, 16, 2,
+                                                       False)
     codes3 = torch.as_tensor(pruned_lut.pack_codes_tiles(codes, nt),
                              device=cuda)
     with pytest.raises(ValueError, match="qg_rows"):
         pruned_lut.score_work_codes(
-            plan, qg.float(), codes3,
+            plan, q[plan.qg_query.long()].float(), codes3,
             pruned_lut.codes_table(cb, codes3.shape[-1]), mean, bias,
             measure_l2=False)
-    # 168 code blocks: the first b_pad over the shared memory at kpg 8.
-    wide = torch.zeros((1, 512, 168 // 2), dtype=torch.uint8, device=cuda)
+    codes3p = torch.as_tensor(pruned_lut.pack_codes_nibble(codes, nt),
+                              device=cuda)
     cb_k, csq = pruned_lut.lut_tables(cb, mean, codes3.shape[-1],
                                       measure_l2=False)
-    with pytest.raises(ValueError, match="shared memory"):
-        pruned_lut.score_work_lut(plan, qg, wide, cb_k, csq, bias,
+    # K3 takes the batch's queries, not the gathered groups.
+    with pytest.raises(ValueError, match="q_rows"):
+        pruned_lut.score_work_lut(plan, q[plan.qg_query.long()], codes3p,
+                                  cb_k, csq, bias, measure_l2=False)
+    with pytest.raises(ValueError, match="q_rows"):
+        pruned_lut.score_work_lut(plan, q.float(), codes3p, cb_k, csq, bias,
                                   measure_l2=False)
 
 
@@ -623,18 +634,17 @@ def test_cuda_float32_lookup_search_over_144_dims_goes_through_k4(
     np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
 
 
-def test_cuda_width_guards_refuse_before_training(cuda, tmp_path):
-    """On the card, widths K3 and K5 do not serve raise NotImplementedError
-    naming item 13 from the constructor, before any training: int8 lookup
-    over 200 code blocks (K3 serves 160), and a reconstruct searcher
-    without a tree over 400 dimensions (every search a K5 scan; K5 serves
-    384).  A reconstruct index with a tree at that width serves its pruned
-    search through K2, as the CPU plain path does; only its full scan
-    refuses."""
+def test_cuda_wide_indexes_search_through_k3_and_k5(cuda, tmp_path):
+    """The indexes the card once refused at 400 dimensions (int8 lookup
+    over 200 code blocks, over K3's old 160; a reconstruct searcher
+    without a tree, every search a K5 scan, over K5's old 384) build and
+    search on the card through K3 and K5, and agree with the CPU plain
+    path on the same index.  The tree reconstruct index also takes K2 on
+    its pruned search and K5 on its full scan."""
     import dataclasses
-    import time
     r = np.random.default_rng(4)
     db = r.standard_normal((30000, 400)).astype(np.float32)
+    q = r.standard_normal((200, 400)).astype(np.float32)
 
     def config(lookup, tree):
         b = scann_torch.builder(db, 10, "dot_product")
@@ -646,23 +656,33 @@ def test_cuda_width_guards_refuse_before_training(cuda, tmp_path):
         return dataclasses.replace(c, asymmetric_hash=dataclasses.replace(
             c.asymmetric_hash, lookup_type=lookup))
 
-    for lookup, tree in (("int8", True), ("reconstruct", False)):
-        t0 = time.perf_counter()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            scann_torch.create_searcher(db, config(lookup, tree), "cuda")
-        assert time.perf_counter() - t0 < 5.0
-    s = scann_torch.create_searcher(db, config("reconstruct", True), "cuda")
-    q = r.standard_normal((64, 400)).astype(np.float32)
-    before = ps.launches
-    idx, _ = s.search_batched(q, leaves_to_search=4)
-    assert ps.launches == before + 1
-    s.serialize(str(tmp_path))
-    cpu_idx, _ = scann_torch.load_searcher(
-        str(tmp_path), device="cpu").search_batched(q, leaves_to_search=4)
-    assert (idx >= 0).mean() > 0.5
-    assert (idx[:, :, None] == cpu_idx[:, None, :]).any(-1).mean() >= 0.99
-    with pytest.raises(NotImplementedError, match="item 13"):
-        s.search_batched(q, leaves_to_search=32)
+    def counts():
+        return (pruned_lut.launches_lut, fused_scan.launches, ps.launches)
+
+    for i, (lookup, tree, leaves, grew) in enumerate((
+            ("int8", True, 4, (1, 0, 0)),
+            ("reconstruct", False, None, (0, 1, 0)),
+            ("reconstruct", True, 4, (0, 0, 1)),
+            ("reconstruct", True, "all", (0, 1, 0)))):
+        if i < 3:
+            s = scann_torch.create_searcher(db, config(lookup, tree),
+                                            "cuda")
+            s.serialize(str(tmp_path / str(i)))
+            cpu = scann_torch.load_searcher(str(tmp_path / str(i)),
+                                            device="cpu")
+        kw = {} if leaves is None else dict(leaves_to_search=(
+            s.partitioner.num_leaves if leaves == "all" else leaves))
+        before = counts()
+        gi, gd = s.search_batched(q, **kw)
+        assert tuple(a - b for a, b in zip(counts(), before)) == grew
+        ci, cd = cpu.search_batched(q, **kw)
+        # Random 400-dimension rows make uneven leaves: 4 of them may hold
+        # fewer than 10 rows for some queries (the CPU path alike).
+        assert (gi >= 0).mean() > 0.5
+        assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.99
+        same = gi == ci
+        np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("measure_l2,nq,s,d,dups", [
@@ -675,7 +695,12 @@ def test_cuda_width_guards_refuse_before_training(cuda, tmp_path):
     # Every group made of 16 distinct rows repeated at random places, so
     # nearly every group maximum is an exact tie: the first slot must win,
     # dot and L2 (with padded slots).
-    (False, 300, 4096, 128, True), (True, 200, 6144, 128, True)])
+    (False, 300, 4096, 128, True), (True, 200, 6144, 128, True),
+    # Widths the kernel's shared memory once refused (above 384): the
+    # query tile streams through the ring beside the rows.  960 is
+    # GIST-960's width.
+    (True, 300, 4096, 448, False), (False, 257, 4096, 768, False),
+    (True, 200, 4096, 960, False), (False, 300, 4096, 960, True)])
 def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d, dups):
     r = np.random.default_rng(nq + s)
     rows = r.standard_normal((s, d)).astype(np.float32)
@@ -684,7 +709,8 @@ def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d, dups):
         for g0 in range(0, s, 256):
             src[g0:g0 + 256] = g0 + r.integers(0, 16, 256)
         rows = rows[src]
-    rows[:, 100:] = 0.0
+    live = 100 if d <= 256 else d - 40   # dimensions with data
+    rows[:, live:] = 0.0
     valid = r.random(s) < 0.9
     rows[~valid] = 0.0
     # Live slots whose row is also at another live slot of the group.
@@ -698,7 +724,7 @@ def test_k5_kernel_matches_plain_version(cuda, measure_l2, nq, s, d, dups):
     sq = (rows_bf.float() ** 2).sum(-1).cpu().numpy()
     bias = t(fused_scan.build_bias(valid, sq if measure_l2 else None))
     q = r.standard_normal((nq, d)).astype(np.float32)
-    q[:, 100:] = 0.0
+    q[:, live:] = 0.0
     q_bf = t(q).to(torch.bfloat16)
     before = fused_scan.launches
     gv, gi = fused_scan.fused_scan_groupmax(q_bf, rows_bf, bias,
@@ -941,3 +967,65 @@ def test_cuda_fused_merge_matches_stratified_merge(cuda, engine,
     assert found.mean() >= 0.995
     same = gi == wi
     np.testing.assert_allclose(gd[same], wd[same], rtol=1e-5, atol=1e-6)
+
+
+# The score_brute_force compositions (plain torch on both devices):
+# (measure, brute-force quantize, tree leaves or None, reorder quantize,
+# reorder residual).
+_COMPOSITIONS = {
+    "bf_f32_dot": ("dot_product", "float32", None, None, True),
+    "bf_int8_l2": ("squared_l2", "int8", None, None, True),
+    "bf_bf16_cosine": ("cosine", "bfloat16", None, None, True),
+    "bf_l1": ("l1", "float32", None, None, True),
+    "bf_bf16_reorder_int8": ("dot_product", "bfloat16", None, "int8", True),
+    "tree_x_f32_l2": ("squared_l2", "float32", 32, None, True),
+    "tree_x_bf16_dot": ("dot_product", "bfloat16", 32, None, True),
+    "tree_x_single_leaf": ("squared_l2", "int8", 1, None, True),
+    "tree_sq_reorder_f32_l2": ("squared_l2", "int8", 32, "float32", True),
+    "tree_sq_reorder_bf16": ("dot_product", "int8", 32, "bfloat16", True),
+    "tree_sq_reorder_int8": ("dot_product", "int8", 32, "int8", True),
+    "tree_sq_reorder_int8_raw": ("squared_l2", "int8", 32, "int8", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_COMPOSITIONS))
+def test_cuda_composition_matches_cpu_plain_path(cuda, name, tmp_path):
+    """Each score_brute_force composition built on the card returns what
+    the same index, serialized and loaded on the CPU, returns: >= 99.9% of
+    the top-10 ids found in the CPU's top 10, distances within 1e-4
+    relative (squared L2 relative to |d| + ||q||^2 + ||x||^2).  Tree-SQ
+    points launch K1."""
+    import dataclasses
+    measure, quantize, leaves, reorder, residual = _COMPOSITIONS[name]
+    r = np.random.default_rng(5)
+    c = r.standard_normal((64, 48))
+    db = (c[r.integers(0, 64, 20000)] + 0.3 * r.standard_normal(
+        (20000, 48))).astype(np.float32)
+    q = (c[r.integers(0, 64, 256)] + 0.3 * r.standard_normal(
+        (256, 48))).astype(np.float32)
+    b = scann_torch.builder(db, 10, measure)
+    if leaves is not None:
+        b = b.tree(num_leaves=leaves, num_leaves_to_search=min(4, leaves),
+                   training_sample_size=10000)
+    b = b.score_brute_force(quantize)
+    if reorder is not None:
+        b = b.reorder(30, quantize=reorder)
+    config = b.create_config()
+    if reorder is not None:
+        config = dataclasses.replace(config, reordering=dataclasses.replace(
+            config.reordering, residual=residual))
+    s = scann_torch.create_searcher(db, config, "cuda")
+    before = pruned_sq.launches
+    gi, gd = s.search_batched(q)
+    assert (pruned_sq.launches > before) == (
+        leaves is not None and leaves > 1 and quantize == "int8")
+    s.serialize(str(tmp_path))
+    ci, cd = scann_torch.load_searcher(str(tmp_path),
+                                       device="cpu").search_batched(q)
+    assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.999
+    same = (gi == ci) & (gi >= 0)
+    scale = np.abs(cd)
+    if measure == "squared_l2":
+        scale = scale + (q ** 2).sum(1)[:, None] + (
+            db[np.maximum(ci, 0)] ** 2).sum(-1)
+    assert np.all(np.abs(gd - cd)[same] <= 1e-4 * scale[same] + 1e-6)

@@ -132,4 +132,7 @@ def test_k5_wrapper_rejects_unaligned_shapes():
     with pytest.raises(ValueError, match="unsupported shapes"):
         tfs.fused_scan_groupmax(q[:, :100], torch.zeros(
             (2048, 100), dtype=torch.bfloat16), torch.zeros(2048))
-    assert tfs.smem_bytes(256) <= 232_448 and tfs.QT == 128
+    # The kernel's block streams its query tile beside the rows: 4 stages
+    # of 256 row + 128 query chunks of 64 bf16 dimensions, at every width.
+    assert tfs.smem_bytes() == 4 * 384 * 128 + 1024 <= 232_448
+    assert tfs.QT == 128

@@ -70,6 +70,24 @@ def test_chip_smoke_corpus_matches_bench():
             np.testing.assert_array_equal(x, y)
 
 
+def test_chip_smoke_sift_corpus_matches_extra_configs():
+    """chip_smoke.make_sift_like (the tree-SQ + reorder phase's corpus, and
+    at 960 dimensions the wide phase's) is a copy of
+    benchmarks/extra_configs.make_sift_like."""
+    import importlib.util
+    import chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "extra_configs", os.path.join(ROOT, "benchmarks", "extra_configs.py"))
+    extra = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(extra)
+    for args in ((3000, 40, 128), (500, 5, 96, 9)):
+        a = chip_smoke.make_sift_like(*args)
+        b = extra.make_sift_like(*args)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -105,12 +123,15 @@ _UNPORTED = {
         b, quantize_centroids=True).score_brute_force("int8"),
     "hierarchical": lambda b: _tree(
         b, hierarchical_top=2).score_brute_force("int8"),
-    "float32_leaves": lambda b: _tree(b).score_brute_force(),
-    "int8_brute_force": lambda b: b.score_brute_force("int8"),
-    # score_ah without a tree is served; its int8 reordering (non-residual
-    # there) is not.
-    "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8"),
-    "reorder": lambda b: b.score_brute_force().reorder(10),
+    # float32 leaves, int8 brute force, int8 reordering without a tree and
+    # reordering a brute-force search are served
+    # (test_formerly_unported_settings_build_and_search); each still
+    # refuses beside a setting that is not ported.
+    "float32_leaves": lambda b: _tree(
+        b, soar_lambda=1.5).score_brute_force(),
+    "int8_brute_force": lambda b: b.score_brute_force("int8").pca(2),
+    "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8").opq(),
+    "reorder": lambda b: b.score_brute_force().reorder(10).autopilot(),
     "pca": lambda b: b.pca(2),
     "autopilot": lambda b: b.autopilot(),
     "upper_tree": lambda b: b.upper_tree(2, 1),
@@ -125,12 +146,32 @@ def test_unported_settings_raise(name):
                                             device="cpu")).build()
 
 
+_FORMERLY_UNPORTED = {
+    "float32_leaves": lambda b: _tree(b).score_brute_force(),
+    "int8_brute_force": lambda b: b.score_brute_force("int8"),
+    "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8"),
+    "reorder": lambda b: b.score_brute_force().reorder(10),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FORMERLY_UNPORTED))
+def test_formerly_unported_settings_build_and_search(name):
+    db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    s = _FORMERLY_UNPORTED[name](scann_torch.builder(
+        db, 3, "dot_product", device="cpu")).build()
+    idx, dist = s.search_batched(db[:4])
+    assert idx.shape == (4, 3) and (idx >= 0).all()
+    assert np.isfinite(dist).all()
+
+
 def test_unported_measures_and_search_params_raise():
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    # Cosine and L1 are served (brute force; cosine with any scorer).
     for measure in ("cosine", "l1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            scann_torch.builder(db, 3, measure,
+        s = scann_torch.builder(db, 3, measure,
                                 device="cpu").score_brute_force().build()
+        idx, _ = s.search_batched(db[:2])
+        assert (idx[:, 0] == [0, 1]).all()
     s = scann_torch.builder(db, 3, "dot_product",
                             device="cpu").score_brute_force().build()
     for kw in ({"pre_tokenized_leaves": np.zeros((2, 1), np.int32)},

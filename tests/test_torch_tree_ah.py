@@ -317,11 +317,14 @@ _UNPORTED = {
     "single_leaf_tree": (lambda b: b.tree(
         num_leaves=1, num_leaves_to_search=1).score_ah(2).create_config(),
         13),
+    # Non-residual int8 reordering is served (tests/test_torch_reorder.py);
+    # beside a projection the index still refuses, by the projection's
+    # item.
     "reorder_int8_raw": (lambda b: dataclasses.replace(
         _ah(b).reorder(10, quantize="int8").create_config(),
         reordering=scann_torch.ReorderConfig(
-            reordering_num_neighbors=10, quantize="int8", residual=False)),
-        12),
+            reordering_num_neighbors=10, quantize="int8", residual=False),
+        projection=scann_torch.config.ProjectionConfig()), 16),
 }
 
 

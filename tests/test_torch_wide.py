@@ -10,13 +10,13 @@
 * K6 (the fused merge): its plain version bit-equal to the Pallas kernel
   in interpret mode at the widest row a scorer writes (16 tiles x 32
   survivors x 16 groups = 8192 columns, the reference's own VMEM bound).
-* The width guards of ``tree_ah.check_supported``: on a CUDA device the
-  widths K3 and K5 do not serve raise NotImplementedError naming item 13
-  (checked without a card: the rule reads the device, it does not touch
-  it); on the CPU the same settings build and search.  A no-tree
-  reconstruct searcher is refused only where its default search is a K5
-  scan: an index too small for K5 takes the dense scan, which serves any
-  width.
+* The widths the card once refused (K3's int8 LUT over 160 code blocks,
+  K5's query tile over 384 dimensions) are served on a CUDA device as on
+  the CPU: the factory's check passes them (checked without a card: the
+  check reads the device, it does not touch it), and on the CPU the same
+  settings build and search.  A no-tree reconstruct searcher still takes
+  K5 only where its default search has enough 256-slot groups; a smaller
+  index takes the dense scan.
 """
 
 import dataclasses
@@ -146,8 +146,8 @@ def _config(d, lookup, tree, num_leaves=8, reorder=20, dpb=2):
 
 
 @pytest.mark.parametrize("d,lookup,tree,refused", [
-    (320, "int8", True, False),        # b_pad 160: K3 at 8 survivors
-    (330, "int8", True, True),         # b_pad 168: no survivor count fits
+    (320, "int8", True, False),        # b_pad 160: K3 once at 8 survivors
+    (330, "int8", True, True),         # b_pad 168: once no survivor count
     (800, "int8", False, False),       # no tree: no K3
     (384, "reconstruct", False, False),
     (400, "reconstruct", False, True),  # every search a K5 scan over 512
@@ -155,16 +155,17 @@ def _config(d, lookup, tree, num_leaves=8, reorder=20, dpb=2):
     (800, "float32", True, False)])     # K4 serves any width
 def test_check_supported_refuses_unserved_widths_on_cuda(d, lookup, tree,
                                                          refused):
+    """Every width is served on a CUDA device, the ones the card once
+    refused (``refused``) included; the settings still unported keep
+    raising by item number."""
+    del refused
     config = _config(d, lookup, tree)
-    tree_ah.check_supported(config, torch.device("cpu"), d)
     tree_ah.check_supported(config)
-    if refused:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tree_ah.check_supported(config, CUDA, d)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            scann_torch.factory.check_supported(config, CUDA, d)
-    else:
-        tree_ah.check_supported(config, CUDA, d)
+    for dev in (torch.device("cpu"), CUDA):
+        scann_torch.factory.check_supported(config, dev, d)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        scann_torch.factory.check_supported(dataclasses.replace(
+            config, projection=object()), CUDA, d)
 
 
 @pytest.mark.parametrize("rows,refused", [
@@ -173,19 +174,16 @@ def test_check_supported_refuses_unserved_widths_on_cuda(d, lookup, tree,
     (20480, True),
     (10 ** 6, True)])
 def test_no_tree_reconstruct_guard_follows_the_index_size(rows, refused):
-    """Past K5's width, a no-tree reconstruct searcher is refused on a CUDA
-    device where its default search (20 candidates before reordering) is
-    a K5 scan, over the slots the layout pads the rows to; a smaller index
-    takes the dense scan, so it builds.  Without a row count the check
-    assumes a K5 scan."""
+    """A no-tree reconstruct searcher at 400 dimensions is served on a
+    CUDA device at every size.  Its default search (20 candidates before
+    reordering) is a K5 scan exactly where the card once refused it
+    (``refused``), over the slots the layout pads the rows to; a smaller
+    index takes the dense scan."""
     config = _config(400, "reconstruct", False)
-    tree_ah.check_supported(config, torch.device("cpu"), 400, rows)
-    tree_ah.check_supported(config, CUDA, 384, rows)
-    if refused:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            scann_torch.factory.check_supported(config, CUDA, 400, rows)
-    else:
-        scann_torch.factory.check_supported(config, CUDA, 400, rows)
+    for dev in (torch.device("cpu"), CUDA):
+        scann_torch.factory.check_supported(config, dev, 400, rows)
+    slots = tree_ah._round_up(rows, tree_ah._slot_chunk(rows, True))
+    assert tree_ah._takes_k5(slots, 20) == refused
 
 
 def _data(n, d, seed=0):
@@ -199,37 +197,39 @@ def _data(n, d, seed=0):
 @pytest.mark.parametrize("lookup,tree", [("int8", True),
                                          ("reconstruct", False)])
 def test_cpu_builds_and_searches_the_widths_the_card_refuses(
-        lookup, tree, tmp_path, monkeypatch):
-    """The CPU's plain versions serve these widths; the same index, loaded
-    for a CUDA device, is refused by the loader's check before any
-    tensor is made.  The no-tree index is large enough (8200 rows, padded
-    to 40 groups of 256 slots for 10 candidates) that every search is a
-    K5 scan."""
+        lookup, tree, tmp_path):
+    """The CPU's plain versions serve these widths, which the card once
+    refused and now serves too: the loader's check passes the index for a
+    CUDA device, and reloaded on the CPU it returns the same results.  The
+    no-tree index is large enough (8200 rows, padded to 40 groups of 256
+    slots for 10 candidates) that every search is a K5 scan."""
     db, q = _data(2000 if tree else 8200, 400)
     config = _config(400, lookup, tree, reorder=20 if tree else 10)
     s = scann_torch.create_searcher(db, config, "cpu")
     idx, dist = s.search_batched(q)
     assert idx.shape == (8, 10) and (idx >= 0).all()
     assert np.isfinite(dist).all()
+    if not tree:
+        assert tree_ah._takes_k5(s._recon_rows.shape[0], 10)
     s.serialize(str(tmp_path))
-    from scann_torch.models import base
-    monkeypatch.setattr(base, "resolve_device", lambda device: CUDA)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        scann_torch.load_searcher(str(tmp_path), device="cuda")
+    scann_torch.factory.check_supported(s.config, CUDA, 400, db.shape[0])
+    idx2, dist2 = scann_torch.load_searcher(str(tmp_path),
+                                            device="cpu").search_batched(q)
+    np.testing.assert_array_equal(idx2, idx)
+    np.testing.assert_array_equal(dist2, dist)
 
 
 def test_k3_search_refuses_16_survivors_where_only_8_fit():
-    """From b_pad 152 (d 304 at two dimensions a block) K3's LUT fits a
-    block at 8 survivors a group and not at 16.  A search whose budget
-    asks for 16 is refused on a CUDA device (item 13); a budget that
-    takes 8 is not, and on the CPU both run."""
-    assert tpl.lut_max_b_pad(16) < 152 <= tpl.lut_max_b_pad(8)
+    """At b_pad 152 (d 304 at two dimensions a block) K3's LUT once fit a
+    block at 8 survivors a group and not at 16; the kernel now streams
+    the LUT and takes either.  A search whose budget asks for 16
+    survivors a group and one that takes 8 both run."""
     db, q = _data(2000, 304)
     s = scann_torch.create_searcher(db, _config(304, "int8", True,
                                                 reorder=100), "cpu")
-    assert s.search_batched(q, pre_reorder_num_neighbors=100)[0].shape == \
-        (8, 10)
-    s.device = CUDA      # the rule reads the searcher's device
-    s._refuse_k3_width(10, s._num_slots)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        s._refuse_k3_width(100, s._num_slots)
+    nl = s.partitioner.num_leaves
+    assert tree_ah._survivors_per_group(100, s._num_slots, nl) == 16
+    assert tree_ah._survivors_per_group(10, s._num_slots, nl) == 8
+    for budget in (100, 10):
+        idx, _ = s.search_batched(q, pre_reorder_num_neighbors=budget)
+        assert idx.shape == (8, 10) and (idx >= 0).all()
