@@ -19,7 +19,10 @@ batched search:
   brute-force L1.
 
 Both pruned engines can merge through csrc/merge_groups.cu
-(SCANN_TORCH_FUSED_MERGE=1).  Entry points run on CUDA unless the caller
+(SCANN_TORCH_FUSED_MERGE=1).  The search features run around the same
+kernels: SOAR (tree-AH), AVQ, int8 centroids, query spilling, upper and
+hierarchical trees, crowding, pre-tokenized leaves, reordering epsilons
+and per-query k.  Entry points run on CUDA unless the caller
 asks for the CPU::
 
     import scann_torch

@@ -1,10 +1,12 @@
-"""Fluent builder (port of the tree, score_ah, score_brute_force and
-reorder surface of scann_tpu/builder.py).  The methods for parts not
-ported yet raise NotImplementedError naming their ROADMAP item.
+"""Fluent builder (port of the tree, upper_tree, score_ah,
+score_brute_force and reorder surface of scann_tpu/builder.py).  The
+methods for parts not ported yet raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -37,6 +39,7 @@ class ScannBuilder:
         self._bf: Optional[cfg.BruteForceConfig] = None
         self._ah: Optional[cfg.AsymmetricHashConfig] = None
         self._reorder: Optional[cfg.ReorderConfig] = None
+        self._upper_tree: Optional[cfg.UpperTreeConfig] = None
         self.seed = 42
 
     def set_seed(self, seed: int) -> "ScannBuilder":
@@ -97,8 +100,26 @@ class ScannBuilder:
         self._bf = cfg.BruteForceConfig(quantize=_quantize_name(quantize))
         return self
 
-    def upper_tree(self, *args, **kwargs):
-        base.not_ported("upper_tree", 14)
+    def upper_tree(self, num_leaves, num_leaves_to_search,
+                   avq=float("nan"), soar_lambda=None,
+                   overretrieve_factor=None, scoring_mode=cfg.INT8,
+                   anisotropic_quantization_threshold=float("nan")
+                   ) -> "ScannBuilder":
+        """Configure a second tree level over the leaf centers (requires
+        tree()): queries score only the leaves of their best
+        ``num_leaves_to_search`` upper clusters.  ``avq`` refits the upper
+        centers, ``soar_lambda`` gives each leaf a second upper cluster."""
+        if self._upper_tree is not None:
+            raise ValueError("upper_tree has already been configured")
+        del anisotropic_quantization_threshold
+        self._upper_tree = cfg.UpperTreeConfig(
+            num_leaves=num_leaves, num_leaves_to_search=num_leaves_to_search,
+            avq=None if (isinstance(avq, float) and math.isnan(avq))
+            else avq,
+            soar_lambda=soar_lambda,
+            overretrieve_factor=overretrieve_factor,
+            scoring_mode=_quantize_name(scoring_mode))
+        return self
 
     def score_ah(self, dimensions_per_block,
                  anisotropic_quantization_threshold=float("nan"),
@@ -164,10 +185,16 @@ class ScannBuilder:
                         == cfg.DOT_PRODUCT)
             ah = cfg.AsymmetricHashConfig(
                 **{**ah.__dict__, "residual_quantization": residual})
+        partitioning = self._partitioning
+        if self._upper_tree is not None:
+            if partitioning is None:
+                raise ValueError("upper_tree requires tree() to be set")
+            partitioning = cfg.PartitioningConfig(
+                **{**partitioning.__dict__, "upper_tree": self._upper_tree})
         return cfg.ScannConfig(
             num_neighbors=self.num_neighbors,
             distance_measure=self.distance_measure,
-            partitioning=self._partitioning,
+            partitioning=partitioning,
             asymmetric_hash=ah,
             brute_force=self._bf,
             reordering=self._reorder,

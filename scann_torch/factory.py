@@ -18,7 +18,6 @@ import numpy as np
 
 from scann_torch import config as cfg
 from scann_torch.models import base
-from scann_torch.partitioning import kmeans_tree
 
 
 def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
@@ -38,9 +37,6 @@ def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
         tree_ah.check_supported(c)
     if c.partitioning is None:
         return
-    bad = kmeans_tree.unsupported_partitioning(c.partitioning)
-    if bad is not None:
-        base.not_ported(f"partitioning {bad}", 14)
     if c.partitioning.incremental_threshold is not None:
         base.not_ported("incremental_threshold (mutation)", 15)
 

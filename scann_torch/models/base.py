@@ -1,12 +1,15 @@
 """Searcher base: the search pipeline (port of scann_tpu/models/base.py).
 
-``search_batched`` -> ``_select_candidates`` (per engine) -> optional exact
-reordering of the best ``pre_reorder_num_neighbors`` (``ReorderHelper``) ->
-final top-k, conversion to user distance, and INVALID / NaN padding.  Torch
-runs eagerly: a batch is enqueued on the device stream and ``PendingSearch``
-copies the result to the host when asked.  Batches are not padded to
-power-of-two buckets (that bounded JAX recompilation); per-query results
-never depend on the batch they ride in.
+``search_batched`` -> ``_select_candidates`` (per engine, optionally on
+the caller's leaves) -> optional exact reordering of the best
+``pre_reorder_num_neighbors`` (``ReorderHelper``), after the per-query
+k_pre mask, the pre-reordering epsilon and pre-reordering crowding ->
+crowding -> final top-k, conversion to user distance, and INVALID / NaN
+padding; the post-reordering epsilon and a per-query k mask the host
+copy.  Torch runs eagerly: a batch is enqueued on the device stream and
+``PendingSearch`` copies the result to the host when asked.  Batches are
+not padded to power-of-two buckets (that bounded JAX recompilation);
+per-query results never depend on the batch they ride in.
 """
 
 from __future__ import annotations
@@ -159,14 +162,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# search_batched parameters of the JAX package that the port does not
-# serve yet: passing any of them (not None) raises NotImplementedError.
-_UNPORTED_PARAMS = ("per_crowding_attribute_num_neighbors",
-                    "pre_tokenized_leaves", "post_reordering_epsilon",
-                    "pre_reordering_epsilon",
-                    "per_crowding_attribute_pre_reordering_num_neighbors")
-
-
 def not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP item "
                               f"{item})")
@@ -191,6 +186,7 @@ class Searcher:
             np.asarray(database, np.float32), device=device)
         self.reorder_helper = None
         self._reorder_deferred = False
+        self._crowding_attrs = None
         ro = scann_config.reordering
         if ro is not None:
             if (ro.quantize == cfg.INT8 and ro.residual
@@ -218,9 +214,30 @@ class Searcher:
         if self.stage_hook is not None:
             self.stage_hook(name)
 
+    def set_crowding(self, attributes):
+        """Attach per-datapoint crowding attributes, (n_points,) or
+        (n_points, num_dims) int32; searches then cap their results per
+        attribute with ``per_crowding_attribute_num_neighbors`` (after the
+        reorder) and ``per_crowding_attribute_pre_reordering_num_neighbors``
+        (before it): an int, or one int per dimension."""
+        attributes = np.asarray(attributes, np.int32)
+        if attributes.ndim == 1:
+            attributes = attributes[:, None]
+        if attributes.ndim != 2 or attributes.shape[0] != self.n_points:
+            raise ValueError(
+                f"crowding attributes must have shape ({self.n_points},) "
+                f"or ({self.n_points}, num_dims)")
+        self._crowding_attrs = torch.as_tensor(attributes,
+                                               device=self.device)
+
+    def _crowd(self, sim, idx, limits):
+        attrs = self._crowding_attrs[torch.clamp_min(idx, 0).long()]
+        return topk_ops.crowding_filter_multi(sim, idx, attrs, limits)
+
     # -------------------------------------------------------- overridables
     def _select_candidates(self, queries, k_pre: int, leaves: int,
-                           full_scan: bool = False, restrict=None):
+                           full_scan: bool = False, restrict=None,
+                           pre_tokenized=None):
         """Return (similarities, indices), each (q, >= k_pre), best-first
         not required; indices may contain INVALID_INDEX."""
         raise NotImplementedError
@@ -233,11 +250,32 @@ class Searcher:
         return False
 
     def _register_centers(self, centers_np: np.ndarray):
-        """Install a grown center set on the partitioner and propagate
+        """Install a grown center set on the partitioner (its int8 copy
+        requantized, each new leaf assigned to its nearest upper cluster,
+        or nearest two under the upper tree's SOAR) and propagate
         num_leaves through part_cfg and config."""
-        self.partitioner = self.partitioner._replace(
-            centers=torch.as_tensor(centers_np, dtype=torch.float32,
-                                    device=self.device))
+        part = self.partitioner
+        centers = torch.as_tensor(centers_np, dtype=torch.float32,
+                                  device=self.device)
+        centers_int8 = inv_mult = None
+        if part.centers_int8 is not None:
+            sq = quant_ops.scalar_quantize(centers)
+            centers_int8, inv_mult = sq.data, sq.inverse_multipliers
+        upper_assign = part.upper_assign
+        if upper_assign is not None and centers_np.shape[0] > \
+                upper_assign.shape[0]:
+            up = part.upper_centers.cpu().numpy()
+            new_c = centers_np[upper_assign.shape[0]:]
+            d = ((new_c[:, None, :] - up[None, :, :]) ** 2).sum(-1)
+            if upper_assign.dim() == 2:
+                add = np.argsort(d, axis=1)[:, :2]
+            else:
+                add = d.argmin(1)
+            upper_assign = torch.cat([upper_assign, torch.from_numpy(
+                add.astype(np.int32)).to(upper_assign.device)])
+        self.partitioner = part._replace(
+            centers=centers, centers_int8=centers_int8,
+            centers_inv_mult=inv_mult, upper_assign=upper_assign)
         if (self.reorder_helper is not None
                 and self.reorder_helper._leaf is not None):
             self.reorder_helper._centers = self.partitioner.centers
@@ -248,17 +286,40 @@ class Searcher:
 
     # ------------------------------------------------------------ pipeline
     def _search_impl(self, queries, k: int, k_pre: int, leaves: int,
-                     full_scan: bool = False, restrict=None):
+                     full_scan: bool = False, restrict=None,
+                     pre_tokenized=None, k_pre_vec=None, pre_epsilon=None,
+                     crowding_limit=(), pre_crowding_limit=()):
+        """Select, reorder and finish one device batch.  Before the exact
+        rescore, the best-first candidates are cut per query
+        (``k_pre_vec``), by the approximate similarity (``pre_epsilon``,
+        in similarity units) and by pre-reorder crowding; crowding after
+        it caps the final results."""
         sim, idx = self._select_candidates(queries, k_pre, leaves,
                                            full_scan=full_scan,
-                                           restrict=restrict)
+                                           restrict=restrict,
+                                           pre_tokenized=pre_tokenized)
         if self.reorder_helper is not None:
             # Keep the best k_pre, rescore exactly, then take the final k.
             if sim.shape[-1] > k_pre:
                 sim, pos = topk_ops.top_k(sim, k_pre)
                 idx = torch.gather(idx, -1, pos.long())
+            if k_pre_vec is not None:
+                # Best first, a per-query k_pre is a column mask.
+                sim, idx = topk_ops.sort_results(sim, idx)
+                col = torch.arange(sim.shape[-1], device=sim.device)
+                keep = col[None, :] < k_pre_vec[:, None]
+                sim = torch.where(keep, sim, float("-inf"))
+                idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
+            if pre_epsilon is not None:
+                keep = sim >= pre_epsilon[:, None]
+                sim = torch.where(keep, sim, float("-inf"))
+                idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
+            if pre_crowding_limit:
+                sim, idx = self._crowd(sim, idx, pre_crowding_limit)
             sim = self.reorder_helper.rescore(queries, idx)
             self._stage("reorder")
+        if crowding_limit:
+            sim, idx = self._crowd(sim, idx, crowding_limit)
         kk = min(k, sim.shape[-1])
         vals, pos = topk_ops.top_k(sim, kk)
         idx = torch.gather(idx, -1, pos.long())
@@ -293,39 +354,110 @@ class Searcher:
             leaves = leaves_to_search
         return k, k_pre, leaves
 
+    def _crowding_limits(self, limit, name: str, what: str):
+        """Per-dimension crowding caps of one search parameter (() when
+        not given)."""
+        if limit is None:
+            return ()
+        if self._crowding_attrs is None:
+            raise ValueError(f"call set_crowding(attributes) before "
+                             f"searching with {name}")
+        num_dims = self._crowding_attrs.shape[1]
+        if np.isscalar(limit):
+            return (int(limit),) * num_dims
+        limits = tuple(int(x) for x in limit)
+        if len(limits) != num_dims:
+            raise ValueError(f"expected {num_dims} {what}limits, got "
+                             f"{len(limits)}")
+        return limits
+
+    def _check_pre_tokenized(self, leaves_arr, nq: int, num_leaves: int):
+        if num_leaves == 0:
+            raise ValueError(
+                "pre_tokenized_leaves requires a partitioned searcher")
+        pt = np.asarray(leaves_arr, np.int32)
+        if pt.ndim != 2 or pt.shape[0] != nq:
+            raise ValueError(f"pre_tokenized_leaves must be (num_queries, "
+                             f"L), got {pt.shape}")
+        if pt.max() >= num_leaves:
+            raise ValueError("pre_tokenized leaf id out of range")
+        if pt.shape[1] > num_leaves:
+            # The pruned plan's capacities are sized from min(L,
+            # num_leaves): a wider list would drop candidates.
+            raise ValueError(
+                f"pre_tokenized_leaves is wider ({pt.shape[1]}) than "
+                f"num_leaves ({num_leaves})")
+        srt = np.sort(np.where(pt < 0, -np.arange(1, pt.shape[1] + 1)[
+            None, :], pt), axis=1)
+        if np.any(srt[:, 1:] == srt[:, :-1]):
+            # The plan assumes distinct leaves per row.
+            raise ValueError(
+                "pre_tokenized_leaves rows must not repeat a leaf id")
+        return pt
+
     # ------------------------------------------------------------- public
     def search_batched(self, queries, final_num_neighbors=None,
                        pre_reorder_num_neighbors=None, leaves_to_search=None,
-                       restrict_allowlist=None, **unported):
+                       restrict_allowlist=None,
+                       per_crowding_attribute_num_neighbors=None,
+                       pre_tokenized_leaves=None,
+                       post_reordering_epsilon=None,
+                       pre_reordering_epsilon=None,
+                       per_crowding_attribute_pre_reordering_num_neighbors
+                       =None):
         """Batched search; dispatches and blocks for the results."""
         return self.search_batched_async(
             queries, final_num_neighbors, pre_reorder_num_neighbors,
-            leaves_to_search, restrict_allowlist, **unported).result()
+            leaves_to_search, restrict_allowlist,
+            per_crowding_attribute_num_neighbors, pre_tokenized_leaves,
+            post_reordering_epsilon, pre_reordering_epsilon,
+            per_crowding_attribute_pre_reordering_num_neighbors).result()
 
     def search_batched_async(self, queries, final_num_neighbors=None,
                              pre_reorder_num_neighbors=None,
                              leaves_to_search=None, restrict_allowlist=None,
-                             **unported):
+                             per_crowding_attribute_num_neighbors=None,
+                             pre_tokenized_leaves=None,
+                             post_reordering_epsilon=None,
+                             pre_reordering_epsilon=None,
+                             per_crowding_attribute_pre_reordering_num_neighbors
+                             =None):
         """Batched search; returns a PendingSearch whose .result() is
         (indices, distances), numpy arrays of shape (num_queries, k).
 
         restrict_allowlist: optional (n_points,) bool mask of datapoints
-        results may come from.  The JAX package's other search parameters
-        (per-query arrays, crowding, pre-tokenized leaves, epsilons) raise
-        NotImplementedError when given."""
-        for name, value in unported.items():
-            if name not in _UNPORTED_PARAMS:
-                raise TypeError(f"unexpected search parameter {name!r}")
-            if value is not None:
-                not_ported(f"search parameter {name}", 14)
-        for name, value in (("final_num_neighbors", final_num_neighbors),
-                            ("pre_reorder_num_neighbors",
-                             pre_reorder_num_neighbors)):
-            if value is not None and not np.isscalar(value):
-                not_ported(f"per-query {name}", 14)
+        results may come from.  per_crowding_attribute_num_neighbors and
+        per_crowding_attribute_pre_reordering_num_neighbors: caps on the
+        results (after the reorder) and candidates (before it) sharing an
+        attribute of set_crowding.  pre_tokenized_leaves: (num_queries, L)
+        int32 leaves to search per query in place of the tokenizer's, -1
+        entries unused.  post_reordering_epsilon / pre_reordering_epsilon:
+        distance cutoffs on the final results and on the approximate
+        candidates before the reorder (dot product keeps dot >= epsilon,
+        the other measures distance <= epsilon).  final_num_neighbors,
+        pre_reorder_num_neighbors and both epsilons also take one value a
+        query; the batch is sized by the largest and the rest apply as
+        masks."""
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim != 2:
             raise ValueError(f"queries must be 2d, got shape {queries.shape}")
+        nq = queries.shape[0]
+
+        def _vec_param(v, name):
+            """An int or a (num_queries,) array -> (the max, the array)."""
+            if v is None or np.isscalar(v):
+                return v, None
+            arr = np.asarray(v, np.int32)
+            if arr.shape != (nq,):
+                raise ValueError(
+                    f"{name} must be an int or a (num_queries,) array, "
+                    f"got shape {arr.shape}")
+            return int(arr.max()), arr
+
+        final_num_neighbors, k_vec = _vec_param(final_num_neighbors,
+                                                "final_num_neighbors")
+        pre_reorder_num_neighbors, k_pre_vec = _vec_param(
+            pre_reorder_num_neighbors, "pre_reorder_num_neighbors")
         if self.config.distance_measure == cfg.COSINE:
             # Cosine is the dot product of unit vectors: the factory
             # normalized the database.
@@ -337,19 +469,45 @@ class Searcher:
                 f"database dimensionality {self.dims}")
         k, k_pre, leaves = self._resolve_params(
             final_num_neighbors, pre_reorder_num_neighbors, leaves_to_search)
-        nq = queries.shape[0]
+        crowding_limit = self._crowding_limits(
+            per_crowding_attribute_num_neighbors,
+            "per_crowding_attribute_num_neighbors", "crowding ")
+        pre_crowding_limit = self._crowding_limits(
+            per_crowding_attribute_pre_reordering_num_neighbors,
+            "per_crowding_attribute_pre_reordering_num_neighbors",
+            "pre-reordering crowding ")
         num_leaves = getattr(getattr(self, "part_cfg", None), "num_leaves",
-                             0)
-        full_scan = leaves == 0 or leaves >= (num_leaves or 1 << 30)
+                             0) or 0
+        pre_tok = None
+        if pre_tokenized_leaves is not None:
+            pre_tok = self._check_pre_tokenized(pre_tokenized_leaves, nq,
+                                                num_leaves)
+            leaves = pre_tok.shape[1]
+        full_scan = (pre_tok is None
+                     and (leaves == 0 or leaves >= (num_leaves or 1 << 30)))
         pruned = not full_scan and self._pruned_available
         disp_cap = pruned_dispatch_cap(leaves) if pruned else nq
         if pruned and nq > disp_cap:
             # The pruned plan's scratch grows with batch * leaves: enqueue
-            # every sub-batch, then materialize.
+            # every sub-batch, then materialize.  Per-query arrays are
+            # sliced with their queries.
+            def _sl(v, i):
+                if v is None or np.isscalar(v):
+                    return v
+                return np.asarray(v)[i:i + disp_cap]
+
             pending = [self.search_batched_async(
-                queries[i:i + disp_cap], final_num_neighbors,
-                pre_reorder_num_neighbors, leaves_to_search,
-                restrict_allowlist) for i in range(0, nq, disp_cap)]
+                queries[i:i + disp_cap],
+                final_num_neighbors if k_vec is None else _sl(k_vec, i),
+                (pre_reorder_num_neighbors if k_pre_vec is None
+                 else _sl(k_pre_vec, i)),
+                leaves_to_search, restrict_allowlist,
+                per_crowding_attribute_num_neighbors,
+                None if pre_tok is None else _sl(pre_tok, i),
+                _sl(post_reordering_epsilon, i),
+                _sl(pre_reordering_epsilon, i),
+                per_crowding_attribute_pre_reordering_num_neighbors)
+                for i in range(0, nq, disp_cap)]
 
             def _combine():
                 outs = [p.result() for p in pending]
@@ -364,15 +522,57 @@ class Searcher:
                 raise ValueError(
                     f"restrict_allowlist must have shape ({self.n_points},)")
             restrict = torch.as_tensor(allow, device=self.device)
-        q_dev = torch.as_tensor(queries, device=self.device)
+        dev = self.device
+        k_pre_dev = None
+        if k_pre_vec is not None:
+            floor = k_vec if k_vec is not None else k
+            k_pre_dev = torch.as_tensor(np.maximum(k_pre_vec, floor),
+                                        device=dev)
+        pre_eps = None
+        if pre_reordering_epsilon is not None:
+            eps = np.broadcast_to(np.asarray(pre_reordering_epsilon,
+                                             np.float32), (nq,))
+            # User distance -> similarity cutoff: dot keeps sim >= eps,
+            # squared L2 (sim = -d) sim >= -eps, cosine (d = 1 - sim)
+            # sim >= 1 - eps.
+            if self.config.distance_measure == cfg.DOT_PRODUCT:
+                sim_eps = eps
+            elif self.config.distance_measure == cfg.COSINE:
+                sim_eps = 1.0 - eps
+            else:
+                sim_eps = -eps
+            pre_eps = torch.as_tensor(np.array(sim_eps, np.float32),
+                                      device=dev)
+        q_dev = torch.as_tensor(queries, device=dev)
         if leaves > 0 and num_leaves:
             leaves = min(leaves, num_leaves)
-        idx_dev, dist_dev = self._search_impl(q_dev, k, k_pre, leaves,
-                                              full_scan=full_scan,
-                                              restrict=restrict)
+        idx_dev, dist_dev = self._search_impl(
+            q_dev, k, k_pre, leaves, full_scan=full_scan, restrict=restrict,
+            pre_tokenized=(None if pre_tok is None
+                           else torch.as_tensor(pre_tok, device=dev)),
+            k_pre_vec=k_pre_dev, pre_epsilon=pre_eps,
+            crowding_limit=crowding_limit,
+            pre_crowding_limit=pre_crowding_limit)
 
         def _finalize():
-            return idx_dev.cpu().numpy(), dist_dev.cpu().numpy()
+            idx = idx_dev.cpu().numpy()
+            dist = dist_dev.cpu().numpy()
+            if post_reordering_epsilon is not None:
+                eps = np.broadcast_to(np.asarray(post_reordering_epsilon,
+                                                 np.float32), (nq,))[:, None]
+                # NaN-safe: a NaN distance stays dropped.
+                if self.config.distance_measure == cfg.DOT_PRODUCT:
+                    bad = ~(dist >= eps)
+                else:
+                    bad = ~(dist <= eps)
+                idx = np.where(bad, topk_ops.INVALID_INDEX, idx)
+                dist = np.where(bad, np.nan, dist)
+            if k_vec is not None:
+                # Results are best first: a per-query k is a column mask.
+                bad = np.arange(idx.shape[1])[None, :] >= k_vec[:, None]
+                idx = np.where(bad, topk_ops.INVALID_INDEX, idx)
+                dist = np.where(bad, np.nan, dist)
+            return idx, dist
 
         return PendingSearch(_finalize)
 

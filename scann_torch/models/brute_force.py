@@ -69,8 +69,8 @@ class BruteForceSearcher(base.Searcher):
         return queries, None
 
     def _select_candidates(self, queries, k_pre, leaves, full_scan=False,
-                           restrict=None):
-        del leaves, full_scan
+                           restrict=None, pre_tokenized=None):
+        del leaves, full_scan, pre_tokenized
         nq = queries.shape[0]
         n, d = self._db.shape
         measure = cfg.internal_measure(self.config.distance_measure)

@@ -27,9 +27,17 @@ Without a tree (``partitioning`` None) there is no tokenization, no
 residual and no pruned layout: every query is a full scan.  The base class
 then reorders the best candidates exactly.
 
+SOAR stores each row twice, in its primary leaf and in a secondary leaf
+chosen by orthogonality amplification (2n slots, the primary leaves capped
+at half the scorers' tile budget); every selection then keeps
+ceil(k_pre * overretrieve_factor) candidates and drops repeated ids
+(topk.dedup_candidates) before the best k_pre.  AVQ refits the centers
+after tokenization.  A batch may name its leaves (``pre_tokenized``), and
+query spilling masks the tokenizer's selection.
+
 Not ported yet (each raises NotImplementedError): stacked quantization,
-variable chunks, SOAR, AVQ, mutation, projection and a single-leaf tree.
-Every scorer serves every width on the card as on the CPU.
+variable chunks, mutation, projection and a single-leaf tree.  Every
+scorer serves every width on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -144,15 +152,37 @@ class TreeAHSearcher(base.Searcher):
         self._recon_mean = None
 
     # ------------------------------------------------------------- build
+    @property
+    def _soar(self) -> Optional[cfg.SoarConfig]:
+        return self.part_cfg.soar if self.part_cfg is not None else None
+
+    def _k_fetch(self, k_pre: int) -> int:
+        """Candidates a selection keeps: SOAR over-retrieves by its factor,
+        since a row can come back twice before the dedup."""
+        soar = self._soar
+        if soar is None:
+            return k_pre
+        return int(math.ceil(k_pre * soar.overretrieve_factor))
+
+    def _dedup(self, vals, dpids, k_pre: int):
+        """SOAR: keep each row's best copy, then the best k_pre."""
+        if self._soar is None:
+            return vals, dpids
+        vals, dpids = topk_ops.dedup_candidates(vals, dpids)
+        vals, pos = topk_ops.top_k(vals, min(k_pre, vals.shape[-1]))
+        return vals, torch.gather(dpids, -1, pos.long())
+
     def _build(self):
         x_dev = self._build_x_dev
         n, d = x_dev.shape
         seed = self.config.seed
+        tokens2 = None
         if self.part_cfg is None:
             tokens = np.zeros((n,), np.int32)
         else:
-            tokens = self._train_partition(x_dev)
-        self.datapoint_to_token = tokens[:, None]
+            tokens, tokens2 = self._train_partition(x_dev)
+        self.datapoint_to_token = (tokens2 if tokens2 is not None
+                                   else tokens[:, None])
 
         if self.residual and self.partitioner is not None:
             tokens_t = torch.from_numpy(tokens).to(self.device).long()
@@ -168,22 +198,42 @@ class TreeAHSearcher(base.Searcher):
             self.ah_cfg.dimensions_per_block,
             self.ah_cfg.clusters_per_block,
             self.ah_cfg.training_iterations, dims=d)
+        self._encoded_slots = 0
+        self._quantization_error_sq = 0.0
         codes = self._encode_dataset(primary_vecs, x_dev)
-        self.index = self._layout_slots(codes, tokens,
-                                        np.arange(n, dtype=np.int32))
+        leaf = tokens
+        dpid = np.arange(n, dtype=np.int32)
+        if tokens2 is not None:
+            # SOAR: each row also lives in its secondary leaf, encoded as
+            # the residual against that leaf's center; 2n slots.
+            sec = torch.from_numpy(tokens2[:, 1]).to(self.device).long()
+            codes = np.concatenate([codes, self._encode_dataset(
+                x_dev - self.partitioner.centers[sec], x_dev)])
+            leaf = np.concatenate([tokens2[:, 0], tokens2[:, 1]])
+            dpid = np.concatenate([dpid, dpid])
+        self.index = self._layout_slots(codes, leaf.astype(np.int32), dpid)
         self._build_recon()
 
-    def _train_partition(self, x_dev) -> np.ndarray:
-        """Train the tree and return the final primary token of each row."""
+    def _train_partition(self, x_dev):
+        """Train the tree; return the final primary token of each row and,
+        under SOAR, the (n, 2) primary and secondary tokens (else None)."""
         n = x_dev.shape[0]
+        part = self.part_cfg
         self.partitioner = kmeans_tree.KMeansTreePartitioner.train(
-            x_dev, self.part_cfg, self.measure, self.config.seed)
+            x_dev, part, self.measure, self.config.seed)
+        if self.partitioner.num_leaves != part.num_leaves:
+            # Hierarchical training rounds num_leaves up to k1 * k2.
+            self._register_centers(self.partitioner.centers.cpu().numpy())
         # Max-size bound per partition for the pruned scorers (MAX_NTILES
-        # tiles per leaf): split oversized partitions, retokenize against
-        # the grown center set, split again, then cap what is left.
+        # tiles per leaf, shared by a row's two slots under SOAR): split
+        # oversized partitions, retokenize against the grown center set,
+        # split again, then cap what is left.
+        soar = self._soar
+        soar_mult = 2 if soar is not None else 1
         nl = self.part_cfg.num_leaves
         hard_cap = pruned_scan.MAX_NTILES * pruned_scan.TILE
-        cap = int(min(hard_cap, max(2.0 * n / max(nl, 1), pruned_scan.TILE)))
+        cap = int(min(hard_cap // soar_mult,
+                      max(2.0 * n / max(nl, 1), pruned_scan.TILE)))
         tokens = self.partitioner.tokenize_database(x_dev).cpu().numpy()
         centers_np = self.partitioner.centers.cpu().numpy()
         tokens, grown = kmeans_tree.split_oversized(x_dev, tokens,
@@ -197,20 +247,40 @@ class TreeAHSearcher(base.Searcher):
             if grown.shape[0] != centers_np.shape[0]:
                 centers_np = grown
                 self._register_centers(centers_np)
-        counts = np.bincount(tokens, minlength=centers_np.shape[0])
-        if counts.max() > hard_cap:
-            tokens = kmeans_tree.cap_partition_sizes(x_dev, tokens,
-                                                     centers_np, hard_cap)
+        nl = centers_np.shape[0]
+        counts = np.bincount(tokens, minlength=nl)
+        if counts.max() > hard_cap // soar_mult:
+            tokens = kmeans_tree.cap_partition_sizes(
+                x_dev, tokens, centers_np, hard_cap // soar_mult)
+        tokens2 = None
+        if soar is not None:
+            tokens2 = self.partitioner.tokenize_database_soar(
+                x_dev, soar).cpu().numpy().astype(np.int64)
+            tokens2[:, 0] = tokens
+            cap_total = int(min(hard_cap, max(4.0 * soar_mult * n / nl,
+                                              2 * pruned_scan.TILE)))
+            tokens2[:, 1] = kmeans_tree.cap_partition_sizes(
+                x_dev, tokens2[:, 1], centers_np, cap_total,
+                base_counts=np.bincount(tokens2[:, 0], minlength=nl),
+                forbid=tokens2[:, 0])
+            tokens2 = tokens2.astype(np.int32)
+        if self.part_cfg.avq is not None:
+            # AVQ refits the centers after tokenization; residuals are taken
+            # against the refit centers.
+            max_leaf = int(np.bincount(
+                tokens, minlength=self.part_cfg.num_leaves).max())
+            self.partitioner = self.partitioner.apply_avq(
+                x_dev, tokens, float(self.part_cfg.avq), max(1, max_leaf))
         tokens = np.asarray(tokens, np.int32)
         # Residual int8 reordering waits for the final primary tokens: its
         # q.c_leaf bias must match the centers the residuals are taken
         # against.
         self._finish_deferred_reorder(x_dev, tokens)
-        return tokens
+        return tokens, tokens2
 
     def _encode_dataset(self, vectors, originals) -> np.ndarray:
-        """Encode all vectors in fixed-size chunks; also keeps the mean
-        squared quantization error over the encoded slots."""
+        """Encode all vectors in fixed-size chunks; also keeps the running
+        mean squared quantization error over the encoded slots."""
         threshold = self.ah_cfg.anisotropic_quantization_threshold
         noise_shaped = not math.isnan(threshold)
         out = []
@@ -226,8 +296,11 @@ class TreeAHSearcher(base.Searcher):
             recon = ah_ops.reconstruct(codes, self.model)
             err_sum += float(((v - recon) ** 2).sum())
             out.append(codes.cpu().numpy())
-        self._encoded_slots = vectors.shape[0]
-        self._quantization_error_sq = err_sum / max(vectors.shape[0], 1)
+        # Running mean over every slot encoded so far (SOAR encodes twice).
+        prev = self._quantization_error_sq * self._encoded_slots
+        self._encoded_slots += vectors.shape[0]
+        self._quantization_error_sq = ((prev + err_sum)
+                                       / max(self._encoded_slots, 1))
         return np.concatenate(out, axis=0)
 
     def _layout_slots(self, codes: np.ndarray, leaf: np.ndarray,
@@ -494,14 +567,18 @@ class TreeAHSearcher(base.Searcher):
         return False
 
     def _select_candidates(self, queries, k_pre: int, leaves: int,
-                           full_scan: bool = False, restrict=None):
+                           full_scan: bool = False, restrict=None,
+                           pre_tokenized=None):
+        """``pre_tokenized``: optional (q, L) int32 leaves to search per
+        query in place of the tokenizer's, -1 entries unused."""
         if self._prepare_for_query(queries.shape[0], leaves, full_scan):
-            return self._pruned_select(queries, k_pre, leaves, restrict)
+            return self._pruned_select(queries, k_pre, leaves, restrict,
+                                       pre_tokenized)
         if (self._recon_mode and full_scan and restrict is None
                 and _takes_k5(self._recon_rows.shape[0], k_pre)):
             return self._fused_select(queries, k_pre)
         return self._dense_select(queries, k_pre, leaves, full_scan,
-                                  restrict)
+                                  restrict, pre_tokenized)
 
     def _recon_queries(self, queries, d_pad: int):
         """(centered f32 queries, their bf16 copy zero-padded to d_pad)."""
@@ -522,7 +599,8 @@ class TreeAHSearcher(base.Searcher):
         self._stage("tokenize")
         vals, slots = fused_scan.fused_scan_groupmax(
             q_bf, self._recon_rows, self._recon_bias, measure_l2=l2)
-        vals, pos = topk_ops.top_k(vals, min(k_pre, vals.shape[-1]))
+        vals, pos = topk_ops.top_k(vals, min(self._k_fetch(k_pre),
+                                             vals.shape[-1]))
         slots = torch.gather(slots, -1, pos.long())
         dpids = self.index.slot_dpid[torch.clamp_min(slots, 0).long()]
         dead = vals < -1e20
@@ -532,10 +610,12 @@ class TreeAHSearcher(base.Searcher):
             # Restore the rank-invariant -||q||^2 of the centered query, so
             # the values are true negated squared distances.
             vals = vals - (q_c * q_c).sum(-1)[:, None]
+        vals, dpids = self._dedup(vals, dpids, k_pre)
         self._stage("scan")
         return vals, dpids
 
-    def _dense_select(self, queries, k_pre, leaves, full_scan, restrict):
+    def _dense_select(self, queries, k_pre, leaves, full_scan, restrict,
+                      pre_tokenized=None):
         """Masked scan over every slot (LUT modes' full scan, restricted
         full scans, plans over the work budget).  LUT modes score with the
         LUT16 one-hot product; the LUTs here are quantized per query with
@@ -564,15 +644,20 @@ class TreeAHSearcher(base.Searcher):
             num_leaves = self.partitioner.num_leaves
             leaves = (num_leaves if full_scan
                       else max(1, min(leaves, num_leaves)))
-            leaf_ids, center_sims = self.partitioner.tokenize_queries(
-                queries, leaves)
+            bias = self.residual and not recon
+            leaf_ids, keep, center_sims = self.partitioner.select_leaves(
+                queries, leaves, pre_tokenized, pair_sims=bias)
             # One (query, leaf) table: -inf for unselected leaves, else the
             # q.c_leaf bias under residual quantization (0 otherwise, and
-            # in reconstruct mode, whose rows hold the center).
-            vals = (center_sims if self.residual and not recon
-                    else torch.zeros_like(center_sims))
-            combo = torch.full((nq, num_leaves), float("-inf"), device=dev)
-            combo.scatter_(1, leaf_ids.long(), vals)
+            # in reconstruct mode, whose rows hold the center).  Unused
+            # entries scatter to a spare column past the last leaf.
+            vals = (center_sims if bias
+                    else torch.zeros(leaf_ids.shape, device=dev))
+            cols = torch.where(keep, leaf_ids, num_leaves).long()
+            combo = torch.full((nq, num_leaves + 1), float("-inf"),
+                               device=dev)
+            combo.scatter_(1, cols, torch.where(keep, vals, float("-inf")))
+            combo = combo[:, :num_leaves]
         self._stage("tokenize")
 
         leaf_all = self.index.slot_leaf.long()
@@ -580,7 +665,7 @@ class TreeAHSearcher(base.Searcher):
         cpb = self.ah_cfg.clusters_per_block
         chunk = self._chunk
         n_slots = dpid_all.shape[0]
-        k_fetch = min(k_pre, n_slots)
+        k_fetch = min(self._k_fetch(k_pre), n_slots)
         groupmax = (recon and chunk % _GROUP == 0
                     and n_slots // _GROUP >= 4 * k_fetch)
         blocks = range(0, nq, _DENSE_QUERY_BLOCK)
@@ -634,27 +719,29 @@ class TreeAHSearcher(base.Searcher):
         else:
             vals = torch.cat([s[0] for s in state])
             slots = torch.cat([s[1] for s in state])
-        self._stage("scan")
         dpids = torch.where(slots >= 0,
                             dpid_all[torch.clamp_min(slots, 0).long()], -1)
         if luts is not None:
             vals = vals + luts.base[:, None]
+        vals, dpids = self._dedup(vals, dpids, k_pre)
+        self._stage("scan")
         return vals, dpids
 
-    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict):
+    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
+                       pre_tokenized=None):
         """Leaf-gathered candidate selection through K2, K3 or K4."""
         partitioner = self.partitioner
         num_leaves = partitioner.num_leaves
         leaves = max(1, min(leaves, num_leaves))
         nq = queries.shape[0]
-        leaf_ids, center_sims = partitioner.tokenize_queries(queries, leaves)
-        valid_sel = partitioner.spilling_mask(center_sims)
-        self._stage("tokenize")
-
         recon_path = self._p_rows is not None
         # The decoded rows already hold the leaf center.
-        pair_bias = (center_sims if self.residual and not recon_path
-                     else None)
+        residual_bias = self.residual and not recon_path
+        leaf_ids, valid_sel, center_sims = partitioner.select_leaves(
+            queries, leaves, pre_tokenized, pair_sims=residual_bias)
+        self._stage("tokenize")
+
+        pair_bias = center_sims if residual_bias else None
         d_pad = (self._p_rows.shape[-1] if recon_path
                  else self._p_mean.shape[0])
         q_c, q_bf = self._recon_queries(queries, d_pad)
@@ -688,7 +775,7 @@ class TreeAHSearcher(base.Searcher):
         qg_rows = (None if self._int8_lut and not recon_path
                    else q_bf[plan.qg_query.long()])   # (G_pad, QG, d_pad)
         l2 = self.measure == cfg.SQUARED_L2
-        k_fetch = k_pre
+        k_fetch = self._k_fetch(k_pre)
         kpg = self._kpg_override or _survivors_per_group(
             k_fetch, self._num_slots, num_leaves)
         self._stage("plan")
@@ -720,5 +807,6 @@ class TreeAHSearcher(base.Searcher):
         if l2:
             # Restore the rank-invariant -||q||^2 of the centered query.
             cand_vals = cand_vals - (q_c * q_c).sum(-1)[:, None]
+        cand_vals, dpids = self._dedup(cand_vals, dpids, k_pre)
         self._stage("merge")
         return cand_vals, dpids

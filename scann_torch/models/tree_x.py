@@ -19,10 +19,15 @@ Two layouts, as in the JAX package:
   Pallas kernel of the JAX package is involved.
 
 A ``reorder`` rescores the best candidates exactly (models/base.py); its
-residual int8 rows take the final primary tokens and the centers.
+residual int8 rows take the final primary tokens and the centers.  Both
+layouts search the caller's leaves when a batch names them, and mask the
+tokenizer's selection by query spilling.  SOAR and AVQ apply to tree-AH:
+Tree-X builds the index it builds without them, as the JAX package does.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -41,6 +46,8 @@ _DENSE_QUERY_BLOCK = 2048  # queries per block of the dense scan (bounds
 # the (queries, chunk) f32 intermediates)
 _SQ_TILE = 256          # slots per leaf tile of the tree-SQ layout
 _PAD_PENALTY = -1e30    # bias of padded / disallowed slots
+
+_log = logging.getLogger("scann_torch")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,6 +70,14 @@ class TreeXSearcher(base.Searcher):
     def _build(self):
         x_dev = self._build_x_dev
         n = x_dev.shape[0]
+        unused = [name for name, value in (("soar_lambda", self.part_cfg.soar),
+                                           ("avq", self.part_cfg.avq))
+                  if value is not None]
+        if unused:
+            # The JAX package's Tree-X reads neither: the index is the one
+            # built without them.
+            _log.warning("Tree-X ignores the partitioning setting(s) %s: "
+                         "they apply to score_ah", ", ".join(unused))
         self.partitioner = kmeans_tree.KMeansTreePartitioner.train(
             x_dev, self.part_cfg, self.measure, self.config.seed)
         tokens = self.partitioner.tokenize_database(x_dev).cpu().numpy()
@@ -202,18 +217,23 @@ class TreeXSearcher(base.Searcher):
         return self.part_cfg.num_leaves_to_search
 
     def _select_candidates(self, queries, k_pre: int, leaves: int,
-                           full_scan: bool = False, restrict=None):
+                           full_scan: bool = False, restrict=None,
+                           pre_tokenized=None):
+        """``pre_tokenized``: optional (q, L) int32 leaves to search per
+        query in place of the tokenizer's, -1 entries unused."""
         num_leaves = self.partitioner.num_leaves
         if self._sq_mode and not full_scan and leaves < num_leaves:
             _, w_pad = pruned_scan.plan_capacities(
                 queries.shape[0], min(leaves, num_leaves), num_leaves,
                 self._p_num_tiles, self._p_max_ntiles)
             if w_pad <= pruned_scan.MAX_PLAN_WORK:
-                return self._pruned_select(queries, k_pre, leaves, restrict)
-        return self._dense_select(queries, k_pre, leaves, full_scan,
-                                  restrict)
+                return self._pruned_select(queries, k_pre, leaves, restrict,
+                                           pre_tokenized)
+        return self._dense_select(queries, k_pre, leaves, restrict,
+                                  pre_tokenized)
 
-    def _dense_select(self, queries, k_pre, leaves, full_scan, restrict):
+    def _dense_select(self, queries, k_pre, leaves, restrict,
+                      pre_tokenized=None):
         """Masked scan over every slot (the dense layouts' every search; in
         tree-SQ the full scan and plans over the work budget).  Per slot:
         tree-SQ sim = scale * (q_bf16 . int8) + q.c_leaf (dot), or
@@ -225,14 +245,19 @@ class TreeXSearcher(base.Searcher):
         num_leaves = self.partitioner.num_leaves
         leaves = max(1, min(leaves, num_leaves))
         dev = queries.device
-        if full_scan or leaves >= num_leaves:
+        if (pre_tokenized is None and leaves >= num_leaves
+                and self.partitioner.query_spilling_type == "fixed_number"):
             mask_dense = torch.ones((nq, num_leaves), dtype=torch.bool,
                                     device=dev)
         else:
-            leaf_ids, _ = self.partitioner.tokenize_queries(queries, leaves)
-            mask_dense = torch.zeros((nq, num_leaves), dtype=torch.bool,
+            leaf_ids, keep, _ = self.partitioner.select_leaves(
+                queries, leaves, pre_tokenized)
+            # Unused entries scatter to a spare column past the last leaf.
+            mask_dense = torch.zeros((nq, num_leaves + 1), dtype=torch.bool,
                                      device=dev)
-            mask_dense.scatter_(1, leaf_ids.long(), True)
+            mask_dense.scatter_(1, torch.where(keep, leaf_ids,
+                                               num_leaves).long(), True)
+            mask_dense = mask_dense[:, :num_leaves]
         self._stage("tokenize")
         rows = self.slot_rows.reshape(-1, self.slot_rows.shape[-1])
         leaf_all = self.slot_leaf.long()
@@ -293,15 +318,18 @@ class TreeXSearcher(base.Searcher):
                             dpid_all[torch.clamp_min(slots, 0).long()], -1)
         return vals, dpids
 
-    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict):
+    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
+                       pre_tokenized=None):
         """Leaf-gathered exact selection through the K1 scorer."""
         partitioner = self.partitioner
         num_leaves = partitioner.num_leaves
         leaves = max(1, min(leaves, num_leaves))
         nq = queries.shape[0]
-        leaf_ids, c_sims = partitioner.tokenize_queries(queries, leaves)
-        valid_sel = partitioner.spilling_mask(c_sims)
-        # Exact f32 q.c_leaf joins per (query, leaf) at merge time.
+        leaf_ids, valid_sel, _ = partitioner.select_leaves(
+            queries, leaves, pre_tokenized)
+        # Exact f32 q.c_leaf of the f32 centers joins per (query, leaf) at
+        # merge time, whatever tokenized the query (int8 centers, an upper
+        # tree or the caller).
         c_sel = partitioner.centers[leaf_ids.long()]       # (nq, L, d)
         pair_bias = torch.bmm(c_sel, queries[:, :, None])[:, :, 0]
         l2 = self.measure == cfg.SQUARED_L2

@@ -2,13 +2,15 @@
 
 Port of scann_tpu/utils/serialization.py for the searchers the port
 serves: TreeAHSearcher (product codes with int8 / float32 / reconstruct
-lookup, with or without a tree), TreeXSearcher (residual-int8 tree-SQ, or
-float32 / bfloat16 / global-int8 dense leaves) and BruteForceSearcher
-(float32, int8 or bfloat16 rows), each with or without float32, bfloat16,
-residual-int8 or per-dimension int8 reordering.  Keys, dtypes and the
-config/meta blob are the JAX package's, so each package loads the
-other's index: the port searches an index built by scann_tpu (the search
-parity tests), and scann_tpu loads an index built by the port.  Loading
+lookup, with or without a tree, SOAR's two slots a row included),
+TreeXSearcher (residual-int8 tree-SQ, or float32 / bfloat16 / global-int8
+dense leaves) and BruteForceSearcher (float32, int8 or bfloat16 rows),
+each with or without float32, bfloat16, residual-int8 or per-dimension
+int8 reordering; the partitioner's int8 centers, upper tree and query
+spilling travel with it.  Keys, dtypes and the config/meta blob are the
+JAX package's, so each package loads the other's index: the port
+searches an index built by scann_tpu (the search parity tests), and
+scann_tpu loads an index built by the port.  Loading
 turns the numpy arrays into tensors on the requested device; index dtypes
 stay those of the files (int32 tables, int8 rows, f32 planes and centers;
 bfloat16 rows travel as their uint16 bit patterns).
@@ -52,6 +54,14 @@ def collect_assets(searcher):
         a = _to_numpy(arr)
         arrays[key], dtypes[key] = a, str(a.dtype)
 
+    def put_partitioner(part):
+        for key in ("centers", "centers_int8", "centers_inv_mult",
+                    "upper_centers", "upper_assign"):
+            put(key, getattr(part, key))
+        meta["query_spilling_type"] = part.query_spilling_type
+        meta["query_spilling_threshold"] = part.query_spilling_threshold
+        meta["upper_leaves_to_search"] = part.upper_leaves_to_search
+
     rh = getattr(searcher, "reorder_helper", None)
     if rh is not None:
         put("reorder_db", rh._db)
@@ -90,10 +100,7 @@ def collect_assets(searcher):
         meta["quantization_error_sq"] = searcher._quantization_error_sq
         meta["encoded_slots"] = searcher._encoded_slots
         if searcher.partitioner is not None:
-            put("centers", searcher.partitioner.centers)
-            meta["query_spilling_type"] = "fixed_number"
-            meta["query_spilling_threshold"] = 0.0
-            meta["upper_leaves_to_search"] = 1
+            put_partitioner(searcher.partitioner)
     elif tname == "TreeXSearcher":
         put("slot_rows", searcher.slot_rows)
         put("slot_leaf", searcher.slot_leaf)
@@ -113,7 +120,7 @@ def collect_assets(searcher):
             put("tx_bias2", searcher._bias2)
             put("tx_tile_start", searcher._p_tile_start)
             put("tx_ntiles", searcher._p_ntiles)
-        put("centers", searcher.partitioner.centers)
+        put_partitioner(searcher.partitioner)
     else:
         raise ValueError(f"cannot serialize searcher type {tname}")
     meta["dtypes"] = dtypes
@@ -145,12 +152,9 @@ def load_searcher(artifacts_dir: str, device):
     with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
         arrays = {k: raw[k] for k in raw.files}
     for key, item in (("mut_vectors", 15), ("proj_matrix", 16),
-                      ("centers_int8", 14), ("upper_centers", 14),
                       ("block_dims", 16)):
         if key in arrays:
             base.not_ported(f"index asset {key}", item)
-    if meta.get("query_spilling_type", "fixed_number") != "fixed_number":
-        base.not_ported("query spilling types", 14)
 
     def tensor(key):
         if key not in arrays:
@@ -163,10 +167,26 @@ def load_searcher(artifacts_dir: str, device):
 
     def partitioner():
         from scann_torch.partitioning import kmeans_tree
+        part = scann_config.partitioning
+        upper_l = 1
+        if part is not None and part.upper_tree is not None:
+            upper_l = part.upper_tree.num_leaves_to_search
+        # Hierarchical training derives its own upper fan-out: the stored
+        # value wins.
+        upper_l = int(meta.get("upper_leaves_to_search", upper_l))
         return kmeans_tree.KMeansTreePartitioner(
             centers=tensor("centers"),
             query_distance=cfg.internal_measure(
-                scann_config.distance_measure))
+                scann_config.distance_measure),
+            centers_int8=tensor("centers_int8"),
+            centers_inv_mult=tensor("centers_inv_mult"),
+            upper_centers=tensor("upper_centers"),
+            upper_assign=tensor("upper_assign"),
+            upper_leaves_to_search=upper_l,
+            query_spilling_type=meta.get("query_spilling_type",
+                                         "fixed_number"),
+            query_spilling_threshold=float(meta.get(
+                "query_spilling_threshold", 0.0)))
 
     tname = meta["type"]
     if tname == "BruteForceSearcher":
@@ -254,6 +274,7 @@ def _init_base(s, scann_config, meta, dev, tensor):
     s.dims = meta["dims"]
     s._build_x_dev = None
     s._reorder_deferred = False
+    s._crowding_attrs = None
     s.reorder_helper = None
     if scann_config.reordering is not None:
         rh = object.__new__(base.ReorderHelper)

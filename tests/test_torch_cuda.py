@@ -1,9 +1,10 @@
 """Tests of the port that need a CUDA card (marker ``cuda``): the K1-K6
 CUDA kernels against their plain torch versions, the CUDA search paths
-(tree-SQ, tree-AH in every lookup mode, the fused merge, and every
-score_brute_force composition: brute force, Tree-X dense leaves, tree-SQ +
-reorder) against the CPU
-plain path on the same index, and the wrappers' refusal of bad inputs.
+(tree-SQ, tree-AH in every lookup mode, SOAR's two-slot layout, the fused
+merge, and every score_brute_force composition: brute force, Tree-X dense
+leaves, tree-SQ + reorder) against the CPU plain path on the same index,
+dedup and crowding on the card against the CPU, and the wrappers'
+refusal of bad inputs.
 They skip without a card.  On a machine with one (no JAX needed; the
 repository's conftest imports JAX, hence --noconftest):
 
@@ -1029,3 +1030,101 @@ def test_cuda_composition_matches_cpu_plain_path(cuda, name, tmp_path):
         scale = scale + (q ** 2).sum(1)[:, None] + (
             db[np.maximum(ci, 0)] ** 2).sum(-1)
     assert np.all(np.abs(gd - cd)[same] <= 1e-4 * scale[same] + 1e-6)
+
+
+@pytest.mark.parametrize("lookup", ["int8", "reconstruct"])
+def test_cuda_soar_layout_kernels_and_search(cuda, lookup, tmp_path,
+                                             monkeypatch):
+    """A SOAR index (two slots a row) built on the card: every K3, K2 and K5
+    launch of its searches is held against the plain version on the same
+    inputs (K3 bit-equal, K2 and K5 at their bars above); the searches
+    return no id twice and agree with the CPU plain path."""
+    import dataclasses
+    from scann_torch.ops import topk
+    r = np.random.default_rng(2)
+    db = r.standard_normal((20000, 48)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    q = r.standard_normal((256, 48)).astype(np.float32)
+    config = (scann_torch.builder(db, 10, "dot_product")
+              .tree(num_leaves=32, num_leaves_to_search=4,
+                    training_sample_size=10000, soar_lambda=1.5)
+              .score_ah(2, anisotropic_quantization_threshold=0.2,
+                        training_sample_size=10000)
+              .reorder(20).create_config())
+    config = dataclasses.replace(config, asymmetric_hash=dataclasses.replace(
+        config.asymmetric_hash, lookup_type=lookup))
+    s = scann_torch.create_searcher(db, config, "cuda")
+    assert s._num_slots == 2 * len(db)
+    held = []
+
+    def k3(plan, q_rows, *rest, _f=pruned_lut.score_work_lut, **kw):
+        got = _f(plan, q_rows, *rest, **kw)
+        want = pruned_lut.score_work_torch_lut(
+            plan, q_rows[plan.qg_query.long()], *rest, **kw)
+        a, b = _active_pair(plan, got, want, kw["kpg"])
+        assert a.numel() and torch.equal(a, b)
+        held.append("k3")
+        return got
+
+    def k2(plan, *args, _f=ps.score_work, **kw):
+        got = _f(plan, *args, **kw)
+        _hold_k2(plan, got, ps.score_work_torch(plan, *args, **kw),
+                 kw["kpg"])
+        held.append("k2")
+        return got
+
+    def k5(q_bf, rows, bias, _f=fused_scan.fused_scan_groupmax, **kw):
+        gv, gi = _f(q_bf, rows, bias, **kw)
+        wv, wi = fused_scan.fused_scan_groupmax_torch(q_bf, rows, bias, **kw)
+        tol = 1e-5 * wv.abs() + 1e-5
+        assert torch.all((gv - wv).abs() <= tol)
+        assert (gi == wi).double().mean() >= 0.999
+        held.append("k5")
+        return gv, gi
+
+    monkeypatch.setattr(pruned_lut, "score_work_lut", k3)
+    monkeypatch.setattr(ps, "score_work", k2)
+    monkeypatch.setattr(fused_scan, "fused_scan_groupmax", k5)
+    s.serialize(str(tmp_path))
+    cpu = scann_torch.load_searcher(str(tmp_path), device="cpu")
+    searches = [dict(leaves_to_search=4)]
+    if lookup == "reconstruct":
+        searches.append(dict(leaves_to_search=10 ** 6))   # the full scan
+    for kw in searches:
+        gi, gd = s.search_batched(q, **kw)
+        for row in gi:
+            row = row[row >= 0]
+            assert len(set(row)) == len(row)
+        ci, cd = cpu.search_batched(q, **kw)
+        assert (gi[:, :, None] == ci[:, None, :]).any(-1).mean() >= 0.999
+        same = gi == ci
+        np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+    want = {"int8": {"k3"}, "reconstruct": {"k2", "k5"}}[lookup]
+    assert set(held) == want
+    # dedup on the card equals the CPU's.
+    vals = torch.as_tensor(r.integers(0, 5, (64, 40)).astype(np.float32))
+    ids = torch.as_tensor(r.integers(-1, 30, (64, 40)).astype(np.int32))
+    for a, b in zip(topk.dedup_candidates(vals.to(cuda), ids.to(cuda)),
+                    topk.dedup_candidates(vals, ids)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_crowding_and_sort_on_cuda_equal_cpu(cuda):
+    from scann_torch.ops import topk
+    r = np.random.default_rng(5)
+    vals = torch.as_tensor(r.integers(0, 8, (96, 50)).astype(np.float32))
+    ids = torch.as_tensor(r.integers(-1, 400, (96, 50)).astype(np.int32))
+    vals = torch.where(ids < 0, float("-inf"), vals)
+    attrs = torch.as_tensor(r.integers(0, 6, (96, 50, 2)).astype(np.int32))
+    for fn, args in ((topk.sort_results, (vals, ids)),
+                     (topk.crowding_rank, (vals, ids, attrs[..., 0])),
+                     (topk.crowding_filter, (vals, ids, attrs[..., 1], 2)),
+                     (topk.crowding_filter_multi, (vals, ids, attrs,
+                                                   (2, 3)))):
+        on_card = fn(*[a.to(cuda) if torch.is_tensor(a) else a
+                       for a in args])
+        on_cpu = fn(*args)
+        if torch.is_tensor(on_cpu):
+            on_card, on_cpu = (on_card,), (on_cpu,)
+        for a, b in zip(on_card, on_cpu):
+            assert torch.equal(a.cpu(), b)

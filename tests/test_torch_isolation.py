@@ -1,6 +1,7 @@
 """The port stands alone: scann_torch and chip_smoke.py import neither JAX
 nor the JAX package, entry points default to CUDA and raise without it,
-configurations the port does not serve raise NotImplementedError, and
+configurations the port does not serve raise NotImplementedError (and no
+refusal names ROADMAP item 14, whose settings are served), and
 chip_smoke.py's copy of the benchmark corpus is bench.py's."""
 
 import ast
@@ -115,26 +116,15 @@ def _tree(b, **kw):
 
 
 _UNPORTED = {
-    "soar": lambda b: _tree(b, soar_lambda=1.5).score_brute_force("int8"),
-    "avq": lambda b: _tree(b, avq=2.0).score_brute_force("int8"),
-    "spilling": lambda b: _tree(
-        b, query_spilling_type="additive").score_brute_force("int8"),
-    "int8_centroids": lambda b: _tree(
-        b, quantize_centroids=True).score_brute_force("int8"),
-    "hierarchical": lambda b: _tree(
-        b, hierarchical_top=2).score_brute_force("int8"),
-    # float32 leaves, int8 brute force, int8 reordering without a tree and
-    # reordering a brute-force search are served
+    # int8 brute force, int8 reordering without a tree and reordering a
+    # brute-force search are served
     # (test_formerly_unported_settings_build_and_search); each still
     # refuses beside a setting that is not ported.
-    "float32_leaves": lambda b: _tree(
-        b, soar_lambda=1.5).score_brute_force(),
     "int8_brute_force": lambda b: b.score_brute_force("int8").pca(2),
     "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8").opq(),
     "reorder": lambda b: b.score_brute_force().reorder(10).autopilot(),
     "pca": lambda b: b.pca(2),
     "autopilot": lambda b: b.autopilot(),
-    "upper_tree": lambda b: b.upper_tree(2, 1),
 }
 
 
@@ -151,6 +141,21 @@ _FORMERLY_UNPORTED = {
     "int8_brute_force": lambda b: b.score_brute_force("int8"),
     "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8"),
     "reorder": lambda b: b.score_brute_force().reorder(10),
+    # ROADMAP item 14's partitioning settings.  Tree-X reads neither SOAR
+    # nor AVQ (as in the JAX package): it builds the index it builds
+    # without them.
+    "soar": lambda b: _tree(b, soar_lambda=1.5).score_brute_force("int8"),
+    "avq": lambda b: _tree(b, avq=2.0).score_brute_force("int8"),
+    "spilling": lambda b: _tree(
+        b, query_spilling_type="additive").score_brute_force("int8"),
+    "int8_centroids": lambda b: _tree(
+        b, quantize_centroids=True).score_brute_force("int8"),
+    "hierarchical": lambda b: _tree(
+        b, hierarchical_top=2).score_brute_force("int8"),
+    "soar_float32_leaves": lambda b: _tree(
+        b, soar_lambda=1.5).score_brute_force(),
+    "upper_tree": lambda b: _tree(b).upper_tree(2, 1).score_brute_force(
+        "int8"),
 }
 
 
@@ -172,14 +177,27 @@ def test_unported_measures_and_search_params_raise():
                                 device="cpu").score_brute_force().build()
         idx, _ = s.search_batched(db[:2])
         assert (idx[:, 0] == [0, 1]).all()
-    s = scann_torch.builder(db, 3, "dot_product",
-                            device="cpu").score_brute_force().build()
-    for kw in ({"pre_tokenized_leaves": np.zeros((2, 1), np.int32)},
-               {"post_reordering_epsilon": 0.5},
-               {"final_num_neighbors": np.array([1, 2])}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            s.search_batched(db[:2], **kw)
+    # The item-14 search parameters are served: pre-tokenized leaves on a
+    # tree, the post-reordering epsilon and a per-query k.
+    s = _tree(scann_torch.builder(db, 3, "dot_product", device="cpu")
+              ).score_brute_force("int8").build()
+    idx, dist = s.search_batched(
+        db[:2], pre_tokenized_leaves=np.array([[0, -1], [1, 0]], np.int32))
+    assert idx.shape == (2, 3) and (idx[:, 0] >= 0).all()
+    idx, dist = s.search_batched(db[:2], post_reordering_epsilon=1e9)
+    assert (idx == -1).all() and np.isnan(dist).all()
+    idx, _ = s.search_batched(db[:2], final_num_neighbors=np.array([1, 2]))
+    assert (idx[0, 1:] == -1).all() and (idx[1, :2] >= 0).all()
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         scann_torch.builder(db, 3, "dot_product",
                             device="cpu").score_brute_force().build(
                                 docids=list(range(64)))
+
+
+def test_no_refusal_names_item_14():
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                text = open(os.path.join(dirpath, n)).read()
+                assert "not_ported(" not in text or ", 14)" not in text, n
+                assert "item 14" not in text, n

@@ -306,11 +306,6 @@ _UNPORTED = {
                 .create_config(), 16),
     "variable_chunks": (lambda b: _ah(
         b, variable_dims_per_block=[2, 2, 4]).create_config(), 16),
-    "soar": (lambda b: b.tree(num_leaves=4, num_leaves_to_search=2,
-                              soar_lambda=1.5).score_ah(2).create_config(),
-             14),
-    "avq": (lambda b: b.tree(num_leaves=4, num_leaves_to_search=2, avq=2.0)
-            .score_ah(2).create_config(), 14),
     "mutation": (lambda b: b.tree(num_leaves=4, num_leaves_to_search=2,
                                   incremental_threshold=0.1).score_ah(2)
                  .create_config(), 15),
