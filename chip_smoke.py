@@ -100,11 +100,34 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      tree-SQ config with learned multiplicative query spilling, int8
      centroids and hierarchical_top=45 (K1; mean leaves searched;
      cross-checked against the CPU);
+ 13. data and encodings (ROADMAP items 11, 13, 16), each part with
+     recall@10, QPS, stage ms, build seconds and index bytes a vector:
+     a. phase 10's corpus rounded and clipped to uint8: tree-SQ (config 3b
+        without the reorder, K1 at its leaves sweep, K1 held against its
+        plain version on the typed plan) beside the same values cast to
+        float32, both built deterministically (ids >= 99.9% equal, recall
+        within 0.001), and uint8 brute force on 1,000 queries (rows 1 B a
+        dimension);
+     b. phase 9's corpus and tree with pca(128) (K3 at b_pad 64, bit-equal
+        to its plain version) and opq() (out 960, b_pad 480; recall no
+        lower than phase 9's less 0.01) + tree-AH int8 + reorder(100)
+        against the original rows;
+     c. bench.py's tree-AH config on the phase-3 corpus with stacked codes
+        and with variable_dims_per_block=[4]*10+[2]*30 in reconstruct mode
+        (K2 at leaves 100, K5 on the full scan, each held against its plain
+        version) and in int8 lookup (the dense scan, 1,000 queries), and
+        the one-leaf tree in reconstruct mode (a K5 full scan, recall@10
+        >= 0.985);
+     d. a SPLADE-shaped sparse corpus (1,000,000 CSR rows over 30,522
+        terms, about 120 Zipf-distributed terms a row; 1,000 queries of
+        about 40): sparse_searcher's default (K3, exact host rescore)
+        against the exact product (cuSPARSE), and SparseExactSearcher on
+        100,000 rows for 100 queries;
 then the occupancy line of the six kernels (registers a thread, dynamic
 shared memory a block, resident blocks an SM, at the main path's shapes;
 K3 and K5 also at the widths of phase 9), the kernels JSON line (with
-each kernel's launches in phase 12), the card line, and the final ok
-line.
+each kernel's launches in phases 12 and 13), the card line, and the
+final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
@@ -116,6 +139,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -376,7 +400,8 @@ def k1_bound(plan, rows3, kpg):
 
 
 def ah_inputs(torch, searcher, queries, leaves, measure_l2):
-    """The exact K3 / K4 inputs of the main path for this batch: (plan,
+    """The exact K3 / K4 inputs of the main path for this batch (queries
+    in the index's space, projected where it has a projection): (plan,
     the batch's bf16 queries (K3) or the gathered query groups (K4),
     codes, codebook table, squared norms (K3) or mean (K4), bias).  A squared-L2 case on a dot-product index takes the mean of
     its decoded rows, as an L2 index has, centers the queries on it and
@@ -386,10 +411,11 @@ def ah_inputs(torch, searcher, queries, leaves, measure_l2):
     plan = pruned_plan(torch, searcher, queries, leaves)
     mean = searcher._p_mean
     d_pad = mean.shape[0]
+    dims = searcher._index_dims
     if measure_l2 and searcher._recon_mean is None:
         mean = torch.zeros_like(mean)
-        mean[:searcher.dims] = searcher._decode_mean()
-    q = queries - mean[None, :searcher.dims]
+        mean[:dims] = searcher._decode_mean()
+    q = queries - mean[None, :dims]
     q_bf = torch.nn.functional.pad(q, (0, d_pad - q.shape[1])).to(
         torch.bfloat16)
     if searcher._int8_lut:
@@ -558,7 +584,7 @@ def exact_truth(scann_torch, db, queries, measure):
 
 def wide_phase(torch, scann_torch):
     """Phase 9; returns (K3 record at b_pad 480, K5 record at d 960,
-    summary dict)."""
+    summary dict, the corpus (rows, queries, truth) for phase 13)."""
     from scann_torch.ops import fused_scan
     from scann_torch.ops import pruned_lut
     t0 = time.perf_counter()
@@ -684,11 +710,12 @@ def wide_phase(torch, scann_torch):
         f"K5 launches {launched}, stage ms {stages}")
     cross_check(scann_torch, flat, queries, "GIST reconstruct without a "
                 "tree", db, leaves_to_search=0)
-    return k3, k5, out
+    return k3, k5, out, (db, queries, truth)
 
 
 def sift_phase(torch, scann_torch):
-    """Phase 10: config 3b; returns its summary dict."""
+    """Phase 10: config 3b; returns its summary dict and the corpus (rows,
+    queries) for phase 13."""
     from scann_torch.ops import pruned_sq
     t0 = time.perf_counter()
     db, queries = make_sift_like(SIFT_N, SIFT_Q, SIFT_D)
@@ -742,7 +769,7 @@ def sift_phase(torch, scann_torch):
                         leaves_to_search=SIFT_SWEEP[0])
         s = None
         torch.cuda.empty_cache()
-    return out
+    return out, (db, queries)
 
 
 def composition_phase(torch, scann_torch, db, queries, truth):
@@ -1536,6 +1563,79 @@ def record_calls(searcher, name):
     return calls, method
 
 
+def cut_lists(torch, searcher, q_dev, rows, k, k_max, leaves):
+    """Best-first candidates of the queries ``rows``: the best ``k`` at a
+    budget of ``k`` and the best ``k`` + 1 at a budget of ``k_max``, as
+    ((scores, ids), (scores, ids)) numpy arrays."""
+    from scann_torch.ops import topk
+    q = q_dev[torch.as_tensor(rows, device=q_dev.device)]
+    out = []
+    for budget, width in ((k, k), (k_max, k + 1)):
+        v, d = topk.sort_results(*searcher._select_candidates(q, budget,
+                                                              leaves))
+        out.append((v[:, :width].cpu().numpy(), d[:, :width].cpu().numpy()))
+    return out
+
+
+def cut_at_a_tie(va, da, vb, db_):
+    """Whether one query's best k candidates at a small budget (scores
+    ``va``, ids ``da``) and its best k + 1 at a large one (``vb``, ``db_``)
+    can differ only in the order of tied scores: both k-th scores are
+    equal, the large budget's (k + 1)-th ties them, so either tie order
+    cuts a different candidate, and the ids above that score agree."""
+    k = va.shape[0]
+    cut = va[-1]
+    return bool(vb[k - 1] == cut and vb[k] == cut
+                and set(da[va > cut].tolist())
+                == set(db_[:k][vb[:k] > cut].tolist()))
+
+
+def check_k_pre_rows(torch, searcher, queries, q_dev, base_i, k_small,
+                     k_large, leaves):
+    """Per-query ``pre_reorder_num_neighbors``: the even rows ask for
+    ``k_small``, the odd ones for ``k_large``, the searcher's own budget,
+    whose plain search gave ``base_i``.  An odd row must equal it; an even
+    one rescores the best ``k_small`` of the ``k_large`` selection and must
+    equal the scalar ``k_small`` search, which rescores the best of its
+    own, smaller SOAR over-retrieval.  Both draw on the same survivors and
+    select exactly, so they can differ only where the ``k_small``-th score
+    ties the next, and the two tie orders cut different candidates: every
+    differing row is logged with both candidate lists and must be such a
+    tie.  Returns (tied rows, differing rows) among the even ones."""
+    from scann_torch.models import tree_ah
+    kpg = [tree_ah._survivors_per_group(searcher._k_fetch(k),
+                                        searcher._num_slots,
+                                        searcher.partitioner.num_leaves)
+           for k in (k_small, k_large)]
+    if kpg[0] != kpg[1]:
+        raise AssertionError(f"survivors per group differ: {kpg}")
+    nq = queries.shape[0]
+    kw = dict(leaves_to_search=leaves)
+    pres = np.where(np.arange(nq) % 2 == 0, k_small, k_large).astype(
+        np.int32)
+    idx, _ = searcher.search_batched(queries, pre_reorder_num_neighbors=pres,
+                                     **kw)
+    small, _ = searcher.search_batched(
+        queries, pre_reorder_num_neighbors=k_small, **kw)
+    rows = np.arange(0, nq, 2)
+    (va, da), (vb, db_) = cut_lists(torch, searcher, q_dev, rows, k_small,
+                                    k_large, leaves)
+    tied = [cut_at_a_tie(va[j], da[j], vb[j], db_[j])
+            for j in range(len(rows))]
+    differ = np.nonzero((idx[rows] != small[rows]).any(1))[0]
+    for j in differ:
+        log(f"k_pre row {rows[j]}: ids {idx[rows[j]].tolist()} against the "
+            f"scalar search's {small[rows[j]].tolist()}; best {k_small} at "
+            f"a budget of {k_small}: ids {da[j].tolist()} scores "
+            f"{va[j].tolist()}; best {k_small + 1} at {k_large}: ids "
+            f"{db_[j].tolist()} scores {vb[j].tolist()}; tie at the cut: "
+            f"{tied[j]}")
+    if not (np.array_equal(idx[1::2], base_i[1::2])
+            and all(tied[j] for j in differ)):
+        raise AssertionError("per-query pre_reorder_num_neighbors")
+    return sum(tied), len(differ)
+
+
 def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     """Phase 12: ROADMAP item 14.  Returns (launches of K1-K5 in this
     phase, summary dict)."""
@@ -1632,15 +1732,12 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
             and np.array_equal(np.where(col < ks[:, None], idx, -1),
                                np.where(col < ks[:, None], base_i, -1))):
         raise AssertionError("per-query final_num_neighbors")
-    pres = np.where(np.arange(N_QUERY) % 2 == 0, 20, SOAR_REORDER).astype(
-        np.int32)
-    idx, _ = soar.search_batched(queries, pre_reorder_num_neighbors=pres,
-                                 **kw)
-    at20, _ = soar.search_batched(queries, pre_reorder_num_neighbors=20,
-                                  **kw)
-    if not (np.array_equal(idx[::2], at20[::2])
-            and np.array_equal(idx[1::2], base_i[1::2])):
-        raise AssertionError("per-query pre_reorder_num_neighbors")
+    ties, differ = check_k_pre_rows(torch, soar, queries, q_dev, base_i,
+                                    20, SOAR_REORDER, SOAR_LEAVES)
+    log(f"per-query pre_reorder_num_neighbors: {ties} of {N_QUERY // 2} "
+        f"rows with 20 have their 20th candidate's score tied with the "
+        f"21st; {differ} rows differ from the scalar search, each at such "
+        f"a tie")
     eps = (base_d[:, 2] + base_d[:, 3]) / 2
     idx, dist = soar.search_batched(queries, post_reordering_epsilon=eps,
                                     **kw)
@@ -1792,6 +1889,486 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     out["launches"] = launches
     log(f"phase 12 launches: {launches}")
     return launches, out
+
+
+# Phase 13: ROADMAP items 11 (typed input datasets), 13 (the one-leaf AH
+# tree) and 16 (data and encodings).  Part a: phase 10's corpus rounded
+# and clipped to uint8, as SIFT1M's descriptors are; part b: phase 9's
+# corpus, its tree and budget; part c: the phase-3 corpus with bench.py's
+# tree-AH config; part d: a SPLADE-shaped sparse corpus (BERT's
+# vocabulary, about 120 Zipf-distributed terms a row, 40 a query).
+PCA_DIMS = 128                      # pca(128): 64 blocks of 2, b_pad 64
+VARIABLE_WIDTHS = (4,) * 10 + (2,) * 30   # 100 dimensions in 40 blocks
+ENC_LUT_QUERIES = 1_000             # queries of the dense LUT scans
+TYPED_BF_QUERIES = 1_000            # queries of the typed brute force
+TYPED_MIN_ID_AGREE, TYPED_MAX_RECALL_GAP = 0.999, 0.001
+OPQ_MAX_LOSS = 0.01                 # OPQ vs phase 9's tree-AH, recall@10
+SPLADE_ROWS, SPLADE_QUERIES, SPLADE_VOCAB = 1_000_000, 1_000, 30_522
+SPLADE_ROW_NNZ, SPLADE_QUERY_NNZ = 120, 40
+SPARSE_EXACT_ROWS, SPARSE_EXACT_QUERIES = 100_000, 100
+
+
+def device_bytes(s):
+    """Bytes of the index tensors a searcher holds on the card."""
+    ts = [getattr(s, a, None) for a in (
+        "_db", "_sq_norms", "slot_rows", "slot_scale", "_bias2", "slot_leaf",
+        "slot_dpid", "_p_rows", "_p_bias", "_p_dpid", "_p_codes",
+        "_recon_rows", "_recon_bias")]
+    index = getattr(s, "index", None)
+    if index is not None:
+        ts += [index.codes, index.slot_dpid, index.slot_leaf]
+    part = getattr(s, "partitioner", None)
+    if part is not None:
+        ts.append(part.centers)
+    if s.reorder_helper is not None:
+        ts += [s.reorder_helper._db, s.reorder_helper._sq_norms]
+    if s.projector is not None:
+        ts.append(s.projector.matrix)
+    seen, total = set(), 0
+    for t in ts:
+        if t is not None and id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
+def make_splade_like(torch, n, nq, seed=13, device="cuda"):
+    """(rows, queries) as CSR numpy arrays (indptr, indices, values,
+    shape): about SPLADE_ROW_NNZ / SPLADE_QUERY_NNZ distinct terms of
+    BERT's vocabulary a row, drawn from a Zipf law (exponent 1) over a
+    random term order, with positive SPLADE-like weights.  Drawn on
+    ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = 1.0 / torch.arange(1, SPLADE_VOCAB + 1, device=device,
+                           dtype=torch.float64)
+    cdf = torch.cumsum(p / p.sum(), 0)
+    perm = torch.randperm(SPLADE_VOCAB, generator=gen, device=device)
+
+    def draw(m, nnz):
+        draws = nnz * 3 // 2
+        ptr, idx, val = [np.zeros(1, np.int64)], [], []
+        for r0 in range(0, m, 100_000):
+            mm = min(100_000, m - r0)
+            u = torch.rand((mm, draws), generator=gen, device=device,
+                           dtype=torch.float64)
+            cols = perm[torch.searchsorted(cdf, u).clamp_max(
+                SPLADE_VOCAB - 1)]
+            cols, _ = cols.sort(dim=1)
+            first = torch.ones_like(cols, dtype=torch.bool)
+            first[:, 1:] = cols[:, 1:] != cols[:, :-1]
+            # nnz of the distinct terms, at random; fewer when a row drew
+            # fewer distinct terms.
+            key = torch.where(first, torch.rand(
+                (mm, draws), generator=gen, device=device), -1.0)
+            keyk, pos = key.topk(nnz, dim=1)
+            sel = torch.where(keyk >= 0, torch.gather(cols, 1, pos),
+                              SPLADE_VOCAB)
+            sel, _ = sel.sort(dim=1)
+            keep = sel < SPLADE_VOCAB
+            w = 0.05 + 0.7 * torch.empty((mm, nnz), device=device
+                                         ).exponential_(1.0, generator=gen)
+            ptr.append(ptr[-1][-1] + np.cumsum(
+                keep.sum(1).cpu().numpy().astype(np.int64)))
+            idx.append(sel[keep].cpu().numpy().astype(np.int64))
+            val.append(w[keep].float().cpu().numpy())
+        return (np.concatenate(ptr), np.concatenate(idx),
+                np.concatenate(val), (m, SPLADE_VOCAB))
+
+    return draw(n, SPLADE_ROW_NNZ), draw(nq, SPLADE_QUERY_NNZ)
+
+
+def sparse_truth(torch, rows, queries, k=K):
+    """Exact sparse dot-product top-k on the card, with cuSPARSE (a CSR x
+    dense product; independent of the port's sparse code)."""
+    def csr(m):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m[0]), torch.from_numpy(m[1]),
+            torch.from_numpy(m[2]), size=m[3],
+            check_invariants=False).to("cuda")
+
+    warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+    warnings.filterwarnings("ignore", "Sparse invariant checks")
+    q_dense = csr(queries).to_dense()
+    best_v = best_i = None
+    step = 250_000
+    for r0 in range(0, rows[3][0], step):
+        r1 = min(r0 + step, rows[3][0])
+        lo, hi = int(rows[0][r0]), int(rows[0][r1])
+        part = (rows[0][r0:r1 + 1] - lo, rows[1][lo:hi], rows[2][lo:hi],
+                (r1 - r0, rows[3][1]))
+        sims = (csr(part) @ q_dense.T).T                   # (nq, rows)
+        v, i = sims.topk(min(k, r1 - r0), dim=1)
+        i = i + r0
+        if best_v is not None:
+            v, pos = torch.cat([best_v, v], 1).topk(k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, pos)
+        best_v, best_i = v, i
+    return best_i.cpu().numpy(), best_v.cpu().numpy()
+
+
+def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
+    """Phase 13: ROADMAP items 11 (typed), 13 and 16.  Returns (launches
+    of K1-K5 in this phase's searches, the largest kernel-vs-plain error
+    of each kernel held here, summary dict)."""
+    from scann_torch.data import sparse as sparse_mod
+    from scann_torch.models import tree_ah
+    from scann_torch.ops import fused_scan
+    from scann_torch.ops import pruned_lut
+    from scann_torch.ops import pruned_scan
+    from scann_torch.ops import pruned_sq
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {"pruned_sq": 0, "pruned_rows": 0, "pruned_lut": 0,
+                "pruned_codes": 0, "fused_scan": 0}
+    errs = {}
+    timer = StageTimer(torch)
+
+    def counted(s, queries, what, **kw):
+        """One timed search with every kernel count set to 0 just before;
+        the launches it made join the phase's."""
+        pruned_sq.launches = pruned_scan.launches = 0
+        pruned_lut.launches_lut = pruned_lut.launches_codes = 0
+        fused_scan.launches = 0
+        inner = getattr(s, "searcher", s)     # a SparseSearcher's index
+        inner.stage_hook = timer
+        idx, dist, wall, stages, _ = timed_search(
+            torch, s, timer, queries, lambda: 0, **kw)
+        inner.stage_hook = None
+        got = {"pruned_sq": pruned_sq.launches,
+               "pruned_rows": pruned_scan.launches,
+               "pruned_lut": pruned_lut.launches_lut,
+               "pruned_codes": pruned_lut.launches_codes,
+               "fused_scan": fused_scan.launches}
+        for name, n in got.items():
+            launches[name] += n
+        nq = getattr(queries, "n_rows", None) or len(queries)
+        if not np.isfinite(dist).all() or idx.shape != (nq, K):
+            raise AssertionError(f"{what}: bad results")
+        return idx, wall, stages, {n: c for n, c in got.items() if c}
+
+    def note(rec, what):
+        log(f"{what}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items()))
+
+    # a. Typed: phase 10's corpus as uint8.  The typed build and the
+    # float32-cast build run with deterministic index_add_ so that the
+    # comparison sees the typed path alone, not run-to-run atomics.
+    db_f, q_f = sift
+    db8 = np.clip(np.rint(db_f), 0, 255).astype(np.uint8)
+    q8 = np.clip(np.rint(q_f), 0, 255).astype(np.float32)
+    sift = db_f = q_f = None
+    truth8 = exact_truth(scann_torch, db8.astype(np.float32), q8,
+                         "squared_l2")
+    typed = {}
+    results = {}
+    for name, rows in (("uint8", db8), ("float32 cast", None)):
+        rows = db8 if rows is not None else db8.astype(np.float32)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            s, build_s = timed_build(torch, lambda: scann_torch.builder(
+                rows, K, "squared_l2").tree(**SIFT_TREE)
+                .score_brute_force(quantize="int8").build())
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rec = {"build_s": build_s, "num_leaves": s.partitioner.num_leaves,
+               "bytes_per_vector": device_bytes(s) / len(db8),
+               "build_input_bytes_per_vector": rows.itemsize * rows.shape[1],
+               "points": []}
+        results[name] = []
+        for leaves in SIFT_SWEEP:
+            idx, wall, stages, got = counted(
+                s, q8, f"typed {name}", leaves_to_search=leaves)
+            if not got.get("pruned_sq"):
+                raise AssertionError(f"typed {name} leaves={leaves} did not "
+                                     f"launch K1")
+            results[name].append(idx)
+            rec["points"].append({"leaves": leaves,
+                                  "recall": recall_at_k(idx, truth8),
+                                  "qps": SIFT_Q / wall, "launches": got,
+                                  "stage_ms": stages})
+            log(f"typed {name} tree-SQ leaves={leaves}: recall@10 "
+                f"{rec['points'][-1]['recall']:.4f}, qps "
+                f"{SIFT_Q / wall:.0f}, launches {got}, stage ms {stages}")
+        if name == "uint8":
+            q_dev = torch.as_tensor(q8, device="cuda")
+            plan, qg_rows, bias = k1_inputs(torch, s, q_dev, 100, False)
+            args = (plan, qg_rows, s.slot_rows, s.slot_scale, bias)
+            got = pruned_sq.score_work_sq(*args, measure_l2=True, kpg=4)
+            want = pruned_sq.score_work_torch_sq(*args, measure_l2=True,
+                                                 kpg=4)
+            torch.cuda.synchronize()
+            err, ident = compare_packed(torch, "K1 (typed)", got, want, plan,
+                                        atol=K1_ATOL)
+            errs["pruned_sq"] = err
+            log(f"K1 vs plain on the typed plan (l2, kpg 4, leaves 100): "
+                f"max |err| {err:.3g}, identities agree {ident:.6f}")
+            del plan, qg_rows, bias, args, got, want, q_dev
+        typed[name] = rec
+        log(f"typed {name}: build {build_s:.1f} s, {rec['num_leaves']} "
+            f"leaves, index {rec['bytes_per_vector']:.1f} B/vector")
+        s = None
+        torch.cuda.empty_cache()
+    agree = [float(np.mean(a == b)) for a, b in zip(results["uint8"],
+                                                    results["float32 cast"])]
+    gaps = [abs(a["recall"] - b["recall"]) for a, b in zip(
+        typed["uint8"]["points"], typed["float32 cast"]["points"])]
+    typed["ids_equal"] = agree
+    log(f"typed uint8 vs float32 cast, ids equal {agree}, recall gaps "
+        f"{gaps}")
+    if min(agree) < TYPED_MIN_ID_AGREE or max(gaps) > TYPED_MAX_RECALL_GAP:
+        raise AssertionError("the typed build differs from the float32-cast "
+                             "build")
+    results = {}
+    qb = q8[:TYPED_BF_QUERIES]
+    for name, rows in (("uint8", db8), ("float32 cast",
+                                        db8.astype(np.float32))):
+        s, build_s = timed_build(torch, lambda: scann_torch.builder(
+            rows, K, "squared_l2").score_brute_force().build())
+        idx, wall, stages, _ = counted(s, qb, f"typed brute force {name}")
+        rec = {"build_s": build_s, "rows_bytes_per_vector":
+               s._db.element_size() * s._db.shape[1],
+               "recall": recall_at_k(idx, truth8[:TYPED_BF_QUERIES]),
+               "qps": TYPED_BF_QUERIES / wall, "stage_ms": stages}
+        results[name] = idx
+        typed[f"brute_force {name}"] = rec
+        note(rec, f"typed brute force {name} ({TYPED_BF_QUERIES} queries)")
+        s = None
+        torch.cuda.empty_cache()
+    if typed["brute_force uint8"]["rows_bytes_per_vector"] != SIFT_D:
+        raise AssertionError("typed brute-force rows are not 1 B a dimension")
+    bf_agree = float(np.mean(results["uint8"] == results["float32 cast"]))
+    typed["brute_force_ids_equal"] = bf_agree
+    if bf_agree < TYPED_MIN_ID_AGREE:
+        raise AssertionError(f"typed brute force ids equal {bf_agree}")
+    out["typed"] = typed
+    db8 = q8 = truth8 = qb = results = None
+
+    # b. Projections on phase 9's corpus, its tree, leaves and budget.
+    db, queries, truth = gist
+    gist = None
+    leaves = GIST_TREE["num_leaves_to_search"]
+    base = wide_summary["tree_ah"]["recall"]
+    proj = {"unprojected_recall": base}
+    for name, project in (("pca", lambda b: b.pca(
+            PCA_DIMS, pca_significance_threshold=None)),
+            ("opq", lambda b: b.opq())):
+        def make():
+            b = project(scann_torch.builder(db, K, "squared_l2")
+                        .tree(**GIST_TREE)
+                        .score_ah(2, anisotropic_quantization_threshold=0.2)
+                        .reorder(AH_REORDER))
+            config = b.create_config()
+            return scann_torch.create_searcher(db, dataclasses.replace(
+                config, asymmetric_hash=dataclasses.replace(
+                    config.asymmetric_hash, lookup_type="int8")), "cuda")
+        s, build_s = timed_build(torch, make)
+        b_pad = s._p_codes.shape[-1] * 2
+        idx, wall, stages, got = counted(
+            s, queries, f"GIST {name}", leaves_to_search=leaves,
+            pre_reorder_num_neighbors=AH_REORDER)
+        if not got.get("pruned_lut"):
+            raise AssertionError(f"GIST {name} did not launch K3")
+        rec = {"out_dims": s.projector.out_dims, "b_pad": b_pad,
+               "build_s": build_s, "recall": recall_at_k(idx, truth),
+               "qps": GIST_QUERIES / wall, "launches": got,
+               "stage_ms": stages,
+               "bytes_per_vector": device_bytes(s) / GIST_ROWS}
+        note(rec, f"GIST {name} tree-AH int8 + reorder({AH_REORDER}) at "
+                  f"leaves={leaves} (phase 9 unprojected: {base:.4f})")
+        if name == "pca":
+            if b_pad != PCA_DIMS // 2:
+                raise AssertionError(f"PCA b_pad {b_pad}")
+            q_proj = s._project_queries(torch.as_tensor(queries,
+                                                        device="cuda"))
+            for kpg in (8, 16):
+                a3 = ah_inputs(torch, s, q_proj, leaves, True)
+                got3 = pruned_lut.score_work_lut(*a3, measure_l2=True,
+                                                 kpg=kpg)
+                want3 = k3_plain(*a3, measure_l2=True, kpg=kpg)
+                torch.cuda.synchronize()
+                err, _ = compare_packed(torch, "K3 at b_pad 64", got3, want3,
+                                        a3[0])
+                errs["pruned_lut"] = max(errs.get("pruned_lut", 0.0), err)
+                log(f"K3 vs plain on the PCA index (b_pad {b_pad}, l2, kpg "
+                    f"{kpg}): bit-equal, active "
+                    f"{int(a3[0].work_active.sum())}")
+                del a3, got3, want3
+            cross_check(scann_torch, s, queries, "GIST PCA tree-AH", db,
+                        leaves_to_search=leaves,
+                        pre_reorder_num_neighbors=AH_REORDER)
+        elif rec["recall"] < base - OPQ_MAX_LOSS:
+            raise AssertionError(f"OPQ recall@10 {rec['recall']:.4f} under "
+                                 f"phase 9's {base:.4f} less {OPQ_MAX_LOSS}")
+        proj[name] = rec
+        s = None
+        torch.cuda.empty_cache()
+    out["projection"] = proj
+    db = queries = truth = None
+
+    # c. Stacked, variable chunks and the one-leaf tree on the phase-3
+    # corpus with bench.py's tree-AH config.
+    db, queries, truth = glove
+    q_dev = torch.as_tensor(queries, device="cuda")
+    bench_tree = dict(num_leaves=NUM_LEAVES,
+                      num_leaves_to_search=LEAVES_TO_SEARCH,
+                      training_sample_size=TRAIN_SAMPLE)
+    models = {}
+    for name, tree, ah in (
+            ("stacked", bench_tree, dict(quantization_scheme="stacked")),
+            ("variable", bench_tree,
+             dict(variable_dims_per_block=VARIABLE_WIDTHS)),
+            ("single_leaf", dict(num_leaves=1, num_leaves_to_search=1), {})):
+        for lookup in ("reconstruct", "int8"):
+            if name == "single_leaf" and lookup == "int8":
+                continue
+            def make():
+                b = (scann_torch.builder(db, K, "dot_product").tree(**tree)
+                     .score_ah(2, anisotropic_quantization_threshold=0.2,
+                               **ah).reorder(AH_REORDER))
+                config = b.create_config()
+                return scann_torch.create_searcher(db, dataclasses.replace(
+                    config, asymmetric_hash=dataclasses.replace(
+                        config.asymmetric_hash, lookup_type=lookup)),
+                    "cuda")
+            s, build_s = timed_build(torch, make)
+            nl = s.partitioner.num_leaves
+            rec = {"build_s": build_s, "num_leaves": nl,
+                   "bytes_per_vector": device_bytes(s) / N_DB}
+            if lookup == "int8":
+                qs = queries[:ENC_LUT_QUERIES]
+                idx, wall, stages, got = counted(
+                    s, qs, f"{name} int8", leaves_to_search=LEAVES_TO_SEARCH)
+                if got:
+                    raise AssertionError(f"{name} int8 lookup launched {got}")
+                rec.update(recall=recall_at_k(idx, truth[:len(qs)]),
+                           qps=len(qs) / wall, stage_ms=stages)
+                rec["bytes_per_vector"] = device_bytes(s) / N_DB
+                note(rec, f"{name} int8 lookup, dense scan, leaves="
+                          f"{LEAVES_TO_SEARCH} ({len(qs)} queries)")
+                models[f"{name}_int8"] = rec
+                s = None
+                torch.cuda.empty_cache()
+                continue
+            # The one-leaf tree: every search a full scan (at this size the
+            # build's leaf-size cap splits the leaf, as in the JAX package).
+            points = ((("pruned", LEAVES_TO_SEARCH),)
+                      if name != "single_leaf" else ()) + (("full_scan", nl),)
+            for what, lv in points:
+                idx, wall, stages, got = counted(
+                    s, queries, f"{name} {what}", leaves_to_search=lv)
+                kernel = "pruned_rows" if what == "pruned" else "fused_scan"
+                if not got.get(kernel):
+                    raise AssertionError(f"{name} reconstruct {what} did not "
+                                         f"launch {kernel}")
+                rec[what] = {"leaves": lv, "recall": recall_at_k(idx, truth),
+                             "qps": N_QUERY / wall, "launches": got,
+                             "stage_ms": stages}
+                log(f"{name} reconstruct {what} (leaves={lv}): recall@10 "
+                    f"{rec[what]['recall']:.4f}, qps {N_QUERY / wall:.0f}, "
+                    f"launches {got}, stage ms {stages}")
+            if (name == "single_leaf"
+                    and rec["full_scan"]["recall"] < RECON_FULL_SCAN_FLOOR):
+                raise AssertionError(
+                    f"{name} full scan recall@10 "
+                    f"{rec['full_scan']['recall']:.4f} under "
+                    f"{RECON_FULL_SCAN_FLOOR}")
+            rec["bytes_per_vector"] = device_bytes(s) / N_DB
+            log(f"{name} reconstruct: build {build_s:.1f} s, {nl} leaves, "
+                f"{rec['bytes_per_vector']:.1f} B/vector on the card")
+            if name != "single_leaf":
+                kpg = tree_ah._survivors_per_group(
+                    s._k_fetch(AH_REORDER), s._num_slots, nl)
+                args = recon_k2_inputs(torch, s, q_dev, LEAVES_TO_SEARCH,
+                                       False)
+                got = pruned_scan.score_work(*args, measure_l2=False,
+                                             kpg=kpg)
+                want = pruned_scan.score_work_torch(*args, measure_l2=False,
+                                                    kpg=kpg)
+                torch.cuda.synchronize()
+                err, ident = compare_packed(
+                    torch, f"K2 ({name})", got, want, args[0], atol=K4_ATOL,
+                    min_id=K2_MIN_ID_AGREE)
+                errs["pruned_rows"] = max(errs.get("pruned_rows", 0.0), err)
+                log(f"K2 vs plain on the {name} layout (kpg {kpg}): max "
+                    f"|err| {err:.3g}, identities agree {ident:.6f}")
+                del args, got, want
+            rows, bias = s._recon_rows, s._recon_bias
+            _, q_bf = s._recon_queries(q_dev[:SOAR_K5_QUERIES], rows.shape[1])
+            got = fused_scan.fused_scan_groupmax(q_bf, rows, bias)
+            want = fused_scan.fused_scan_groupmax_torch(q_bf, rows, bias)
+            torch.cuda.synchronize()
+            err, agree = compare_groupmax(torch, got, want, q_bf, rows, bias,
+                                          1.0)
+            errs["fused_scan"] = max(errs.get("fused_scan", 0.0), err)
+            log(f"K5 vs plain on the {name} rows ({SOAR_K5_QUERIES} queries "
+                f"x {rows.shape[0]} slots): max |err| {err:.3g}, slots agree "
+                f"{agree:.6f}")
+            models[f"{name}_reconstruct"] = rec
+            s = rows = bias = q_bf = got = want = None
+            torch.cuda.empty_cache()
+    out["models"] = models
+    db = queries = truth = glove = q_dev = None
+
+    # d. Sparse: sparse_searcher's default above 100,000 rows (tree +
+    # score_ah(2) + reorder(4k), K3) with the exact host rescore, and the
+    # exact sparse scan on a slice.
+    t0 = time.perf_counter()
+    rows, qs = make_splade_like(torch, SPLADE_ROWS, SPLADE_QUERIES)
+    truth, _ = sparse_truth(torch, rows, qs)
+    gen_s = time.perf_counter() - t0
+    db_m, q_m = sparse_mod.SparseMatrix(*rows), sparse_mod.SparseMatrix(*qs)
+    nnz_row = len(db_m.indices) / SPLADE_ROWS
+    nnz_q = len(q_m.indices) / SPLADE_QUERIES
+    s, build_s = timed_build(torch, lambda: scann_torch.sparse_searcher(
+        db_m, K, "dot_product"))
+    inner = s.searcher
+    sp = {"rows": SPLADE_ROWS, "nnz_per_row": nnz_row, "nnz_per_query":
+          nnz_q, "corpus_and_truth_s": gen_s, "build_s": build_s,
+          "num_leaves": inner.partitioner.num_leaves,
+          "leaves_to_search": inner.part_cfg.num_leaves_to_search}
+    idx, wall, stages, got = counted(s, q_m, "sparse searcher")
+    if not got.get("pruned_lut"):
+        raise AssertionError("the sparse searcher did not launch K3")
+    sp.update(recall=recall_at_k(idx, truth), qps=SPLADE_QUERIES / wall,
+              launches=got, stage_ms=stages,
+              bytes_per_vector=device_bytes(inner) / SPLADE_ROWS)
+    note(sp, "sparse_searcher (SPLADE-shaped, 256 hashed dims)")
+    s = inner = None
+    torch.cuda.empty_cache()
+    sub = (db_m.indptr[:SPARSE_EXACT_ROWS + 1],
+           db_m.indices[:db_m.indptr[SPARSE_EXACT_ROWS]],
+           db_m.values[:db_m.indptr[SPARSE_EXACT_ROWS]],
+           (SPARSE_EXACT_ROWS, SPLADE_VOCAB))
+    q_sub = (q_m.indptr[:SPARSE_EXACT_QUERIES + 1],
+             q_m.indices[:q_m.indptr[SPARSE_EXACT_QUERIES]],
+             q_m.values[:q_m.indptr[SPARSE_EXACT_QUERIES]],
+             (SPARSE_EXACT_QUERIES, SPLADE_VOCAB))
+    want_i, want_v = sparse_truth(torch, sub, q_sub)
+    ex, build_s = timed_build(torch, lambda: scann_torch.SparseExactSearcher(
+        sparse_mod.SparseMatrix(*sub), K, "dot_product"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ei, ed = ex.search_batched(sparse_mod.SparseMatrix(*q_sub))
+    wall = time.perf_counter() - t0
+    found = float((want_i[:, :, None] == ei[:, None, :]).any(-1).mean())
+    derr = float(np.abs(ed - want_v).max() / np.abs(want_v).max())
+    sp["exact"] = {"rows": SPARSE_EXACT_ROWS,
+                   "queries": SPARSE_EXACT_QUERIES, "build_s": build_s,
+                   "qps": SPARSE_EXACT_QUERIES / wall, "ids_found": found,
+                   "max_rel_dist_err": derr}
+    note(sp["exact"], "SparseExactSearcher vs cuSPARSE top-10")
+    if found < 0.999 or derr > 1e-4:
+        raise AssertionError("SparseExactSearcher disagrees with the exact "
+                             "product")
+    out["sparse"] = sp
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 launches: {launches}; {out['seconds']:.1f} s")
+    for name, n in launches.items():
+        if name != "pruned_codes" and n == 0:
+            raise AssertionError(f"phase 13 never launched {name}")
+    return launches, errs, out
 
 
 def main():
@@ -1946,13 +2523,20 @@ def main():
 
     # 9-11. the widths once refused, tree-SQ + reorder, the other
     # compositions.
-    k3_wide, k5_wide, wide_summary = wide_phase(torch, scann_torch)
-    sift_summary = sift_phase(torch, scann_torch)
+    k3_wide, k5_wide, wide_summary, gist = wide_phase(torch, scann_torch)
+    sift_summary, sift = sift_phase(torch, scann_torch)
     compositions = composition_phase(torch, scann_torch, db, queries, truth)
     # 12. ROADMAP item 14's search features.
     features_launches, features = search_features_phase(
         torch, scann_torch, db, queries, truth, q_dev)
+    # 13. ROADMAP items 11 (typed), 13 and 16: data and encodings.
+    enc_launches, enc_errs, encodings = encodings_phase(
+        torch, scann_torch, (db, queries, truth), gist, sift, wide_summary)
+    gist = sift = None
 
+    for rec, name in ((k1, "pruned_sq"), (k2, "pruned_rows"),
+                      (k3, "pruned_lut"), (k5, "fused_scan")):
+        rec["max_abs_err"] = max(rec["max_abs_err"], enc_errs.get(name, 0.0))
     # K6's line: the tree-AH block (the wider rows, k 30); both blocks'
     # numbers are in the summary.
     k6.update(k6["tree_ah"])
@@ -1964,7 +2548,7 @@ def main():
                "wide": {**wide_summary, "k3_b_pad_480": k3_wide,
                         "k5_d_960": k5_wide},
                "sift_tree_sq": sift_summary, "compositions": compositions,
-               "search_features": features}
+               "search_features": features, "encodings": encodings}
     log("summary " + json.dumps(summary))
     # What the card makes of the six kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
@@ -1992,7 +2576,8 @@ def main():
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],
          "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
          "library_ms": None, "design": design,
-         "launches_phase12": features_launches.get(name, 0)}
+         "launches_phase12": features_launches.get(name, 0),
+         "launches_phase13": enc_launches.get(name, 0)}
         for name, replaces, rec, design in (
             ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1, TILE_MMA),
             ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2, TILE_MMA),

@@ -22,7 +22,12 @@ Both pruned engines can merge through csrc/merge_groups.cu
 (SCANN_TORCH_FUSED_MERGE=1).  The search features run around the same
 kernels: SOAR (tree-AH), AVQ, int8 centroids, query spilling, upper and
 hierarchical trees, crowding, pre-tokenized leaves, reordering epsilons
-and per-query k.  Entry points run on CUDA unless the caller
+and per-query k.  So do the data and encodings: typed int8 / uint8
+datasets (1 B a dimension where the engine allows), pca / opq /
+truncate / random-orthogonal projections, stacked and VARIABLE_CHUNK
+codes, the single-leaf AH tree, and sparse input through hashed
+projections (``sparse_searcher``) or an exact sparse scan
+(``SparseExactSearcher``).  Entry points run on CUDA unless the caller
 asks for the CPU::
 
     import scann_torch
@@ -50,15 +55,20 @@ The package imports torch and numpy only (never jax or scann_tpu).
 
 from scann_torch.builder import ScannBuilder, builder
 from scann_torch.config import (AsymmetricHashConfig, BruteForceConfig,
-                                PartitioningConfig, ReorderConfig,
-                                ScannConfig)
+                                PartitioningConfig, ProjectionConfig,
+                                ReorderConfig, ScannConfig, SoarConfig)
+from scann_torch.data.dataset import DenseDataset, MetadataGetter
+from scann_torch.data.sparse import (SparseExactSearcher, SparseMatrix,
+                                     sparse_searcher)
 from scann_torch.factory import create_searcher
 
 __version__ = "0.1.0"
 
 __all__ = ["ScannBuilder", "builder", "ScannConfig", "PartitioningConfig",
            "AsymmetricHashConfig", "BruteForceConfig", "ReorderConfig",
-           "create_searcher", "load_searcher"]
+           "SoarConfig", "ProjectionConfig", "DenseDataset",
+           "MetadataGetter", "SparseMatrix", "SparseExactSearcher",
+           "sparse_searcher", "create_searcher", "load_searcher"]
 
 
 def load_searcher(artifacts_dir, device="cuda"):

@@ -1,11 +1,12 @@
-"""Fluent builder (port of the tree, upper_tree, score_ah,
-score_brute_force and reorder surface of scann_tpu/builder.py).  The
-methods for parts not ported yet raise NotImplementedError naming their
-ROADMAP item.
+"""Fluent builder (port of scann_tpu/builder.py: tree, upper_tree,
+score_ah, score_brute_force, reorder and the pca / opq / truncate
+projections).  The methods for parts not ported yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -31,8 +32,17 @@ class ScannBuilder:
 
     def __init__(self, db, num_neighbors: int, distance_measure: str,
                  device="cuda"):
+        from scann_torch.data import dataset as dataset_mod
         self.device = base.resolve_device(device)
-        self.db = np.asarray(db, dtype=np.float32)
+        self.db_docids = None
+        if isinstance(db, dataset_mod.DenseDataset):
+            self.db_docids = db.docids
+            db = db.data
+        db = np.asarray(db)
+        # Typed int8 / uint8 datasets pass through: the factory decides
+        # whether the engine keeps them typed.
+        self.db = (db if db.dtype in (np.int8, np.uint8)
+                   else np.asarray(db, dtype=np.float32))
         self.num_neighbors = num_neighbors
         self.distance_measure = distance_measure
         self._partitioning: Optional[cfg.PartitioningConfig] = None
@@ -40,6 +50,7 @@ class ScannBuilder:
         self._ah: Optional[cfg.AsymmetricHashConfig] = None
         self._reorder: Optional[cfg.ReorderConfig] = None
         self._upper_tree: Optional[cfg.UpperTreeConfig] = None
+        self._projection: Optional[cfg.ProjectionConfig] = None
         self.seed = 42
 
     def set_seed(self, seed: int) -> "ScannBuilder":
@@ -158,14 +169,45 @@ class ScannBuilder:
                 anisotropic_quantization_threshold))
         return self
 
-    def pca(self, *args, **kwargs):
-        base.not_ported("pca projection", 16)
+    def pca(self, reduction_dim=None, pca_significance_threshold=0.80,
+            pca_truncation_threshold=0.6) -> "ScannBuilder":
+        """Configure a PCA projection: ``reduction_dim`` directions, or the
+        directions explaining ``pca_significance_threshold`` of the
+        variance."""
+        if self._projection is not None:
+            raise ValueError("projection has already been configured")
+        if (reduction_dim is None) == (pca_significance_threshold is None):
+            raise ValueError("pca must be called with either reduction_dim "
+                             "or pca_significance_threshold")
+        self._projection = cfg.ProjectionConfig(
+            projection_type="pca", reduction_dim=reduction_dim,
+            pca_significance_threshold=pca_significance_threshold,
+            pca_truncation_threshold=pca_truncation_threshold)
+        return self
 
-    def opq(self, *args, **kwargs):
-        base.not_ported("opq projection", 16)
+    def opq(self, num_blocks=None) -> "ScannBuilder":
+        """Configure an eigenvalue-OPQ rotation: PCA directions balanced
+        greedily across ``num_blocks`` blocks (default: the AH
+        chunking)."""
+        if self._projection is not None:
+            raise ValueError("projection has already been configured")
+        self._projection = cfg.ProjectionConfig(
+            projection_type="eigenvalue_opq", reduction_dim=None,
+            pca_significance_threshold=None, pca_truncation_threshold=None,
+            opq_num_blocks=num_blocks)
+        return self
 
-    def truncate(self, *args, **kwargs):
-        base.not_ported("truncate projection", 16)
+    def truncate(self, reduction_dim) -> "ScannBuilder":
+        """Configure truncation to the first ``reduction_dim`` dims."""
+        if self._projection is not None:
+            raise ValueError("projection has already been configured")
+        if reduction_dim >= self.db.shape[1]:
+            raise ValueError(
+                f"reduction_dim must be less than {self.db.shape[1]}")
+        self._projection = cfg.ProjectionConfig(
+            projection_type="truncate", reduction_dim=reduction_dim,
+            pca_significance_threshold=None, pca_truncation_threshold=None)
+        return self
 
     def autopilot(self, *args, **kwargs):
         base.not_ported("autopilot", 17)
@@ -191,6 +233,14 @@ class ScannBuilder:
                 raise ValueError("upper_tree requires tree() to be set")
             partitioning = cfg.PartitioningConfig(
                 **{**partitioning.__dict__, "upper_tree": self._upper_tree})
+        projection = self._projection
+        if (projection is not None
+                and projection.projection_type == "eigenvalue_opq"
+                and projection.opq_num_blocks is None and ah is not None):
+            # OPQ's blocks default to the AH chunking.
+            projection = dataclasses.replace(
+                projection, opq_num_blocks=-(-self.db.shape[1]
+                                             // ah.dimensions_per_block))
         return cfg.ScannConfig(
             num_neighbors=self.num_neighbors,
             distance_measure=self.distance_measure,
@@ -198,13 +248,15 @@ class ScannBuilder:
             asymmetric_hash=ah,
             brute_force=self._bf,
             reordering=self._reorder,
+            projection=projection,
             seed=self.seed)
 
     def build(self, docids=None):
         """Create the searcher on the builder's device."""
         from scann_torch import factory
-        return factory.create_searcher(self.db, self.create_config(),
-                                       self.device, docids=docids)
+        return factory.create_searcher(
+            self.db, self.create_config(), self.device,
+            docids=docids if docids is not None else self.db_docids)
 
 
 def builder(db, num_neighbors, distance_measure,

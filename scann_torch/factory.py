@@ -6,10 +6,14 @@ float32 / bfloat16 / global-int8 dense leaves); brute_force alone ->
 BruteForceSearcher (float32, int8 or bfloat16 rows).  Any of them may
 reorder (float32, bfloat16, residual or per-dimension int8 rows).  Cosine
 runs as dot product over unit rows (normalized here) and unit queries;
-L1 is float32 brute force only (config.py refuses the rest).  Every other
-composition raises NotImplementedError naming the ROADMAP item that will
-port it; no setting is silently dropped.  Typed (int8 / uint8) input
-datasets are cast to float32 (item 11 ports their native rows).
+L1 is float32 brute force only (config.py refuses the rest).  A
+projection (pca, eigenvalue OPQ, truncate, random orthogonal) applies
+before any of them.  Typed (int8 / uint8) databases stay typed where the
+JAX package's rule keeps them (brute force and Tree-X without a
+reorder, a projection or cosine) and are cast to float32 everywhere
+else, where the JAX package casts them.  Every other composition raises
+NotImplementedError naming the ROADMAP item that will port it; no setting
+is silently dropped.
 """
 
 from __future__ import annotations
@@ -30,8 +34,6 @@ def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
     c = scann_config
     if c.autopilot is not None:
         base.not_ported("autopilot", 17)
-    if c.projection is not None:
-        base.not_ported("projection", 16)
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         tree_ah.check_supported(c)
@@ -41,13 +43,40 @@ def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
         base.not_ported("incremental_threshold (mutation)", 15)
 
 
+def typed_ok(database: np.ndarray, scann_config: cfg.ScannConfig) -> bool:
+    """True when an int8 / uint8 database is built and searched without a
+    float32 copy (the JAX package's rule): brute force, or Tree-X with
+    float32 or residual-int8 leaves, with no AH, reorder, projection,
+    autopilot or cosine."""
+    c = scann_config
+    return (database.dtype in (np.int8, np.uint8)
+            and c.asymmetric_hash is None
+            and c.reordering is None
+            and c.projection is None
+            and c.autopilot is None
+            and c.distance_measure != cfg.COSINE
+            and (c.brute_force is None
+                 or c.brute_force.quantize in (None, cfg.FLOAT32)
+                 or (c.partitioning is not None
+                     and c.brute_force.quantize == cfg.INT8)))
+
+
 def create_searcher(database, scann_config: cfg.ScannConfig, device,
                     docids=None):
-    """Build a searcher from a config on ``device``."""
+    """Build a searcher from a config on ``device``.  ``database`` is an
+    (n, d) array or a data.dataset.DenseDataset."""
+    from scann_torch.data import dataset as dataset_mod
+    if isinstance(database, dataset_mod.DenseDataset):
+        if docids is None:
+            docids = database.docids
+        database = database.data
     if docids is not None:
         base.not_ported("docids", 15)
     dev = base.resolve_device(device)
-    database = np.asarray(database, dtype=np.float32)
+    database = np.asarray(database)
+    if not typed_ok(database, scann_config) and \
+            database.dtype != np.float32:
+        database = np.asarray(database, dtype=np.float32)
     if database.ndim != 2:
         raise ValueError(f"database must be 2d, got shape {database.shape}")
     check_supported(scann_config, dev, database.shape[1], database.shape[0])

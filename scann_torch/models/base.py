@@ -1,7 +1,8 @@
 """Searcher base: the search pipeline (port of scann_tpu/models/base.py).
 
-``search_batched`` -> ``_select_candidates`` (per engine, optionally on
-the caller's leaves) -> optional exact reordering of the best
+``search_batched`` -> ``_select_candidates`` (per engine, on the
+projected queries when the index has a projection, optionally on the
+caller's leaves) -> optional exact reordering of the best
 ``pre_reorder_num_neighbors`` (``ReorderHelper``), after the per-query
 k_pre mask, the pre-reordering epsilon and pre-reordering crowding ->
 crowding -> final top-k, conversion to user distance, and INVALID / NaN
@@ -182,15 +183,20 @@ class Searcher:
         self.config = scann_config
         self.device = device
         self.n_points, self.dims = database.shape
-        self._build_x_dev = torch.as_tensor(
-            np.asarray(database, np.float32), device=device)
+        # One upload shared by every build phase; typed (int8 / uint8)
+        # rows stay 1 B a dimension and each phase casts what it gathers.
+        if database.dtype not in (np.int8, np.uint8):
+            database = np.asarray(database, np.float32)
+        self._build_x_dev = torch.as_tensor(database, device=device)
         self.reorder_helper = None
         self._reorder_deferred = False
         self._crowding_attrs = None
         ro = scann_config.reordering
         if ro is not None:
+            # Reordering rescores against the original (unprojected) rows.
             if (ro.quantize == cfg.INT8 and ro.residual
-                    and scann_config.partitioning is not None):
+                    and scann_config.partitioning is not None
+                    and scann_config.projection is None):
                 # Residual int8 rows need the final primary tokens: the
                 # subclass build calls _finish_deferred_reorder.
                 self._reorder_deferred = True
@@ -198,6 +204,47 @@ class Searcher:
                 self.reorder_helper = ReorderHelper(
                     self._build_x_dev,
                     cfg.internal_measure(scann_config.distance_measure), ro)
+        self.projector = None
+        if scann_config.projection is not None:
+            from scann_torch.ops import projection as proj_ops
+            self.projector = proj_ops.train_projection(
+                database, scann_config.projection, seed=scann_config.seed,
+                device=device)
+
+    def _project_database(self, x_dev):
+        """The rows the index is built on: the projection of the uploaded
+        database (float32), or the upload itself."""
+        if self.projector is None:
+            return x_dev
+        return self.projector.project(x_dev)
+
+    def _project_queries(self, queries):
+        """Queries in the index's (possibly projected) space."""
+        if self.projector is None:
+            return queries
+        return self.projector.project(queries)
+
+    @property
+    def _index_dims(self) -> int:
+        """Width of the rows the index is built on."""
+        return self.dims if self.projector is None else \
+            self.projector.out_dims
+
+    def set_metadata(self, getter):
+        """Attach a data.dataset.MetadataGetter; ``metadata_for`` then
+        looks up the payloads of result indices."""
+        self._metadata = getter
+
+    def metadata_for(self, indices):
+        """Per-neighbor metadata payloads for a result index array (None
+        for invalid indices)."""
+        getter = getattr(self, "_metadata", None)
+        if getter is None:
+            raise ValueError("call set_metadata(getter) first")
+        idx = np.asarray(indices)
+        flat = [getter.get(int(i)) if i >= 0 else None
+                for i in idx.reshape(-1)]
+        return np.asarray(flat, dtype=object).reshape(idx.shape)
 
     def _finish_deferred_reorder(self, x_dev, tokens):
         """Create the residual int8 reorder helper once the primary
@@ -294,7 +341,10 @@ class Searcher:
         (``k_pre_vec``), by the approximate similarity (``pre_epsilon``,
         in similarity units) and by pre-reorder crowding; crowding after
         it caps the final results."""
-        sim, idx = self._select_candidates(queries, k_pre, leaves,
+        # Selection runs in the (possibly projected) index space; the
+        # exact reorder takes the original queries.
+        sim, idx = self._select_candidates(self._project_queries(queries),
+                                           k_pre, leaves,
                                            full_scan=full_scan,
                                            restrict=restrict,
                                            pre_tokenized=pre_tokenized)

@@ -12,10 +12,14 @@ ground truth.
 * L1 (float32 only): the elementwise |q - x| sum, whose (queries, chunk,
   d) block sets the chunk: the database axis is cut d times finer.
 
+* typed (int8 / uint8) input rows under float32 scoring: the rows stay
+  1 B a dimension on the device and each scoring chunk converts exactly
+  to float32 (squared L2 takes the norms of the float cast);
+* with a projection, the projected float32 rows (the reorder, if any,
+  rescores the original rows).
+
 The database axis is scored in chunks whose score block stays under
 _MAX_SCORES entries, each chunk's top-k merged into the running one.
-Typed (int8 / uint8) input datasets are cast to float32 by the factory
-(ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -40,11 +44,17 @@ class BruteForceSearcher(base.Searcher):
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
                  device: torch.device):
         super().__init__(database, scann_config, device)
-        x = self._build_x_dev
+        x = self._project_database(self._build_x_dev)
         self.quantize_mode = scann_config.brute_force.quantize
         self._inv_mult = None
         self._sq_norms = None
-        if self.quantize_mode == cfg.INT8:
+        if x.dtype in (torch.int8, torch.uint8):
+            # Typed rows; ops/distance converts each scoring chunk exactly.
+            self._db = x
+            if cfg.internal_measure(scann_config.distance_measure) \
+                    == cfg.SQUARED_L2:
+                self._sq_norms = (x.float() ** 2).sum(-1)
+        elif self.quantize_mode == cfg.INT8:
             sq = quant_ops.scalar_quantize(x)
             self._db = sq.data
             self._inv_mult = sq.inverse_multipliers

@@ -35,9 +35,16 @@ ceil(k_pre * overretrieve_factor) candidates and drops repeated ids
 after tokenization.  A batch may name its leaves (``pre_tokenized``), and
 query spilling masks the tokenizer's selection.
 
-Not ported yet (each raises NotImplementedError): stacked quantization,
-variable chunks, mutation, projection and a single-leaf tree.  Every
-scorer serves every width on the card as on the CPU.
+Stacked (additive) codes and VARIABLE_CHUNK codes take the pruned path
+through K2 in reconstruct mode and the dense masked scan in the LUT modes
+(stacked LUTs are quantized on a zero base: they carry no residual bias),
+as in the JAX package.  A one-leaf tree searches every slot (K5 in
+reconstruct mode, the dense scan otherwise); over 8,192 rows the build's
+leaf-size cap splits its leaf, as the JAX package's does.  With a projection the
+codes, the tree and every scorer work at the projected width; the reorder
+rescores the original rows.  Mutation is not ported yet (it raises
+NotImplementedError).  Every scorer serves every width on the card as on
+the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from scann_torch.ops import kmeans as kmeans_ops
 from scann_torch.ops import lut16 as lut16_ops
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan
+from scann_torch.ops import stacked as stacked_ops
 from scann_torch.ops import topk as topk_ops
 from scann_torch.partitioning import kmeans_tree
 from scann_torch.utils import native
@@ -84,20 +92,19 @@ def _round_up(x: int, m: int) -> int:
 
 
 def check_supported(scann_config: cfg.ScannConfig):
-    """Raise NotImplementedError for the tree-AH settings not ported
-    yet."""
+    """Raise ValueError for tree-AH settings no searcher serves."""
     ah = scann_config.asymmetric_hash
-    if ah.quantization_scheme == "stacked":
-        base.not_ported("stacked quantization", 16)
-    if ah.variable_dims_per_block is not None:
-        base.not_ported("variable_dims_per_block", 16)
     if ah.lookup_type not in (cfg.INT8, cfg.FLOAT32, RECONSTRUCT):
         raise ValueError(f"unknown lookup_type {ah.lookup_type!r}")
     if ah.clusters_per_block not in (16, 256):
         raise ValueError("hash_type must be lut16 or lut256")
-    if (scann_config.partitioning is not None
-            and scann_config.partitioning.num_leaves <= 1):
-        base.not_ported("a single-leaf tree under score_ah", 13)
+    if (ah.quantization_scheme == "stacked"
+            and cfg.internal_measure(scann_config.distance_measure)
+            == cfg.SQUARED_L2 and ah.lookup_type != RECONSTRUCT):
+        raise ValueError(
+            "stacked quantization under squared L2 requires "
+            "lookup_type='reconstruct' (additive ||x_hat||^2 cross terms "
+            "are not LUT-decomposable)")
 
 
 def _slot_chunk(num_slots: int, recon: bool) -> int:
@@ -143,6 +150,7 @@ class TreeAHSearcher(base.Searcher):
         self.ah_cfg = scann_config.asymmetric_hash
         self.measure = cfg.internal_measure(scann_config.distance_measure)
         self.residual = bool(self.ah_cfg.residual_quantization)
+        self.stacked = self.ah_cfg.quantization_scheme == "stacked"
         if self.part_cfg is None:
             self.partitioner = None
         if self.residual and self.measure != cfg.DOT_PRODUCT:
@@ -173,7 +181,7 @@ class TreeAHSearcher(base.Searcher):
         return vals, torch.gather(dpids, -1, pos.long())
 
     def _build(self):
-        x_dev = self._build_x_dev
+        x_dev = self._project_database(self._build_x_dev)
         n, d = x_dev.shape
         seed = self.config.seed
         tokens2 = None
@@ -193,11 +201,18 @@ class TreeAHSearcher(base.Searcher):
         gen = torch.Generator().manual_seed(seed + 1)
         sample_idx = kmeans_ops.sample_rows(
             gen, n, self.ah_cfg.training_sample_size)
-        self.model = ah_ops.train_ah_model(
-            gen, primary_vecs[sample_idx.to(self.device)],
-            self.ah_cfg.dimensions_per_block,
-            self.ah_cfg.clusters_per_block,
-            self.ah_cfg.training_iterations, dims=d)
+        sample = primary_vecs[sample_idx.to(self.device)]
+        if self.stacked:
+            self.model = stacked_ops.train_stacked(
+                gen, sample, -(-d // self.ah_cfg.dimensions_per_block),
+                self.ah_cfg.clusters_per_block,
+                self.ah_cfg.training_iterations)
+        else:
+            self.model = ah_ops.train_ah_model(
+                gen, sample, self.ah_cfg.dimensions_per_block,
+                self.ah_cfg.clusters_per_block,
+                self.ah_cfg.training_iterations, dims=d,
+                variable_dims_per_block=self.ah_cfg.variable_dims_per_block)
         self._encoded_slots = 0
         self._quantization_error_sq = 0.0
         codes = self._encode_dataset(primary_vecs, x_dev)
@@ -287,13 +302,15 @@ class TreeAHSearcher(base.Searcher):
         err_sum = 0.0
         for s0 in range(0, vectors.shape[0], _ENCODE_CHUNK):
             v = vectors[s0:s0 + _ENCODE_CHUNK].float()
-            if noise_shaped:
+            if self.stacked:
+                codes = stacked_ops.encode_stacked(v, self.model)
+            elif noise_shaped:
                 codes = ah_ops.encode_noise_shaped(
                     v, originals[s0:s0 + _ENCODE_CHUNK].float(), self.model,
                     threshold)
             else:
                 codes = ah_ops.encode(v, self.model)
-            recon = ah_ops.reconstruct(codes, self.model)
+            recon = self._reconstruct(codes)
             err_sum += float(((v - recon) ** 2).sum())
             out.append(codes.cpu().numpy())
         # Running mean over every slot encoded so far (SOAR encodes twice).
@@ -350,8 +367,15 @@ class TreeAHSearcher(base.Searcher):
 
     @property
     def _recon_dim(self) -> int:
-        """Feature dimension of the decoded rows: padded to 128."""
-        return _round_up(self.dims, 128)
+        """Feature dimension of the decoded rows: the index width padded
+        to 128."""
+        return _round_up(self._index_dims, 128)
+
+    def _reconstruct(self, codes):
+        """Codes -> approximate (n, index width) f32 vectors."""
+        if self.stacked:
+            return stacked_ops.reconstruct_stacked(codes, self.model)
+        return ah_ops.reconstruct(codes, self.model)
 
     def _decode_slots(self, codes, slot_leaf, slot_dpid, mean=None):
         """Decode codes into bf16 approximate rows: x_hat = c_leaf +
@@ -359,7 +383,7 @@ class TreeAHSearcher(base.Searcher):
         minus ``mean`` (squared L2: see _decode_mean), zero on dead slots,
         zero-padded to _recon_dim.  Also returns ||x_hat||^2 of the f32
         rows, summed before the bf16 cast."""
-        recon = ah_ops.reconstruct(codes, self.model)
+        recon = self._reconstruct(codes)
         if self.residual and self.partitioner is not None:
             recon = recon + self.partitioner.centers[
                 torch.clamp_min(slot_leaf, 0).long()]
@@ -420,9 +444,20 @@ class TreeAHSearcher(base.Searcher):
 
     # -------------------------------------------------- pruned leaf layout
     @property
-    def _pruned_available(self) -> bool:
+    def _partitioned(self) -> bool:
         return (self.partitioner is not None
                 and self.partitioner.num_leaves > 1)
+
+    @property
+    def _pruned_available(self) -> bool:
+        """True when leaf-gathered queries take the pruned path: every
+        tree of more than one leaf in reconstruct mode (K2), and fixed
+        product chunks in the LUT modes (K3 / K4).  Stacked and
+        VARIABLE_CHUNK codes in a LUT mode take the dense scan, as in the
+        JAX package."""
+        fixed_product = (not self.stacked
+                         and self.ah_cfg.variable_dims_per_block is None)
+        return (self._recon_mode or fixed_product) and self._partitioned
 
     @property
     def _int8_lut(self) -> bool:
@@ -451,13 +486,13 @@ class TreeAHSearcher(base.Searcher):
         the uncentered products).  A function of the codes alone, so a
         reloaded index reproduces it."""
         h = self._host
-        total = np.zeros((self.dims,), np.float64)
+        total = np.zeros((self._index_dims,), np.float64)
         for s in range(0, h["codes"].shape[0], _ENCODE_CHUNK):
             codes = torch.from_numpy(h["codes"][s:s + _ENCODE_CHUNK]).to(
                 self.device)
             live = torch.from_numpy(h["dpid"][s:s + _ENCODE_CHUNK] >= 0).to(
                 self.device)
-            r = ah_ops.reconstruct(codes, self.model)
+            r = self._reconstruct(codes)
             r = torch.where(live[:, None], r, 0.0).to(torch.bfloat16)
             total += r.float().sum(0).double().cpu().numpy()
         count = int((h["dpid"] >= 0).sum())
@@ -635,12 +670,20 @@ class TreeAHSearcher(base.Searcher):
             q_f = q_bf.float()
             q_sq = (q_c * q_c).sum(-1)
         else:
-            luts = ah_ops.build_luts(queries, self.model, self.measure,
-                                     self.ah_cfg.lookup_type)
+            if self.stacked:
+                # Stacked LUTs carry no residual bias: quantized on a zero
+                # base (dot product only; squared L2 is refused).
+                luts = ah_ops.quantize_luts(
+                    stacked_ops.build_stacked_luts(queries, self.model),
+                    torch.zeros((nq,), dtype=torch.float32, device=dev),
+                    self.ah_cfg.lookup_type)
+            else:
+                luts = ah_ops.build_luts(queries, self.model, self.measure,
+                                         self.ah_cfg.lookup_type)
             lut_flat = lut16_ops.lut_matrix(luts)
             inv_mult = luts.inv_multiplier if luts.int8 is not None else None
         combo = None
-        if self._pruned_available:
+        if self._partitioned:
             num_leaves = self.partitioner.num_leaves
             leaves = (num_leaves if full_scan
                       else max(1, min(leaves, num_leaves)))

@@ -18,6 +18,12 @@ Two layouts, as in the JAX package:
   for the batch, masked by each query's selected leaves.  Plain torch: no
   Pallas kernel of the JAX package is involved.
 
+Typed (int8 / uint8) input rows stay 1 B a dimension through the build:
+sampling, tokenization, splits and the residual int8 encode cast what
+they gather, and float32-mode dense leaves are stored as bfloat16, which
+holds every int8 / uint8 value exactly.  With a projection the index is
+built on the projected rows.
+
 A ``reorder`` rescores the best candidates exactly (models/base.py); its
 residual int8 rows take the final primary tokens and the centers.  Both
 layouts search the caller's leaves when a batch names them, and mask the
@@ -68,7 +74,7 @@ class TreeXSearcher(base.Searcher):
         self._build()
 
     def _build(self):
-        x_dev = self._build_x_dev
+        x_dev = self._project_database(self._build_x_dev)
         n = x_dev.shape[0]
         unused = [name for name, value in (("soar_lambda", self.part_cfg.soar),
                                            ("avq", self.part_cfg.avq))
@@ -126,7 +132,11 @@ class TreeXSearcher(base.Searcher):
         self._chunk = chunk
         s_pad = _round_up(n, chunk)
         dev = self.device
-        rows = torch.zeros((s_pad, x_dev.shape[1]), dtype=torch.float32,
+        # Typed float32-mode leaves: bfloat16 holds int8 / uint8 exactly.
+        typed = (x_dev.dtype in (torch.int8, torch.uint8)
+                 and self.quantize_mode == cfg.FLOAT32)
+        rows = torch.zeros((s_pad, x_dev.shape[1]),
+                           dtype=torch.bfloat16 if typed else torch.float32,
                            device=dev)
         rows[:n] = x_dev[torch.from_numpy(order).to(dev)]
         leaf = np.zeros((s_pad,), np.int32)
@@ -137,7 +147,11 @@ class TreeXSearcher(base.Searcher):
         self.slot_dpid = torch.from_numpy(dpid).to(dev)
         self._inv_mult = None
         self._sq_norms = None
-        if self.quantize_mode == cfg.INT8:
+        if typed:
+            self.slot_rows = rows
+            if self.measure == cfg.SQUARED_L2:
+                self._sq_norms = (rows.float() ** 2).sum(-1)
+        elif self.quantize_mode == cfg.INT8:
             sq = quant_ops.scalar_quantize(rows)
             self.slot_rows = sq.data
             self._inv_mult = sq.inverse_multipliers
@@ -170,7 +184,7 @@ class TreeXSearcher(base.Searcher):
                         ).astype(np.int32)
         dpid = np.where(src >= 0, src, -1).astype(np.int32)
 
-        d = self.dims
+        d = x_dev.shape[1]
         d_pad = _round_up(d, 8)
         l2 = self.measure == cfg.SQUARED_L2
         dev = self.device

@@ -1,8 +1,12 @@
 """Asymmetric hashing (product quantization): training, encoding, LUTs.
 
-Port of scann_tpu/ops/ah.py for fixed contiguous chunks: a d-dim vector
-splits into ``num_blocks`` blocks of ``dims_per_block`` (a ragged tail is
-zero-padded; its center coordinates train to zero).
+Port of scann_tpu/ops/ah.py.  A d-dim vector splits into ``num_blocks``
+blocks of ``dims_per_block`` (a ragged tail is zero-padded; its center
+coordinates train to zero), or, under VARIABLE_CHUNK, into blocks of
+given widths: the model's ``block_dims`` table names the feature
+dimensions of each block, padded to the widest block with a sentinel
+column that always reads zero, so every chunked op is one gather and the
+math after it does not depend on the widths.
 
   * ``train_ah_model``: one k-means++ per block on a (residual) sample.
   * ``encode``: per-block nearest center.
@@ -12,15 +16,14 @@ zero-padded; its center coordinates train to zero).
   * ``build_luts`` / ``quantize_luts``: per-query similarity LUTs with the
     per-query symmetric int8 conversion of the dense scan (each block
     centered on its midpoint, the midpoints folded into ``base``).
-
-VARIABLE_CHUNK (per-block widths) is not ported yet (ROADMAP item 16).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from scann_torch import config as cfg
@@ -28,8 +31,11 @@ from scann_torch.ops import kmeans as kmeans_ops
 
 
 class AHModel(NamedTuple):
-    codebook: torch.Tensor  # (num_blocks, clusters_per_block, dims_per_block)
+    codebook: torch.Tensor  # (num_blocks, clusters_per_block, max width)
     dims: int               # original (unpadded) dimensionality
+    # VARIABLE_CHUNK: (num_blocks, max width) int32 feature dimensions of
+    # each block, sentinel ``dims`` on padding; None for fixed chunks.
+    block_dims: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
@@ -62,27 +68,73 @@ def chunk(x, dims_per_block: int):
     return x.reshape(x.shape[:-1] + (-1, dims_per_block))
 
 
+def make_block_dims(dims: int, widths: Sequence[int]) -> np.ndarray:
+    """VARIABLE_CHUNK table: block b owns ``widths[b]`` consecutive
+    feature dimensions.  Returns (num_blocks, max width) int32 with
+    sentinel ``dims`` padding."""
+    widths = [int(w) for w in widths]
+    if any(w <= 0 for w in widths):
+        raise ValueError("variable chunk widths must be positive")
+    if sum(widths) != dims:
+        raise ValueError(
+            f"variable chunk widths must sum to the dimensionality: "
+            f"sum({widths}) = {sum(widths)} != {dims}")
+    table = np.full((len(widths), max(widths)), dims, np.int32)
+    off = 0
+    for b, w in enumerate(widths):
+        table[b, :w] = np.arange(off, off + w)
+        off += w
+    return table
+
+
+def chunk_model(x, model: AHModel):
+    """(..., d) -> (..., num_blocks, width) under the model's chunking (a
+    reshape, or a block_dims gather past a zero sentinel column)."""
+    if model.block_dims is None:
+        return chunk(x, model.dims_per_block)
+    xp = torch.nn.functional.pad(x, (0, 1))
+    return xp[..., model.block_dims.to(x.device).long()]
+
+
 def train_ah_model(generator, sample, dims_per_block: int,
                    clusters_per_block: int = 16, iterations: int = 10,
-                   dims: Optional[int] = None) -> AHModel:
+                   dims: Optional[int] = None,
+                   variable_dims_per_block=None) -> AHModel:
     """Train per-block codebooks on a (residual) sample: one k-means++ run
-    per block, all draws from ``generator`` in block order."""
+    per block, all draws from ``generator`` in block order.
+    ``variable_dims_per_block``: per-block widths (VARIABLE_CHUNK); the
+    padding coordinates of the narrower blocks are zero in the codebook."""
     if dims is None:
         dims = sample.shape[-1]
-    xb = chunk(sample.float(), dims_per_block).transpose(0, 1)
+    block_dims = None
+    x = sample.float()
+    if variable_dims_per_block is not None:
+        block_dims = torch.as_tensor(
+            make_block_dims(dims, variable_dims_per_block), device=x.device)
+        xc = chunk_model(x, AHModel(codebook=x.new_zeros(
+            (block_dims.shape[0], clusters_per_block, block_dims.shape[1])),
+            dims=dims, block_dims=block_dims))
+    else:
+        xc = chunk(x, dims_per_block)
+    xb = xc.transpose(0, 1)
     books = [kmeans_ops.kmeans(generator, xb[b].contiguous(),
                                clusters_per_block, iterations=iterations,
                                init="kmeans++").centers
              for b in range(xb.shape[0])]
-    return AHModel(codebook=torch.stack(books), dims=dims)
+    codebook = torch.stack(books)
+    if block_dims is not None:
+        # Padding slots carry exact zeros (reseeding can leave noise).
+        codebook = torch.where((block_dims < dims)[:, None, :], codebook,
+                               0.0)
+    return AHModel(codebook=codebook, dims=dims, block_dims=block_dims)
 
 
 def _block_stats(vectors, originals, model: AHModel):
     """Per (point, block, center): squared residual norm and the residual's
     component parallel to the original datapoint."""
     cb = model.codebook
-    vc = chunk(vectors, model.dims_per_block)        # (n, B, d)
-    oc = chunk(originals, model.dims_per_block)
+    vc = chunk_model(vectors, model)                 # (n, B, d)
+    oc = chunk_model(originals, model)
     v_dot_c = torch.einsum("nbd,bjd->nbj", vc, cb)
     o_dot_c = torch.einsum("nbd,bjd->nbj", oc, cb)
     v_sq = (vc * vc).sum(-1)
@@ -98,7 +150,7 @@ def _block_stats(vectors, originals, model: AHModel):
 def encode(vectors, model: AHModel):
     """Per-block nearest-center encoding -> (n, num_blocks) uint8."""
     cb = model.codebook
-    vc = chunk(vectors.float(), model.dims_per_block)
+    vc = chunk_model(vectors.float(), model)
     dots = torch.einsum("nbd,bjd->nbj", vc, cb)
     c_sq = (cb * cb).sum(-1)
     # argmin ||v - c||^2 == argmin (||c||^2 - 2 v.c)
@@ -174,7 +226,15 @@ def reconstruct(codes, model: AHModel):
     cb = model.codebook
     blocks = torch.arange(cb.shape[0], device=cb.device)
     rows = cb[blocks[None, :], codes.long()]              # (n, B, dpb)
-    return rows.reshape(codes.shape[0], -1)[:, :model.dims]
+    flat = rows.reshape(codes.shape[0], -1)
+    if model.block_dims is None:
+        return flat[:, :model.dims]
+    # VARIABLE_CHUNK: each block's values go back to its dimensions (the
+    # padding lands on the dropped sentinel column).
+    out = flat.new_zeros((codes.shape[0], model.dims + 1))
+    out.index_add_(1, model.block_dims.reshape(-1).to(flat.device).long(),
+                   flat)
+    return out[:, :model.dims]
 
 
 class LookupTables(NamedTuple):
@@ -190,7 +250,7 @@ def build_luts(queries, model: AHModel, measure: str,
     """dot_product: lut = q_b . c; squared_l2: lut = 2 q_b . c - ||c||^2
     with the per-query -||q||^2 carried in ``base``."""
     qf = queries.float()
-    qc = chunk(qf, model.dims_per_block)
+    qc = chunk_model(qf, model)
     cb = model.codebook
     dots = torch.einsum("qbd,bjd->qbj", qc, cb)
     if measure == cfg.DOT_PRODUCT:

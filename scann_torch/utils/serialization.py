@@ -7,7 +7,9 @@ TreeXSearcher (residual-int8 tree-SQ, or float32 / bfloat16 / global-int8
 dense leaves) and BruteForceSearcher (float32, int8 or bfloat16 rows),
 each with or without float32, bfloat16, residual-int8 or per-dimension
 int8 reordering; the partitioner's int8 centers, upper tree and query
-spilling travel with it.  Keys, dtypes and the config/meta blob are the
+spilling travel with it, and so do a projection (its matrix and output
+width), stacked codebooks, VARIABLE_CHUNK block tables and typed (int8 /
+uint8) rows in their dtype.  Keys, dtypes and the config/meta blob are the
 JAX package's, so each package loads the other's index: the port
 searches an index built by scann_tpu (the search parity tests), and
 scann_tpu loads an index built by the port.  Loading
@@ -73,6 +75,9 @@ def collect_assets(searcher):
             put("reorder_leaf", rh._leaf)
             put("reorder_row_scale", rh._row_scale)
             meta["reorder_residual"] = True
+    if searcher.projector is not None:
+        put("proj_matrix", searcher.projector.matrix)
+        meta["proj_out_dims"] = searcher.projector.out_dims
 
     tname = meta["type"]
     if tname == "BruteForceSearcher":
@@ -91,7 +96,10 @@ def collect_assets(searcher):
         meta["num_blocks"] = int(codes_np.shape[1])
         put("slot_dpid", searcher.index.slot_dpid)
         put("slot_leaf", searcher.index.slot_leaf)
-        put("codebook", searcher.model.codebook)
+        # Stacked codes keep their stage codebooks under the same key.
+        put("codebook", searcher.model.codebooks if searcher.stacked
+            else searcher.model.codebook)
+        put("block_dims", getattr(searcher.model, "block_dims", None))
         put("datapoint_to_token",
             np.asarray(searcher.datapoint_to_token, np.int32))
         meta["model_dims"] = searcher.model.dims
@@ -151,10 +159,8 @@ def load_searcher(artifacts_dir: str, device):
                             meta["n_points"])
     with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
         arrays = {k: raw[k] for k in raw.files}
-    for key, item in (("mut_vectors", 15), ("proj_matrix", 16),
-                      ("block_dims", 16)):
-        if key in arrays:
-            base.not_ported(f"index asset {key}", item)
+    if "mut_vectors" in arrays:
+        base.not_ported("index asset mut_vectors", 15)
 
     def tensor(key):
         if key not in arrays:
@@ -217,8 +223,14 @@ def load_searcher(artifacts_dir: str, device):
         s.index = tree_ah.TreeAHIndex(codes=None,
                                       slot_dpid=tensor("slot_dpid"),
                                       slot_leaf=tensor("slot_leaf"))
-        s.model = ah_ops.AHModel(codebook=tensor("codebook"),
-                                 dims=meta["model_dims"])
+        if s.stacked:
+            from scann_torch.ops import stacked as stacked_ops
+            s.model = stacked_ops.StackedModel(codebooks=tensor("codebook"),
+                                               dims=meta["model_dims"])
+        else:
+            s.model = ah_ops.AHModel(codebook=tensor("codebook"),
+                                     dims=meta["model_dims"],
+                                     block_dims=tensor("block_dims"))
         s._num_slots = meta["num_slots"]
         s._chunk = meta["chunk"]
         s._quantization_error_sq = meta.get("quantization_error_sq", 0.0)
@@ -275,6 +287,11 @@ def _init_base(s, scann_config, meta, dev, tensor):
     s._build_x_dev = None
     s._reorder_deferred = False
     s._crowding_attrs = None
+    s.projector = None
+    if "proj_out_dims" in meta:
+        from scann_torch.ops import projection as proj_ops
+        s.projector = proj_ops.Projector(matrix=tensor("proj_matrix"),
+                                         out_dims=int(meta["proj_out_dims"]))
     s.reorder_helper = None
     if scann_config.reordering is not None:
         rh = object.__new__(base.ReorderHelper)

@@ -1,7 +1,7 @@
 """The port stands alone: scann_torch and chip_smoke.py import neither JAX
 nor the JAX package, entry points default to CUDA and raise without it,
 configurations the port does not serve raise NotImplementedError (and no
-refusal names ROADMAP item 14, whose settings are served), and
+refusal names ROADMAP items 13, 14 or 16, whose settings are served), and
 chip_smoke.py's copy of the benchmark corpus is bench.py's."""
 
 import ast
@@ -27,6 +27,9 @@ def _port_modules():
 def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "scann_torch.ops.pruned_sq" in mods and len(mods) >= 15
+    assert {"scann_torch.data.dataset", "scann_torch.data.sparse",
+            "scann_torch.ops.projection", "scann_torch.ops.stacked"} <= \
+        set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -116,14 +119,16 @@ def _tree(b, **kw):
 
 
 _UNPORTED = {
-    # int8 brute force, int8 reordering without a tree and reordering a
-    # brute-force search are served
+    # int8 brute force, int8 reordering without a tree, reordering a
+    # brute-force search and the projections are served
     # (test_formerly_unported_settings_build_and_search); each still
     # refuses beside a setting that is not ported.
-    "int8_brute_force": lambda b: b.score_brute_force("int8").pca(2),
-    "score_ah": lambda b: b.score_ah(2).reorder(10, quantize="int8").opq(),
+    "int8_brute_force": lambda b: b.score_brute_force("int8").autopilot(),
+    "score_ah": lambda b: _tree(b, incremental_threshold=0.1).score_ah(
+        2).reorder(10, quantize="int8").opq(),
     "reorder": lambda b: b.score_brute_force().reorder(10).autopilot(),
-    "pca": lambda b: b.pca(2),
+    "pca": lambda b: _tree(b, incremental_threshold=0.1).pca(
+        2, pca_significance_threshold=None).score_brute_force("int8"),
     "autopilot": lambda b: b.autopilot(),
 }
 
@@ -156,6 +161,17 @@ _FORMERLY_UNPORTED = {
         b, soar_lambda=1.5).score_brute_force(),
     "upper_tree": lambda b: _tree(b).upper_tree(2, 1).score_brute_force(
         "int8"),
+    # ROADMAP items 13 and 16: projections, stacked and variable-chunk
+    # codes, the single-leaf AH tree.
+    "pca": lambda b: _tree(b).pca(
+        4, pca_significance_threshold=None).score_brute_force("int8"),
+    "opq": lambda b: b.score_ah(2).reorder(10, quantize="int8").opq(),
+    "truncate": lambda b: b.truncate(6).score_brute_force().reorder(5),
+    "stacked": lambda b: _tree(b).score_ah(
+        2, quantization_scheme="stacked").reorder(5),
+    "variable_chunks": lambda b: _tree(b).score_ah(
+        2, variable_dims_per_block=[4, 2, 2]).reorder(5),
+    "single_leaf_tree": lambda b: b.tree(1, 1).score_ah(2).reorder(5),
 }
 
 
@@ -192,6 +208,42 @@ def test_unported_measures_and_search_params_raise():
         scann_torch.builder(db, 3, "dot_product",
                             device="cpu").score_brute_force().build(
                                 docids=list(range(64)))
+
+
+def test_typed_and_sparse_inputs_build_and_search():
+    """Typed int8 / uint8 datasets, a DenseDataset without docids and
+    sparse input are served (ROADMAP items 11 and 16)."""
+    from scann_torch.data import dataset
+    r = np.random.default_rng(0)
+    for dtype in (np.int8, np.uint8):
+        db = r.integers(0, 100, (64, 8)).astype(dtype)
+        for make in (lambda b: b.score_brute_force(),
+                     lambda b: _tree(b).score_brute_force("int8")):
+            s = make(scann_torch.builder(dataset.DenseDataset(db), 3,
+                                         "squared_l2", device="cpu")).build()
+            idx, _ = s.search_batched(db[:4].astype(np.float32))
+            assert (idx[:, 0] == np.arange(4)).all()
+    m = scann_torch.SparseMatrix.from_any(r.standard_normal((64, 40)) *
+                                          (r.random((64, 40)) < 0.2))
+    s = scann_torch.sparse_searcher(m, 3, device="cpu")
+    idx, _ = s.search_batched(m)
+    assert idx.shape == (64, 3)
+    idx, _ = scann_torch.SparseExactSearcher(m, 3, device="cpu"
+                                             ).search_batched(m)
+    assert idx.shape == (64, 3)
+
+
+@pytest.mark.parametrize("item", [13, 16])
+def test_no_refusal_names_a_served_item(item):
+    """Items 13 and 16 are served: no refusal names them."""
+    import re
+    call = re.compile(r"not_ported\([^()]*,\s*(\d+)\)")
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                text = open(os.path.join(dirpath, n)).read()
+                assert str(item) not in call.findall(text), n
+                assert f"ROADMAP item {item}" not in text, n
 
 
 def test_no_refusal_names_item_14():

@@ -1,0 +1,229 @@
+"""Projections (truncate, random orthogonal, PCA, eigenvalue OPQ) of the
+port against scann_tpu on the CPU.
+
+Training, on the same numpy sample (both packages draw it with
+``default_rng(seed).permutation``): PCA eigenvalues within 1e-4 relative,
+the same output width from reduction_dim and from the significance /
+truncation thresholds (including an odd one), and |V_port^T V_jax|
+within 1e-3 of the identity on eigenvalues separated by more than 1e-3
+relative (eigenvectors agree only up to sign: ROADMAP section 3);
+truncate, random orthogonal and OPQ's block order exactly.
+
+Search, on the same serialized index: scann_tpu builds PCA, OPQ and
+truncate indexes under tree-SQ and tree-AH (int8 lookup, and a
+reconstruct-mode PCA at an odd projected width), each with a float32
+reorder against the original rows (and one with per-dimension int8 rows
+of them), budget 30, the tree-AH parity budget,
+and the port loads them: ids >= 99.9% found in the other top 10,
+distances within 1e-4 relative (squared L2 relative to |d| + ||q||^2 +
+||x||^2).  scann_tpu loads a port-built PCA index and returns the port's
+results, and its recall@10 stays within 5 pt of the JAX-built index's
+(the build-to-build spread of k-means on 3,000 rows)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import scann_torch
+import scann_tpu
+from scann_torch.ops import projection as tproj
+from scann_tpu import config as jcfg
+from scann_tpu.ops import projection as jproj
+
+ID_AGREE, DIST_RTOL = 0.999, 1e-4
+TREE = dict(num_leaves=16, num_leaves_to_search=5, training_sample_size=3000)
+
+
+@pytest.fixture(scope="module")
+def data():
+    """Rows with well-separated variances along a random rotation."""
+    r = np.random.default_rng(21)
+    d = 24
+    scales = 2.0 * 0.9 ** np.arange(d)
+    rot, _ = np.linalg.qr(r.standard_normal((d, d)))
+    c = r.standard_normal((40, d)) * scales
+    db = (c[r.integers(0, 40, 3000)] + 0.2 * r.standard_normal((3000, d))
+          * scales) @ rot.T
+    q = (c[r.integers(0, 40, 48)] + 0.2 * r.standard_normal((48, d))
+         * scales) @ rot.T
+    return db.astype(np.float32), q.astype(np.float32)
+
+
+PROJECTIONS = {
+    "pca_dim": dict(projection_type="pca", reduction_dim=10),
+    "pca_threshold": dict(projection_type="pca",
+                          pca_significance_threshold=0.8,
+                          pca_truncation_threshold=0.6),
+    "pca_threshold_only": dict(projection_type="pca",
+                               pca_significance_threshold=0.95,
+                               pca_truncation_threshold=None),
+    "opq": dict(projection_type="eigenvalue_opq", opq_num_blocks=12),
+    "opq_uneven": dict(projection_type="eigenvalue_opq", opq_num_blocks=5),
+    "truncate": dict(projection_type="truncate", reduction_dim=13),
+    "random_orthogonal": dict(projection_type="random_orthogonal",
+                              reduction_dim=16),
+}
+
+
+def _proj_cfg(pkg_cfg, kw):
+    return pkg_cfg.ProjectionConfig(**{
+        "reduction_dim": None, "pca_significance_threshold": None,
+        "pca_truncation_threshold": None, **kw})
+
+
+@pytest.mark.parametrize("name", sorted(PROJECTIONS))
+def test_train_projection_matches_jax(data, name):
+    db, _ = data
+    kw = PROJECTIONS[name]
+    j = jproj.train_projection(db, _proj_cfg(jcfg, kw), sample_size=2000,
+                               seed=5)
+    t = tproj.train_projection(db, _proj_cfg(scann_torch.config, kw),
+                               sample_size=2000, seed=5)
+    assert t.out_dims == j.out_dims
+    if j.matrix is None:
+        assert t.matrix is None
+        return
+    jm = np.asarray(j.matrix)
+    tm = t.matrix.numpy()
+    assert tm.shape == jm.shape
+    if kw["projection_type"] == "random_orthogonal":
+        np.testing.assert_array_equal(tm, jm)
+        return
+    # Same directions in the same order, up to sign.
+    overlap = np.abs(tm.T @ jm)
+    np.testing.assert_allclose(overlap, np.eye(tm.shape[1]), atol=1e-3)
+
+
+def test_pca_eigenvalues_and_thresholds(data):
+    db, _ = data
+    t_ev, _ = tproj.pca_eigen(db, 2000, 5)
+    # The JAX eigenvalues, from its own float32 covariance of the sample.
+    rng = np.random.default_rng(5)
+    x = db[rng.permutation(len(db))[:2000]].astype(np.float32)
+    import jax.numpy as jnp
+    xc = jnp.asarray(x) - jnp.mean(jnp.asarray(x), axis=0)
+    j_ev = np.maximum(np.asarray(jnp.linalg.eigh(
+        (xc.T @ xc) / x.shape[0])[0])[::-1], 0.0)
+    np.testing.assert_allclose(t_ev, j_ev, rtol=1e-4)
+    assert np.all(np.diff(-t_ev) / t_ev[:-1] > 1e-3)   # well separated
+    for sig in (0.5, 0.8, 0.9, 0.97):
+        for trunc in (None, 0.3, 0.6):
+            kw = dict(projection_type="pca", pca_significance_threshold=sig,
+                      pca_truncation_threshold=trunc)
+            assert tproj.pca_dims(t_ev, _proj_cfg(scann_torch.config, kw)) \
+                == jproj.train_projection(db, _proj_cfg(jcfg, kw), 2000,
+                                          5).out_dims, (sig, trunc)
+
+
+def test_opq_order_is_the_jax_greedy():
+    """The grouping alone, on the same eigenvalues, with ties."""
+    r = np.random.default_rng(2)
+    for d, blocks in ((24, 12), (24, 5), (17, 4)):
+        ev = np.round(r.exponential(1.0, d), 1)
+        want = []
+        cap = -(-d // blocks)
+        totals = np.zeros(blocks)
+        fill = [[] for _ in range(blocks)]
+        for i in np.argsort(-ev):
+            b = min((bb for bb in range(blocks) if len(fill[bb]) < cap),
+                    key=lambda bb: totals[bb])
+            fill[b].append(i)
+            totals[b] += ev[i]
+        want = np.concatenate([np.asarray(f, np.int64) for f in fill])
+        np.testing.assert_array_equal(tproj.opq_order(ev, d, blocks), want)
+
+
+def assert_same(want, got, measure, q, db):
+    (wi, wd), (gi, gd) = want, got
+    found = (wi[:, :, None] == gi[:, None, :]).any(-1)
+    assert found.mean() >= ID_AGREE, found.mean()
+    same = (gi == wi) & (wi >= 0)
+    scale = np.abs(wd)
+    if measure == "squared_l2":
+        scale = scale + (q ** 2).sum(1)[:, None] + (
+            db[np.maximum(wi, 0)] ** 2).sum(-1)
+    err = np.abs(gd[same] - wd[same])
+    assert np.all(err <= DIST_RTOL * scale[same] + 1e-6), err.max()
+
+
+def _project(b, kind):
+    if kind == "pca":
+        return b.pca(10, pca_significance_threshold=None)
+    if kind == "pca_odd":
+        return b.pca(pca_significance_threshold=0.99,
+                     pca_truncation_threshold=0.3)
+    if kind == "opq":
+        return b.opq()
+    return b.truncate(13)
+
+
+def _index(pkg, db, engine, measure, kind):
+    kw = {} if pkg is scann_tpu else {"device": "cpu"}
+    b = _project(pkg.builder(db, 10, measure, **kw).tree(**TREE), kind)
+    if engine == "tree_sq":
+        b = b.score_brute_force("int8")
+    else:
+        b = b.score_ah(2, anisotropic_quantization_threshold=0.2)
+    # int8 reorder rows under a projection are per-dimension int8 of the
+    # original rows (residual rows need no projection).
+    config = b.reorder(30, quantize="int8" if engine == "tree_ah_int8_reorder"
+                       else "float32").create_config()
+    if engine == "reconstruct":
+        config = dataclasses.replace(config, asymmetric_hash=(
+            dataclasses.replace(config.asymmetric_hash,
+                                lookup_type="reconstruct")))
+    if pkg is scann_tpu:
+        return scann_tpu.create_searcher(db, config)
+    return scann_torch.create_searcher(db, config, "cpu")
+
+
+# Each projection under each engine, the measures alternating.
+SEARCH_CASES = [("tree_sq", "dot_product", "pca"),
+                ("tree_sq", "squared_l2", "opq"),
+                ("tree_sq", "dot_product", "truncate"),
+                ("tree_ah", "squared_l2", "pca"),
+                ("tree_ah", "dot_product", "opq"),
+                ("tree_ah", "squared_l2", "truncate"),
+                ("tree_ah_int8_reorder", "dot_product", "pca"),
+                ("reconstruct", "squared_l2", "pca_odd")]
+
+
+@pytest.mark.parametrize("engine,measure,kind", SEARCH_CASES)
+def test_jax_projected_index_searches_alike(data, engine, measure, kind,
+                                            tmp_path):
+    db, q = data
+    js = _index(scann_tpu, db, engine, measure, kind)
+    js.serialize(str(tmp_path))
+    ts = scann_torch.load_searcher(str(tmp_path), device="cpu")
+    assert ts.projector.out_dims == js.projector.out_dims
+    if kind == "pca_odd":
+        assert ts.projector.out_dims % 2 == 1
+    assert ts.reorder_helper._db.shape[1] == db.shape[1]
+    assert ts.reorder_helper._leaf is None
+    for leaves in (5, 16):
+        assert_same(js.search_batched(q, leaves_to_search=leaves),
+                    ts.search_batched(q, leaves_to_search=leaves),
+                    measure, q, db)
+
+
+def test_port_built_pca_index_loads_in_jax(data, tmp_path):
+    db, q = data
+    truth = np.argsort(-(q @ db.T), axis=1)[:, :10]
+    for engine in ("tree_ah", "tree_sq"):
+        ts = _index(scann_torch, db, engine, "dot_product", "pca")
+        js = _index(scann_tpu, db, engine, "dot_product", "pca")
+        got = ts.search_batched(q)
+        path = str(tmp_path / engine)
+        ts.serialize(path)
+        back = scann_tpu.load_searcher(path)
+        assert back.projector.out_dims == 10
+        assert_same(got, back.search_batched(q), "dot_product", q, db)
+        rt = np.mean([len(set(got[0][i]) & set(truth[i])) / 10
+                      for i in range(len(q))])
+        jidx = js.search_batched(q)[0]
+        rj = np.mean([len(set(jidx[i]) & set(truth[i])) / 10
+                      for i in range(len(q))])
+        # k-means draws differ between the packages: hold the port's build
+        # to the JAX build's recall within this tiny corpus's spread.
+        assert abs(rt - rj) <= 0.05, (engine, rt, rj)

@@ -163,9 +163,9 @@ def test_check_supported_refuses_unserved_widths_on_cuda(d, lookup, tree,
     tree_ah.check_supported(config)
     for dev in (torch.device("cpu"), CUDA):
         scann_torch.factory.check_supported(config, dev, d)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         scann_torch.factory.check_supported(dataclasses.replace(
-            config, projection=object()), CUDA, d)
+            config, autopilot=object()), CUDA, d)
 
 
 @pytest.mark.parametrize("rows,refused", [
