@@ -123,10 +123,32 @@ Phases (any failure is an uncaught exception and a non-zero exit):
         about 40): sparse_searcher's default (K3, exact host rescore)
         against the exact product (cuSPARSE), and SparseExactSearcher on
         100,000 rows for 100 queries;
+ 14. mutation and health (ROADMAP item 15) on the phase-3 corpus with
+     bench.py's tree-AH config and docids "d{i}": a. an int8-lookup index
+     built on the first MUT_BASE rows takes the held-out rows (10 upsert
+     batches, the last ones past the free slots, so the layout grows),
+     100,000 deletes (10 batches), 10,000 updates with other rows'
+     vectors and 1,000 re-inserts, each batch timed with the first
+     1,000-query search after it (the pruned-layout rebuild apart); then
+     all 10,000 queries at leaves 100 / 100 candidates (must launch K3;
+     K3 bit-equal to its plain version on the mutated plan), recall@10
+     against exact float32 brute force over the live rows, no deleted
+     docid back, every result a live docid; e. that index serialized
+     with its docids and mutation state, reloaded on the card and on the
+     CPU (the same docids on 16 queries); d. its rebalance(), timed, and
+     the mutated index's recall within MUT_MAX_RECALL_LOSS of the rebuilt
+     one's; b. the same sequence on the reconstruct index (K2 at leaves
+     100, K5 on the full scan, each held against its plain version); c.
+     an online_incremental index (threshold MUT_INCREMENTAL): skewed
+     upserts until a split fires, deletes that drain a leaf until a merge
+     fires, each leaf count as the rule predicts from the counts, the
+     weighted imbalance lower after the split, recall within
+     MUT_INCREMENTAL_MAX_LOSS of its rebalance's; f. float32 and int8
+     brute force with docids against numpy exact;
 then the occupancy line of the six kernels (registers a thread, dynamic
 shared memory a block, resident blocks an SM, at the main path's shapes;
 K3 and K5 also at the widths of phase 9), the kernels JSON line (with
-each kernel's launches in phases 12 and 13), the card line, and the
+each kernel's launches in phases 12, 13 and 14), the card line, and the
 final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
@@ -2371,6 +2393,429 @@ def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
     return launches, errs, out
 
 
+# Phase 14: ROADMAP item 15, mutation and health, on the phase-3 corpus
+# with bench.py's tree-AH config and docids "d{i}".  The index is built on
+# the first MUT_BASE rows; the held-out rows are upserted in batches, then
+# random original docids are deleted, existing docids updated with other
+# rows' vectors and deleted docids re-inserted.  Recall@10 is taken
+# against exact float32 brute force over the live rows, and held against a
+# fresh build on the same live rows (rebalance()): deleting a tenth of a
+# corpus of about 12 rows a topic removes true neighbours, so recall over
+# the live rows is not comparable with phase 6's over the whole corpus.
+MUT_BASE = 1_083_514
+MUT_BATCHES, MUT_BATCH = 10, 10_000
+MUT_UPDATES, MUT_REINSERT = 10_000, 1_000
+MUT_QUERIES = 1_000         # the first search after each mutation batch
+MUT_MAX_RECALL_LOSS = 0.01  # 14a against its rebalance (14d), 100 / 100
+MUT_INCREMENTAL = 0.05      # 14c's incremental_threshold (a fraction)
+MUT_INCREMENTAL_MAX_LOSS = 0.02   # 14c against its rebalance, 1,000 queries
+MUT_BF_ROWS = 100_000       # 14f's brute-force corpus
+MUT_BF_QUERIES = 1_000
+
+
+def live_truth(torch, s, queries, k=K, block=256):
+    """Docids of the exact float32 top-k over a mutable searcher's live
+    rows (its host mirror), by dot product on the card."""
+    st = s._mut
+    live = np.nonzero(st.alive)[0]
+    x = torch.as_tensor(st.vectors[live], device="cuda")
+    q = torch.as_tensor(queries, device="cuda")
+    tops = [torch.topk(q[i:i + block] @ x.T, k, dim=1).indices.cpu().numpy()
+            for i in range(0, len(queries), block)]
+    del x
+    return np.asarray(s.docids, object)[live[np.concatenate(tops)]]
+
+
+def docid_recall(idx, truth):
+    return sum(len(set(r) & set(t)) for r, t in zip(idx, truth)) / (
+        len(truth) * truth.shape[1])
+
+
+def check_live(s, idx, gone, what):
+    """Every result a live docid, and none of the deleted ones."""
+    live = s._mut.docid_to_id
+    flat = [d for row in idx for d in row]
+    if any(d is None or d not in live for d in flat):
+        raise AssertionError(f"{what}: a result is not a live docid")
+    if set(flat) & gone:
+        raise AssertionError(f"{what}: a deleted docid came back")
+
+
+def mutation_sequence(torch, s, db, queries, seed=14):
+    """14a / 14b's sequence on searcher ``s`` (built on db[:MUT_BASE] with
+    docids d{i}); each batch is timed with the first search after it and
+    the pruned-layout rebuild apart.  Returns (per-kind timing records,
+    the docids deleted and not re-inserted)."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    slots0 = len(s._host["dpid"])
+
+    def step(kind, n, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s._ensure_pruned()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s.search_batched(queries[:MUT_QUERIES])
+        t3 = time.perf_counter()
+        recs.append({"kind": kind, "rows": n, "mutate_s": t1 - t0,
+                     "rebuild_s": t2 - t1, "search_s": t3 - t2})
+        log(f"  {kind} of {n} rows: {t1 - t0:.3f} s, pruned-layout rebuild "
+            f"{t2 - t1:.3f} s, first search {t3 - t2:.3f} s")
+
+    for b in range(MUT_BATCHES):
+        lo = MUT_BASE + b * MUT_BATCH
+        step("upsert", MUT_BATCH, lambda: s.upsert(
+            [f"d{i}" for i in range(lo, lo + MUT_BATCH)],
+            db[lo:lo + MUT_BATCH]))
+    deleted = rng.choice(MUT_BASE, MUT_BATCHES * MUT_BATCH, replace=False)
+    for b in range(MUT_BATCHES):
+        part = deleted[b * MUT_BATCH:(b + 1) * MUT_BATCH]
+        step("delete", MUT_BATCH,
+             lambda: s.delete([f"d{i}" for i in part]))
+    keep = np.setdiff1d(np.arange(MUT_BASE), deleted)
+    upd = rng.choice(keep, MUT_UPDATES, replace=False)
+    src = rng.choice(N_DB, MUT_UPDATES, replace=False)
+    step("update", MUT_UPDATES, lambda: s.upsert(
+        [f"d{i}" for i in upd], db[src]))
+    back = deleted[:MUT_REINSERT]
+    step("reinsert", MUT_REINSERT, lambda: s.upsert(
+        [f"d{i}" for i in back], db[back]))
+    if len(s._host["dpid"]) <= slots0:
+        raise AssertionError("no upsert batch overflowed the free slots")
+    out = {}
+    for kind in ("upsert", "delete", "update", "reinsert"):
+        rs = [r for r in recs if r["kind"] == kind]
+        rows = sum(r["rows"] for r in rs)
+        mut = sum(r["mutate_s"] for r in rs)
+        srch = sum(r["search_s"] for r in rs)
+        out[kind] = {"batches": len(rs), "rows": rows,
+                     "rows_per_s": rows / (mut + srch), "mutate_s": mut,
+                     "first_search_s": srch,
+                     "rebuild_s": sum(r["rebuild_s"] for r in rs),
+                     "rebuild_s_max": max(r["rebuild_s"] for r in rs)}
+    out["slots"] = [slots0, len(s._host["dpid"])]
+    return out, {f"d{i}" for i in deleted[MUT_REINSERT:]}
+
+
+def mutation_phase(torch, scann_torch, db, queries, ah_at100):
+    """Phase 14: ROADMAP item 15.  Returns (launches of K2, K3 and K5 in
+    this phase's searches, the largest kernel-vs-plain error of each
+    kernel held here, summary dict)."""
+    from scann_torch.ops import fused_scan
+    from scann_torch.ops import pruned_lut
+    from scann_torch.ops import pruned_scan
+    t_phase = time.perf_counter()
+    launches = {"pruned_rows": 0, "pruned_lut": 0, "fused_scan": 0}
+    errs = {}
+    out = {}
+    q_dev = torch.as_tensor(queries, device="cuda")
+    tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
+                training_sample_size=TRAIN_SAMPLE)
+    base_ids = [f"d{i}" for i in range(MUT_BASE)]
+
+    def counted(s, qs, **kw):
+        """A search with every kernel count set to 0 just before; its
+        launches join the phase's."""
+        pruned_scan.launches = pruned_lut.launches_lut = 0
+        fused_scan.launches = 0
+        idx, dist = s.search_batched(qs, **kw)
+        got = {"pruned_rows": pruned_scan.launches,
+               "pruned_lut": pruned_lut.launches_lut,
+               "fused_scan": fused_scan.launches}
+        for name, n in got.items():
+            launches[name] += n
+        if not np.isfinite(dist).all() or len(idx) != len(qs):
+            raise AssertionError("bad results on a mutated index")
+        return idx, {n: c for n, c in got.items() if c}
+
+    def build(lookup, **extra):
+        config = ah_config(scann_torch, db[:MUT_BASE], "dot_product", lookup,
+                           "float32", **tree, **extra)
+        return timed_build(torch, lambda: scann_torch.create_searcher(
+            db[:MUT_BASE], config, "cuda", docids=base_ids))
+
+    # a. int8 lookup (K3).
+    a, build_s = build("int8")
+    seq, gone = mutation_sequence(torch, a, db, queries)
+    truth = live_truth(torch, a, queries)
+    idx, got = counted(a, queries, leaves_to_search=LEAVES_TO_SEARCH,
+                       pre_reorder_num_neighbors=AH_REORDER)
+    if not got.get("pruned_lut"):
+        raise AssertionError("the mutated int8-lookup index did not launch "
+                             "K3")
+    check_live(a, idx, gone, "14a")
+    rec_a = docid_recall(idx, truth)
+    a3 = ah_inputs(torch, a, q_dev, LEAVES_TO_SEARCH, False)
+    kpg = tree_ah_kpg(a)
+    k3_got = pruned_lut.score_work_lut(*a3, measure_l2=False, kpg=kpg)
+    k3_want = k3_plain(*a3, measure_l2=False, kpg=kpg)
+    torch.cuda.synchronize()
+    errs["pruned_lut"], _ = compare_packed(torch, "K3 (mutated)", k3_got,
+                                           k3_want, a3[0])
+    n_act = int(a3[0].work_active.sum())
+    del a3, k3_got, k3_want
+    out["a"] = {"build_s": build_s, "sequence": seq, "recall": rec_a,
+                "phase6_recall": ah_at100, "k3_active_items": n_act,
+                "health": a.get_health_stats(),
+                "num_leaves": a.partitioner.num_leaves,
+                "live_rows": int(a._mut.alive.sum())}
+    log(f"14a int8 lookup, mutated: recall@10 {rec_a:.4f} against the live "
+        f"rows (phase 6 over the whole corpus: {ah_at100:.4f}), K3 "
+        f"bit-equal on the mutated plan ({n_act} active items), sequence "
+        f"{json.dumps(seq)}, health {out['a']['health']}")
+
+    # e. the mutated index serialized with its docids and mutation state,
+    # loaded on the card and on the CPU.
+    q16 = queries[:16]
+    kw = dict(leaves_to_search=LEAVES_TO_SEARCH)
+    want = a.search_batched(q16, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        a.serialize(tmp)
+        save_s = time.perf_counter() - t0
+        gpu = scann_torch.load_searcher(tmp, device="cuda")
+        cpu = scann_torch.load_searcher(tmp, device="cpu")
+    for what, s in (("card", gpu), ("cpu", cpu)):
+        got_i, got_d = s.search_batched(q16, **kw)
+        same = np.mean([x == y for r, t in zip(got_i, want[0])
+                        for x, y in zip(r, t)])
+        err = np.abs(got_d - want[1]).max()
+        if same < 0.99 or err > 1e-4 * np.abs(want[1]).max():
+            raise AssertionError(f"14e: the reloaded index ({what}) "
+                                 f"disagrees: ids {same:.4f}")
+        if s._mut.mutations_since_rebuild != a._mut.mutations_since_rebuild:
+            raise AssertionError("14e: the mutation count did not travel")
+    out["e"] = {"save_s": save_s, "ids_equal": float(same)}
+    log(f"14e: serialized in {save_s:.1f} s; the card and CPU reloads "
+        f"return the mutated index's docids on 16 queries")
+    del gpu, cpu
+
+    # d. rebalance() on index a.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.rebalance()
+    a._ensure_pruned()
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    idx, _ = counted(a, queries, leaves_to_search=LEAVES_TO_SEARCH,
+                     pre_reorder_num_neighbors=AH_REORDER)
+    check_live(a, idx, gone, "14d")
+    rec_d = docid_recall(idx, truth)
+    out["d"] = {"rebalance_s": reb_s, "recall": rec_d,
+                "num_leaves": a.partitioner.num_leaves,
+                "health": a.get_health_stats()}
+    log(f"14d rebalance: {reb_s:.1f} s, recall@10 {rec_d:.4f} (14a "
+        f"{rec_a:.4f}), health {out['d']['health']}")
+    if abs(rec_d - rec_a) > MUT_MAX_RECALL_LOSS:
+        raise AssertionError(f"14a recall@10 {rec_a:.4f} is not within "
+                             f"{MUT_MAX_RECALL_LOSS} of its rebalance's "
+                             f"{rec_d:.4f}")
+    a = None
+    torch.cuda.empty_cache()
+
+    # b. reconstruct mode (K2 pruned, K5 full scan), the same sequence.
+    b, build_s = build("reconstruct")
+    nl = b.partitioner.num_leaves
+    counted(b, queries[:MUT_QUERIES], leaves_to_search=nl)  # rows in place
+    seq, gone_b = mutation_sequence(torch, b, db, queries)
+    if gone_b != gone:
+        raise AssertionError("14b's sequence differs from 14a's")
+    rec_b = {}
+    for what, lv in (("pruned", LEAVES_TO_SEARCH), ("full_scan", nl)):
+        idx, got = counted(b, queries, leaves_to_search=lv,
+                           pre_reorder_num_neighbors=AH_REORDER)
+        kernel = "pruned_rows" if what == "pruned" else "fused_scan"
+        if not got.get(kernel):
+            raise AssertionError(f"14b {what} did not launch {kernel}")
+        check_live(b, idx, gone, f"14b {what}")
+        rec_b[what] = docid_recall(idx, truth)
+    args = recon_k2_inputs(torch, b, q_dev, LEAVES_TO_SEARCH, False)
+    kpg = tree_ah_kpg(b)
+    k2_got = pruned_scan.score_work(*args, measure_l2=False, kpg=kpg)
+    k2_want = pruned_scan.score_work_torch(*args, measure_l2=False, kpg=kpg)
+    torch.cuda.synchronize()
+    errs["pruned_rows"], ident = compare_packed(
+        torch, "K2 (mutated)", k2_got, k2_want, args[0], atol=K4_ATOL,
+        min_id=K2_MIN_ID_AGREE)
+    del args, k2_got, k2_want
+    rows, bias = b._recon_rows, b._recon_bias
+    _, q_bf = b._recon_queries(q_dev[:SOAR_K5_QUERIES], rows.shape[1])
+    k5_got = fused_scan.fused_scan_groupmax(q_bf, rows, bias)
+    k5_want = fused_scan.fused_scan_groupmax_torch(q_bf, rows, bias)
+    torch.cuda.synchronize()
+    errs["fused_scan"], agree = compare_groupmax(torch, k5_got, k5_want,
+                                                 q_bf, rows, bias, 1.0)
+    out["b"] = {"build_s": build_s, "sequence": seq, "recall": rec_b,
+                "k2_identities": ident, "k5_slots_agree": agree,
+                "slots": int(rows.shape[0])}
+    log(f"14b reconstruct, mutated: recall@10 {rec_b}, K2 max |err| "
+        f"{errs['pruned_rows']:.3g} (identities {ident:.6f}), K5 max |err| "
+        f"{errs['fused_scan']:.3g} (slots {agree:.6f}, {rows.shape[0]} "
+        f"slots), sequence {json.dumps(seq)}")
+    b = rows = bias = q_bf = k5_got = k5_want = None
+    torch.cuda.empty_cache()
+
+    # c. online_incremental maintenance: skewed upserts split, a drained
+    # leaf merges.
+    c, build_s = build("int8", incremental_threshold=MUT_INCREMENTAL,
+                       incremental_mode="online_incremental")
+    events = []
+    maint = c.incremental_maintenance
+
+    def predict():
+        """Splits and merges the maintenance rule will make now."""
+        t = c.datapoint_to_token
+        alive = c._mut.alive[:len(t)]
+        counts = np.bincount(t[alive, 0], minlength=c.partitioner.num_leaves)
+        avg = max(1.0, counts.mean())
+        splits = min(4, int((counts > 2.0 * avg).sum()))
+        nz = counts[counts > 0]
+        under = (counts < max(2.0, 0.05 * max(1.0, nz.mean()))) \
+            & (c._leaf_deletions > 0)
+        return splits, min(4, int(under.sum()))
+
+    def maintenance(*args, **kw):
+        splits, merges = predict()
+        before = (c.partitioner.num_leaves, c.get_health_stats())
+        t0 = time.perf_counter()
+        changed = maint(*args, **kw)
+        torch.cuda.synchronize()
+        events.append({"predicted_splits": splits,
+                       "predicted_merges": merges, "changed": changed,
+                       "leaves": [before[0], c.partitioner.num_leaves],
+                       "weighted_imbalance": [
+                           before[1][
+                               "partition_weighted_avg_relative_imbalance"],
+                           c.get_health_stats()[
+                               "partition_weighted_avg_relative_imbalance"]],
+                       "seconds": time.perf_counter() - t0})
+        return changed
+
+    c.incremental_maintenance = maintenance
+    prim = c.datapoint_to_token[:, 0]
+    big = int(np.bincount(prim).argmax())
+    members = np.nonzero(prim == big)[0]
+    rng = np.random.default_rng(15)
+    need = int(MUT_INCREMENTAL * MUT_BASE) + MUT_BATCH
+    n_up = 0
+    while not events:
+        src = db[rng.choice(members, MUT_BATCH)]
+        rows = src + 0.01 * rng.standard_normal(src.shape).astype(np.float32)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        c.upsert([f"s{i}" for i in range(n_up, n_up + MUT_BATCH)], rows)
+        n_up += MUT_BATCH
+        if n_up > need:
+            raise AssertionError("14c: the skewed upserts never maintained")
+    alive_prim = c.datapoint_to_token[:, 0]
+    counts = np.bincount(alive_prim[c._mut.alive],
+                         minlength=c.partitioner.num_leaves)
+    nonempty = np.nonzero(counts > 0)[0]
+    drain = int(nonempty[np.argmin(counts[nonempty])])
+    gone_c = [c.docids[i] for i in np.nonzero(c._mut.alive
+                                              & (alive_prim == drain))[0]]
+    others = np.setdiff1d(np.nonzero(c._mut.alive)[0],
+                          np.nonzero(alive_prim == drain)[0])
+    pool = rng.permutation(others)
+    n_del, p = 0, 0
+    c.delete(gone_c)
+    n_del += len(gone_c)
+    while len(events) < 2:
+        part = pool[p:p + MUT_BATCH]
+        p += MUT_BATCH
+        c.delete([c.docids[i] for i in part])
+        n_del += len(part)
+        if p > len(pool):
+            raise AssertionError("14c: the deletes never maintained")
+    for e in events:
+        if e["leaves"][1] - e["leaves"][0] != \
+                e["predicted_splits"] - e["predicted_merges"] or \
+                e["changed"] != e["predicted_splits"] + e["predicted_merges"]:
+            raise AssertionError(f"14c: maintenance did not change the "
+                                 f"leaves as predicted: {e}")
+    if events[0]["predicted_splits"] < 1 or events[1]["predicted_merges"] < 1:
+        raise AssertionError(f"14c: no split or no merge fired: {events}")
+    if events[0]["weighted_imbalance"][1] >= \
+            events[0]["weighted_imbalance"][0]:
+        raise AssertionError("14c: the split did not lower the weighted "
+                             "imbalance")
+    qs = queries[:MUT_QUERIES]
+    idx, got = counted(c, qs, leaves_to_search=LEAVES_TO_SEARCH,
+                       pre_reorder_num_neighbors=AH_REORDER)
+    check_live(c, idx, set(), "14c")
+    truth_c = live_truth(torch, c, qs)
+    rec_c = docid_recall(idx, truth_c)
+    c._ensure_pruned()
+    out["c"] = {"build_s": build_s, "skewed_upserts": n_up,
+                "deletes": n_del, "drained_leaf_rows": len(gone_c),
+                "maintenance": events, "recall": rec_c, "launches": got,
+                "pruned_layout": c._pruned_built,
+                "health": c.get_health_stats()}
+    c.rebalance()
+    idx, _ = counted(c, qs, leaves_to_search=LEAVES_TO_SEARCH,
+                     pre_reorder_num_neighbors=AH_REORDER)
+    out["c"]["rebalanced_recall"] = docid_recall(idx, truth_c)
+    log(f"14c online_incremental: {n_up} skewed upserts, {n_del} deletes "
+        f"({len(gone_c)} drained one leaf), maintenance {events}, recall@10 "
+        f"{rec_c:.4f} on {len(qs)} queries (rebalanced: "
+        f"{out['c']['rebalanced_recall']:.4f}), launches {got}, pruned "
+        f"layout {out['c']['pruned_layout']}, health {out['c']['health']}")
+    if rec_c < out["c"]["rebalanced_recall"] - MUT_INCREMENTAL_MAX_LOSS:
+        raise AssertionError(f"14c recall@10 {rec_c:.4f} is under its "
+                             f"rebalance's less {MUT_INCREMENTAL_MAX_LOSS}")
+    c = None
+    torch.cuda.empty_cache()
+
+    # f. brute force (float32, int8) with docids against numpy exact.
+    bf = {}
+    qs = queries[:MUT_BF_QUERIES]
+    for quant in ("float32", "int8"):
+        s = (scann_torch.builder(db[:MUT_BF_ROWS], K, "dot_product")
+             .score_brute_force(quant).build(
+                 docids=[f"d{i}" for i in range(MUT_BF_ROWS)]))
+        n_new = MUT_BF_ROWS // 10
+        s.upsert([f"d{i}" for i in range(MUT_BF_ROWS, MUT_BF_ROWS + n_new)],
+                 db[MUT_BF_ROWS:MUT_BF_ROWS + n_new])
+        dele = rng.choice(MUT_BF_ROWS, n_new, replace=False)
+        s.delete([f"d{i}" for i in dele])
+        idx, dist = s.search_batched(qs)
+        live = np.nonzero(s._mut.alive)[0]
+        rows = s._db[torch.as_tensor(live, device="cuda")].float().cpu().numpy()
+        qn = qs
+        if s._inv_mult is not None:
+            qn = qs * s._inv_mult.cpu().numpy()[None, :]
+        sims = qn @ rows.T
+        top = np.argsort(-sims, axis=1, kind="stable")[:, :K]
+        want = np.asarray(s.docids, object)[live[top]]
+        found = np.mean([len(set(r) & set(t)) / K for r, t in zip(idx, want)])
+        derr = float(np.abs(np.take_along_axis(sims, top, 1) - dist).max())
+        check_live(s, idx, {f"d{i}" for i in dele}, f"14f {quant}")
+        bf[quant] = {"ids_found": found, "max_dist_err": derr}
+        if found < 0.999 or derr > 1e-3:
+            raise AssertionError(f"14f {quant} brute force disagrees with "
+                                 f"numpy exact: ids {found:.4f}")
+        s = None
+    out["f"] = bf
+    log(f"14f brute force with docids against numpy exact: {bf}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 launches: {launches}; {out['seconds']:.1f} s")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"phase 14 never launched {name}")
+    return launches, errs, out
+
+
+def tree_ah_kpg(s):
+    """kpg of a tree-AH searcher's pruned search at the bench budget."""
+    from scann_torch.models import tree_ah
+    return tree_ah._survivors_per_group(s._k_fetch(AH_REORDER), s._num_slots,
+                                        s.partitioner.num_leaves)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2533,10 +2978,16 @@ def main():
     enc_launches, enc_errs, encodings = encodings_phase(
         torch, scann_torch, (db, queries, truth), gist, sift, wide_summary)
     gist = sift = None
+    # 14. ROADMAP item 15: mutation and health.
+    ah_at100 = next(p for p in ah_summary["points"] if (
+        p["index"], p["leaves"], p["pre"]) == ("int8_f32", 100, 100))["recall"]
+    mut_launches, mut_errs, mutation = mutation_phase(
+        torch, scann_torch, db, queries, ah_at100)
 
     for rec, name in ((k1, "pruned_sq"), (k2, "pruned_rows"),
                       (k3, "pruned_lut"), (k5, "fused_scan")):
-        rec["max_abs_err"] = max(rec["max_abs_err"], enc_errs.get(name, 0.0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], enc_errs.get(name, 0.0),
+                                 mut_errs.get(name, 0.0))
     # K6's line: the tree-AH block (the wider rows, k 30); both blocks'
     # numbers are in the summary.
     k6.update(k6["tree_ah"])
@@ -2548,7 +2999,8 @@ def main():
                "wide": {**wide_summary, "k3_b_pad_480": k3_wide,
                         "k5_d_960": k5_wide},
                "sift_tree_sq": sift_summary, "compositions": compositions,
-               "search_features": features, "encodings": encodings}
+               "search_features": features, "encodings": encodings,
+               "mutation": mutation}
     log("summary " + json.dumps(summary))
     # What the card makes of the six kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
@@ -2577,7 +3029,8 @@ def main():
          "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
          "library_ms": None, "design": design,
          "launches_phase12": features_launches.get(name, 0),
-         "launches_phase13": enc_launches.get(name, 0)}
+         "launches_phase13": enc_launches.get(name, 0),
+         "launches_phase14": mut_launches.get(name, 0)}
         for name, replaces, rec, design in (
             ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1, TILE_MMA),
             ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2, TILE_MMA),

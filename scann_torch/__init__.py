@@ -27,7 +27,11 @@ datasets (1 B a dimension where the engine allows), pca / opq /
 truncate / random-orthogonal projections, stacked and VARIABLE_CHUNK
 codes, the single-leaf AH tree, and sparse input through hashed
 projections (``sparse_searcher``) or an exact sparse scan
-(``SparseExactSearcher``).  Entry points run on CUDA unless the caller
+(``SparseExactSearcher``).  Built with docids (``build(docids=...)`` or a
+``DenseDataset``'s), a brute-force or tree-AH searcher returns docids and
+takes ``upsert``, ``delete`` and ``rebalance``, with the partitioning's
+incremental threshold (a full rebalance, or split / merge maintenance)
+and ``get_health_stats``.  Entry points run on CUDA unless the caller
 asks for the CPU::
 
     import scann_torch
@@ -68,10 +72,24 @@ __all__ = ["ScannBuilder", "builder", "ScannConfig", "PartitioningConfig",
            "AsymmetricHashConfig", "BruteForceConfig", "ReorderConfig",
            "SoarConfig", "ProjectionConfig", "DenseDataset",
            "MetadataGetter", "SparseMatrix", "SparseExactSearcher",
-           "sparse_searcher", "create_searcher", "load_searcher"]
+           "sparse_searcher", "create_searcher", "load_searcher",
+           "searcher_to_tensors", "searcher_from_tensors"]
 
 
 def load_searcher(artifacts_dir, device="cuda"):
     """Load an index written by either package's serialize()."""
     from scann_torch.utils import serialization
     return serialization.load_searcher(artifacts_dir, device)
+
+
+def searcher_to_tensors(searcher):
+    """Searcher -> flat dict of numpy arrays (checkpoint-embeddable); the
+    JAX package reads it with its searcher_from_tensors."""
+    from scann_torch.utils import serialization
+    return serialization.searcher_to_tensors(searcher)
+
+
+def searcher_from_tensors(tensors, device="cuda"):
+    """Inverse of searcher_to_tensors (either package's dict)."""
+    from scann_torch.utils import serialization
+    return serialization.searcher_from_tensors(tensors, device)

@@ -37,10 +37,6 @@ def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         tree_ah.check_supported(c)
-    if c.partitioning is None:
-        return
-    if c.partitioning.incremental_threshold is not None:
-        base.not_ported("incremental_threshold (mutation)", 15)
 
 
 def typed_ok(database: np.ndarray, scann_config: cfg.ScannConfig) -> bool:
@@ -64,14 +60,14 @@ def typed_ok(database: np.ndarray, scann_config: cfg.ScannConfig) -> bool:
 def create_searcher(database, scann_config: cfg.ScannConfig, device,
                     docids=None):
     """Build a searcher from a config on ``device``.  ``database`` is an
-    (n, d) array or a data.dataset.DenseDataset."""
+    (n, d) array or a data.dataset.DenseDataset, whose docids serve when
+    ``docids`` is None.  With docids, results are lists of docids and the
+    searcher takes upsert / delete / rebalance (brute force and tree-AH)."""
     from scann_torch.data import dataset as dataset_mod
     if isinstance(database, dataset_mod.DenseDataset):
         if docids is None:
             docids = database.docids
         database = database.data
-    if docids is not None:
-        base.not_ported("docids", 15)
     dev = base.resolve_device(device)
     database = np.asarray(database)
     if not typed_ok(database, scann_config) and \
@@ -87,9 +83,10 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
         database = database / np.maximum(norms, 1e-20)
     if scann_config.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
-        return tree_ah.TreeAHSearcher(database, scann_config, dev)
+        return tree_ah.TreeAHSearcher(database, scann_config, dev, docids)
     if scann_config.partitioning is not None:
         from scann_torch.models import tree_x
-        return tree_x.TreeXSearcher(database, scann_config, dev)
+        return tree_x.TreeXSearcher(database, scann_config, dev, docids)
     from scann_torch.models import brute_force
-    return brute_force.BruteForceSearcher(database, scann_config, dev)
+    return brute_force.BruteForceSearcher(database, scann_config, dev,
+                                          docids)

@@ -72,6 +72,15 @@ def _row_quantize(delta):
     return q8, scale
 
 
+def last_positions(ids) -> np.ndarray:
+    """Positions of the last occurrence of each id, in call order: the rows
+    a scatter writes, so that a repeated id keeps its last row on any
+    device (index_put_ picks no defined winner among repeats on CUDA)."""
+    ids = np.asarray(ids)
+    _, first_rev = np.unique(ids[::-1], return_index=True)
+    return np.sort(len(ids) - 1 - first_rev)
+
+
 class ReorderHelper:
     """Rescoring of candidate lists against a compressed copy of the
     dataset: float32, bfloat16, residual int8 (rows stored as per-row
@@ -118,6 +127,56 @@ class ReorderHelper:
         else:
             self._db = x
             self._sq_norms = None
+
+    def ensure_capacity(self, n: int):
+        """Grow the rows to hold at least n (by a fifth and 128 more, as in
+        the JAX package)."""
+        cap = self._db.shape[0]
+        if n <= cap:
+            return
+        grow = max(n, int(cap * 1.2) + 128) - cap
+
+        def pad(t):
+            return None if t is None else torch.cat(
+                [t, t.new_zeros((grow,) + tuple(t.shape[1:]))])
+
+        self._db = pad(self._db)
+        self._sq_norms = pad(self._sq_norms)
+        self._leaf = pad(self._leaf)
+        self._row_scale = pad(self._row_scale)
+
+    def update_rows(self, ids, rows, tokens=None):
+        """Write rows ``ids`` (the mutation path).  Residual int8 takes the
+        rows' primary leaves (``tokens``); per-dimension int8 keeps its
+        build's multipliers and rounds plainly (no noise shaping), as the
+        JAX package does.  A repeated id keeps its last row."""
+        if self._leaf is not None and tokens is None:
+            raise ValueError("residual int8 reordering requires primary "
+                             "tokens on update_rows")
+        keep = last_positions(ids)
+        dev = self._db.device
+        idx = torch.as_tensor(np.asarray(ids)[keep], device=dev).long()
+        x = torch.as_tensor(np.asarray(rows, np.float32)[keep], device=dev)
+        if self._leaf is not None:
+            tok = torch.as_tensor(np.asarray(tokens, np.int32)[keep],
+                                  device=dev)
+            c_rows = self._centers[tok.long()]
+            q8, scale = _row_quantize(x - c_rows)
+            deq = q8.float() * scale[:, None] + c_rows
+            self._db[idx] = q8
+            self._row_scale[idx] = scale
+            self._sq_norms[idx] = (deq * deq).sum(-1)
+            self._leaf[idx] = tok
+        elif self._inv_mult is not None:
+            q8 = torch.clamp(torch.round(x / self._inv_mult[None, :]),
+                             -127, 127).to(torch.int8)
+            deq = q8.float() * self._inv_mult[None, :]
+            self._db[idx] = q8
+            self._sq_norms[idx] = (deq * deq).sum(-1)
+        else:
+            self._db[idx] = x.to(self._db.dtype)
+            if self._sq_norms is not None:
+                self._sq_norms[idx] = (x * x).sum(-1)
 
     def rescore(self, queries, candidate_idx):
         """(q, d) x (q, k_pre) -> (q, k_pre) exact similarities."""
@@ -178,16 +237,26 @@ class Searcher:
     # chip_smoke.py records CUDA events with it.
     stage_hook = None
 
+    # Whether _apply_upsert / _apply_delete are served: brute force and
+    # tree-AH; Tree-X refuses, as in the JAX package.
+    _mutable = False
+
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
-                 device: torch.device):
+                 device: torch.device, docids=None):
         self.config = scann_config
         self.device = device
         self.n_points, self.dims = database.shape
+        self.docids = list(docids) if docids is not None else None
+        if self.docids is not None and len(self.docids) != self.n_points:
+            raise ValueError("docids must have one entry per database row")
         # One upload shared by every build phase; typed (int8 / uint8)
         # rows stay 1 B a dimension and each phase casts what it gathers.
         if database.dtype not in (np.int8, np.uint8):
             database = np.asarray(database, np.float32)
         self._build_x_dev = torch.as_tensor(database, device=device)
+        if self.docids is not None and device.type == "cpu":
+            # Mutation writes the index rows in place: never the caller's.
+            self._build_x_dev = self._build_x_dev.clone()
         self.reorder_helper = None
         self._reorder_deferred = False
         self._crowding_attrs = None
@@ -210,6 +279,7 @@ class Searcher:
             self.projector = proj_ops.train_projection(
                 database, scann_config.projection, seed=scann_config.seed,
                 device=device)
+        self._enable_mutation(database, self.docids)
 
     def _project_database(self, x_dev):
         """The rows the index is built on: the projection of the uploaded
@@ -330,6 +400,10 @@ class Searcher:
             self.part_cfg, num_leaves=centers_np.shape[0])
         self.config = dataclasses.replace(self.config,
                                           partitioning=self.part_cfg)
+        mutations = getattr(self, "_leaf_mutations", None)
+        if mutations is not None and centers_np.shape[0] > len(mutations):
+            self._leaf_mutations = np.concatenate([mutations, np.zeros(
+                (centers_np.shape[0] - len(mutations),), np.int64)])
 
     # ------------------------------------------------------------ pipeline
     def _search_impl(self, queries, k: int, k_pre: int, leaves: int,
@@ -561,8 +635,10 @@ class Searcher:
 
             def _combine():
                 outs = [p.result() for p in pending]
-                return (np.concatenate([o[0] for o in outs], axis=0),
-                        np.concatenate([o[1] for o in outs], axis=0))
+                dist = np.concatenate([o[1] for o in outs], axis=0)
+                if self.docids is not None:
+                    return [row for o in outs for row in o[0]], dist
+                return np.concatenate([o[0] for o in outs], axis=0), dist
 
             return PendingSearch(_combine)
         restrict = None
@@ -622,6 +698,10 @@ class Searcher:
                 bad = np.arange(idx.shape[1])[None, :] >= k_vec[:, None]
                 idx = np.where(bad, topk_ops.INVALID_INDEX, idx)
                 dist = np.where(bad, np.nan, dist)
+            if self.docids is not None:
+                # Lists of docids, None at invalid slots.
+                return ([[self.docids[j] if j >= 0 else None for j in row]
+                         for row in idx], dist)
             return idx, dist
 
         return PendingSearch(_finalize)
@@ -637,6 +717,126 @@ class Searcher:
                                         pre_reorder_num_neighbors,
                                         leaves_to_search, **kwargs)
         return idx[0], dist[0]
+
+    # ---------------------------------------------------------- mutation
+    def _mutation_state(self):
+        if getattr(self, "_mut", None) is None:
+            raise ValueError("upsert/delete require the searcher to be "
+                             "built with docids")
+        return self._mut
+
+    def _enable_mutation(self, database, docids):
+        from scann_torch import mutation
+        self._mut = (mutation.MutationState(database, docids)
+                     if docids is not None else None)
+
+    def _refuse_mutation(self):
+        """Searchers without mutation refuse before any state changes (the
+        JAX package appends the rows first, then raises)."""
+        if not self._mutable:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support dynamic updates yet")
+
+    def upsert(self, docids, database, batch_size=1):
+        """Insert rows under new docids, or overwrite the rows of known
+        ones.  Past the partitioning's incremental threshold the searcher
+        rebalances (mode "online") or runs incremental_maintenance (mode
+        "online_incremental")."""
+        del batch_size
+        from scann_torch import mutation
+        if not isinstance(docids, list):
+            docids = [docids]
+        vecs = np.asarray(database, np.float32)
+        if vecs.ndim == 1:
+            vecs = vecs[None, :]
+        if self.config.distance_measure == cfg.COSINE:
+            vecs = vecs / np.maximum(
+                np.linalg.norm(vecs, axis=1, keepdims=True), 1e-20)
+        st = self._mutation_state()
+        self._refuse_mutation()
+        existing = mutation.resolve_upsert_ids(st, docids, len(vecs))
+        ids = existing.copy()
+        for i in np.nonzero(existing >= 0)[0]:
+            # Updates in call order: a docid given twice keeps its last row.
+            st.vectors[existing[i]] = vecs[i]
+            st.alive[existing[i]] = True
+        new = np.nonzero(existing < 0)[0]
+        if len(new):
+            # New docids take the next ids in call order (one append: the
+            # mirror is copied once a call, not once a row).
+            ids[new] = st.append(vecs[new])
+            for i in new:
+                st.docid_to_id[docids[i]] = int(ids[i])
+                self.docids.append(docids[i])
+        self._apply_upsert(ids, vecs)
+        self.n_points = len(st.vectors)
+        st.mutations_since_rebuild += len(vecs)
+        part_cfg = getattr(self, "part_cfg", None)
+        if mutation.incremental_threshold_exceeded(part_cfg, st,
+                                                   self.n_points):
+            if (part_cfg.incremental_mode == "online_incremental"
+                    and hasattr(self, "incremental_maintenance")):
+                self.incremental_maintenance()
+                st.mutations_since_rebuild = 0
+            else:
+                self.rebalance()
+
+    def delete(self, docids):
+        """Tombstone rows by docid.  Under "online_incremental", past the
+        threshold, incremental_maintenance merges drained leaves away.  An
+        unknown or repeated docid raises before any row is deleted."""
+        from scann_torch import mutation
+        if not isinstance(docids, list):
+            docids = [docids]
+        st = self._mutation_state()
+        self._refuse_mutation()
+        seen = set()
+        for d in docids:
+            if d not in st.docid_to_id or d in seen:
+                raise ValueError(f"unknown docid: {d!r}")
+            seen.add(d)
+        ids = []
+        for d in docids:
+            i = st.docid_to_id.pop(d)
+            st.alive[i] = False
+            ids.append(i)
+        self._apply_delete(np.asarray(ids, np.int64))
+        st.mutations_since_rebuild += len(ids)
+        part_cfg = getattr(self, "part_cfg", None)
+        if (mutation.incremental_threshold_exceeded(part_cfg, st,
+                                                    self.n_points)
+                and part_cfg.incremental_mode == "online_incremental"
+                and hasattr(self, "incremental_maintenance")):
+            self.incremental_maintenance()
+            st.mutations_since_rebuild = 0
+
+    def rebalance(self):
+        """Retrain and rebuild the index from the live rows on the same
+        device, dropping tombstones; rows are renumbered."""
+        st = self._mutation_state()
+        live, keep = st.live_database()
+        docids = [self.docids[i] for i in keep]
+        from scann_torch import factory
+        fresh = factory.create_searcher(live, self.config, self.device,
+                                        docids=docids)
+        self.__dict__.update(fresh.__dict__)
+
+    def _apply_upsert(self, ids: np.ndarray, vecs: np.ndarray):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support dynamic updates yet")
+
+    def _apply_delete(self, ids: np.ndarray):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support dynamic updates yet")
+
+    def get_health_stats(self):
+        """Partition imbalance and quantization error, as a dict."""
+        from scann_torch.utils import health
+        return health.compute_health_stats(self).as_dict()
+
+    def initialize_health_stats(self):
+        """Stats are derived on demand: nothing to initialize."""
+        return None
 
     def serialize(self, artifacts_dir):
         """Write scann_config.json + scann_assets.npz (the JAX package's

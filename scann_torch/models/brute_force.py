@@ -41,9 +41,11 @@ _MAX_SCORES = 1 << 28
 class BruteForceSearcher(base.Searcher):
     """Exact search over a float32, bfloat16 or int8 copy of the dataset."""
 
+    _mutable = True
+
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
-                 device: torch.device):
-        super().__init__(database, scann_config, device)
+                 device: torch.device, docids=None):
+        super().__init__(database, scann_config, device, docids)
         x = self._project_database(self._build_x_dev)
         self.quantize_mode = scann_config.brute_force.quantize
         self._inv_mult = None
@@ -68,6 +70,54 @@ class BruteForceSearcher(base.Searcher):
                                  device=device)
         self._build_x_dev = None
 
+    # ----------------------------------------------------------- mutation
+    def _apply_upsert(self, ids: np.ndarray, vecs: np.ndarray):
+        """Write rows ``ids`` (growing the capacity by a fifth at least):
+        int8 rows with the build's multipliers, typed rows rounded and
+        clipped to their dtype, bf16 / float32 rows with their norms.  A
+        repeated id keeps its last row."""
+        keep = base.last_positions(ids)
+        raw = np.asarray(vecs, np.float32)
+        dev = self._db.device
+        x = self._project_database(torch.as_tensor(raw[keep], device=dev))
+        cap = self._db.shape[0]
+        need = int(ids.max()) + 1
+        if need > cap:
+            grow = max(need - cap, cap // 5 + 1)
+            self._db = torch.cat([self._db, self._db.new_zeros(
+                (grow, self._db.shape[1]))])
+            if self._sq_norms is not None:
+                self._sq_norms = torch.cat([self._sq_norms,
+                                            self._sq_norms.new_zeros(grow)])
+            self._valid = torch.cat([self._valid,
+                                     self._valid.new_zeros(grow)])
+        idx = torch.as_tensor(ids[keep], device=dev).long()
+        if self.quantize_mode == cfg.INT8:
+            q = torch.clamp(torch.round(x / self._inv_mult[None, :]),
+                            -127, 127).to(torch.int8)
+            deq = q.float() * self._inv_mult[None, :]
+            self._db[idx] = q
+            self._sq_norms[idx] = (deq * deq).sum(-1)
+        elif self._db.dtype in (torch.int8, torch.uint8):
+            info = torch.iinfo(self._db.dtype)
+            q = torch.clamp(torch.round(x), info.min, info.max).to(
+                self._db.dtype)
+            self._db[idx] = q
+            if self._sq_norms is not None:
+                self._sq_norms[idx] = (q.float() ** 2).sum(-1)
+        else:
+            self._db[idx] = x.to(self._db.dtype)
+            if self._sq_norms is not None:
+                self._sq_norms[idx] = (x * x).sum(-1)
+        self._valid[idx] = True
+        if self.reorder_helper is not None:
+            self.reorder_helper.ensure_capacity(need)
+            self.reorder_helper.update_rows(ids, raw)
+
+    def _apply_delete(self, ids: np.ndarray):
+        self._valid[torch.as_tensor(ids, device=self._valid.device).long()] \
+            = False
+
     def _query_operand(self, queries):
         """(the query operand of the product, the original queries' squared
         norms where the product's query is not the original)."""
@@ -86,7 +136,9 @@ class BruteForceSearcher(base.Searcher):
         measure = cfg.internal_measure(self.config.distance_measure)
         valid = self._valid
         if restrict is not None:
-            valid = valid & restrict
+            # Rows past n_points are spare capacity.
+            valid = valid & torch.nn.functional.pad(
+                restrict, (0, n - restrict.shape[0]), value=False)
         q, q_sq = self._query_operand(queries)
         # L1 has no product form: its (q, chunk, d) block is the live cost.
         cost = d if measure == cfg.L1 else 1

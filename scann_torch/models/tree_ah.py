@@ -42,13 +42,24 @@ as in the JAX package.  A one-leaf tree searches every slot (K5 in
 reconstruct mode, the dense scan otherwise); over 8,192 rows the build's
 leaf-size cap splits its leaf, as the JAX package's does.  With a projection the
 codes, the tree and every scorer work at the projected width; the reorder
-rescores the original rows.  Mutation is not ported yet (it raises
-NotImplementedError).  Every scorer serves every width on the card as on
-the CPU.
+rescores the original rows.  Every scorer serves every width on the card
+as on the CPU.
+
+Mutation (built with docids) edits the slot layout in place: an upsert
+tokenizes and encodes its rows as the build does and writes them into
+free slots (dpid -1), taken last-in first-out, every row's primary slot
+before the SOAR secondaries, growing the layout by a fifth when the free
+slots run out; a delete frees its slots.  The pruned layout is rebuilt
+from the slots at the next query, and the reconstruct full-scan rows are
+written in place, decoded with the mean of the last (re)build: the JAX
+package's order of operations, slot for slot.  ``incremental_maintenance``
+splits oversized leaves (a 2-means over their members) and merges leaves
+deletes have drained.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from typing import NamedTuple, Optional
@@ -137,10 +148,12 @@ def _survivors_per_group(k_fetch: int, num_slots: int,
 class TreeAHSearcher(base.Searcher):
     """Asymmetric-hashing searcher, partitioned or not."""
 
+    _mutable = True
+
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
-                 device: torch.device):
+                 device: torch.device, docids=None):
         check_supported(scann_config)
-        super().__init__(database, scann_config, device)
+        super().__init__(database, scann_config, device, docids)
         self._init_config(scann_config)
         self._build()
         self._build_x_dev = None
@@ -193,8 +206,7 @@ class TreeAHSearcher(base.Searcher):
                                    else tokens[:, None])
 
         if self.residual and self.partitioner is not None:
-            tokens_t = torch.from_numpy(tokens).to(self.device).long()
-            primary_vecs = x_dev - self.partitioner.centers[tokens_t]
+            primary_vecs = self.partitioner.residualize(x_dev, tokens)
         else:
             primary_vecs = x_dev
 
@@ -221,9 +233,8 @@ class TreeAHSearcher(base.Searcher):
         if tokens2 is not None:
             # SOAR: each row also lives in its secondary leaf, encoded as
             # the residual against that leaf's center; 2n slots.
-            sec = torch.from_numpy(tokens2[:, 1]).to(self.device).long()
             codes = np.concatenate([codes, self._encode_dataset(
-                x_dev - self.partitioner.centers[sec], x_dev)])
+                self.partitioner.residualize(x_dev, tokens2[:, 1]), x_dev)])
             leaf = np.concatenate([tokens2[:, 0], tokens2[:, 1]])
             dpid = np.concatenate([dpid, dpid])
         self.index = self._layout_slots(codes, leaf.astype(np.int32), dpid)
@@ -350,6 +361,7 @@ class TreeAHSearcher(base.Searcher):
             dpid = np.pad(dpid, (0, pad), constant_values=-1)
         self._host = {"codes": codes, "leaf": leaf.astype(np.int32),
                       "dpid": dpid.astype(np.int32)}
+        self._reset_mutation_maps(num_leaves)
         return TreeAHIndex(
             codes=None,
             slot_dpid=torch.from_numpy(self._host["dpid"]).to(self.device),
@@ -853,3 +865,328 @@ class TreeAHSearcher(base.Searcher):
         cand_vals, dpids = self._dedup(cand_vals, dpids, k_pre)
         self._stage("merge")
         return cand_vals, dpids
+
+    # ----------------------------------------------------------- mutation
+    def _reset_mutation_maps(self, num_leaves: int):
+        """State of a freshly laid-out (or loaded) index: no slot table
+        yet, and no per-leaf mutation or deletion pressure."""
+        self._slot_table = None
+        self._free_slots = None
+        self._leaf_mutations = np.zeros((num_leaves,), np.int64)
+        self._leaf_deletions = np.zeros((num_leaves,), np.int64)
+        self._in_maintenance = False
+
+    def _dev(self, a):
+        """A device copy of a host array (never a view of it: the host
+        arrays are written in place)."""
+        return torch.tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _ensure_mutable_maps(self):
+        """The id -> slots table ((n, 2) int64, -1 empty; two columns for
+        SOAR) and the free slots, in the order they are taken (from the
+        end: the lowest free slot last)."""
+        if self._slot_table is not None:
+            return
+        # Own copies: the device tensors may view the host arrays.
+        self._host = {k: v.copy() for k, v in self._host.items()}
+        dp = self._host["dpid"]
+        live = np.nonzero(dp >= 0)[0]
+        d_live = dp[live].astype(np.int64)
+        order = np.argsort(d_live, kind="stable")
+        ds, ss = d_live[order], live[order]
+        n_max = int(ds.max()) + 1 if len(ds) else 0
+        table = np.full((n_max, 2), -1, np.int64)
+        is_first = np.concatenate([[True], ds[1:] != ds[:-1]])
+        table[ds[is_first], 0] = ss[is_first]
+        table[ds[~is_first], 1] = ss[~is_first]
+        self._slot_table = table
+        self._free_slots = list(np.nonzero(dp < 0)[0][::-1])
+
+    def _table_pop(self, i: int):
+        """Return and clear the slots holding row i."""
+        if i >= len(self._slot_table):
+            return []
+        slots = [int(x) for x in self._slot_table[i] if x >= 0]
+        self._slot_table[i] = -1
+        return slots
+
+    def _table_add(self, i: int, slot: int):
+        if i >= len(self._slot_table):
+            grow = max(i + 1 - len(self._slot_table),
+                       len(self._slot_table) // 5 + 1)
+            self._slot_table = np.concatenate(
+                [self._slot_table, np.full((grow, 2), -1, np.int64)])
+        self._slot_table[i, 0 if self._slot_table[i, 0] < 0 else 1] = slot
+
+    def _encode_rows(self, x):
+        """Tokenize, residualize and encode rows (a device tensor in the
+        index space) as the build does.  Returns ((n, 1 or 2 under SOAR)
+        int32 tokens, the codes of each token column)."""
+        soar = self._soar
+        if self.partitioner is None:
+            tokens = np.zeros((x.shape[0], 1), np.int32)
+        elif soar is not None:
+            tokens = self.partitioner.tokenize_database_soar(
+                x, soar).cpu().numpy()
+        else:
+            tokens = self.partitioner.tokenize_database(
+                x).cpu().numpy()[:, None]
+        threshold = self.ah_cfg.anisotropic_quantization_threshold
+        codes = []
+        for col in range(tokens.shape[1]):
+            v = (self.partitioner.residualize(x, tokens[:, col])
+                 if self.residual and self.partitioner is not None else x)
+            if self.stacked:
+                c = stacked_ops.encode_stacked(v, self.model)
+            elif not math.isnan(threshold):
+                c = ah_ops.encode_noise_shaped(v, x, self.model, threshold)
+            else:
+                c = ah_ops.encode(v, self.model)
+            codes.append(c.cpu().numpy())
+        return tokens.astype(np.int32), codes
+
+    def _grow_slots(self, extra: int):
+        """Append free slots (a fifth of the layout at least, in whole
+        chunks), re-upload, and rebuild the derived layouts (the
+        reconstruct mean is recomputed)."""
+        h = self._host
+        grow = _round_up(max(extra, h["codes"].shape[0] // 5 + 1),
+                         self._chunk)
+        h["codes"] = np.pad(h["codes"], ((0, grow), (0, 0)))
+        h["leaf"] = np.pad(h["leaf"], (0, grow))
+        h["dpid"] = np.pad(h["dpid"], (0, grow), constant_values=-1)
+        self._free_slots.extend(range(len(h["dpid"]) - grow, len(h["dpid"])))
+        self.index = TreeAHIndex(
+            codes=None if self.index.codes is None else self._dev(h["codes"]),
+            slot_dpid=self._dev(h["dpid"]), slot_leaf=self._dev(h["leaf"]))
+        self._build_recon()
+
+    def _apply_upsert(self, ids: np.ndarray, vecs: np.ndarray):
+        self._ensure_mutable_maps()
+        raw = np.asarray(vecs, np.float32)
+        # Encode in the (projected) index space; the reorder keeps the
+        # original rows.
+        x = self._project_database(torch.as_tensor(raw, device=self.device))
+        tokens, codes_per_col = self._encode_rows(x)
+        freed = []
+        for i in ids:
+            for slot in self._table_pop(int(i)):
+                self._host["dpid"][slot] = -1
+                self._free_slots.append(slot)
+                freed.append(slot)
+        needed = len(ids) * tokens.shape[1]
+        if len(self._free_slots) < needed:
+            self._grow_slots(needed - len(self._free_slots))
+        slots = []
+        for col in range(tokens.shape[1]):
+            for i in ids:
+                slot = self._free_slots.pop()
+                slots.append(slot)
+                self._table_add(int(i), int(slot))
+        slot_arr = np.asarray(slots, np.int64)
+        code_arr = np.concatenate(codes_per_col).astype(np.uint8)
+        leaf_arr = tokens.T.reshape(-1).astype(np.int32)
+        dpid_arr = np.tile(np.asarray(ids, np.int32), tokens.shape[1])
+        h = self._host
+        h["codes"][slot_arr] = code_arr
+        h["leaf"][slot_arr] = leaf_arr
+        h["dpid"][slot_arr] = dpid_arr
+        # Freed slots not taken again end empty; the rest hold their row.
+        touched = np.unique(np.concatenate(
+            [slot_arr, np.asarray(freed, np.int64)]))
+        sidx = torch.as_tensor(touched, device=self.device)
+        self.index.slot_dpid[sidx] = self._dev(h["dpid"][touched])
+        self.index.slot_leaf[sidx] = self._dev(h["leaf"][touched])
+        if self.index.codes is not None:
+            self.index.codes[sidx] = self._dev(h["codes"][touched])
+        self._num_slots = int(np.sum(h["dpid"] >= 0))
+        if self._recon_mode and self._recon_rows is not None:
+            # Decoded with the current (possibly stale) mean, as in the JAX
+            # package.
+            r, q = self._decode_slots(
+                self._dev(code_arr), self._dev(leaf_arr),
+                self._dev(dpid_arr), mean=self._recon_mean)
+            nidx = torch.as_tensor(slot_arr, device=self.device)
+            self._recon_rows[nidx] = r
+            self._recon_sq[nidx] = q
+            self._recon_bias[nidx] = self._make_bias(q, self._dev(dpid_arr))
+        self._invalidate_pruned()
+        self._grow_token_map(ids, tokens)
+        if self.reorder_helper is not None:
+            self.reorder_helper.ensure_capacity(int(ids.max()) + 1)
+            self.reorder_helper.update_rows(ids, raw, tokens=tokens[:, 0])
+        if not self._in_maintenance:
+            np.add.at(self._leaf_mutations, leaf_arr, 1)
+
+    def _grow_token_map(self, ids, tokens):
+        t = np.asarray(self.datapoint_to_token)
+        width = t.shape[1]
+        max_id = int(ids.max())
+        if max_id >= t.shape[0]:
+            t = np.pad(t, ((0, max_id + 1 - t.shape[0]), (0, 0)),
+                       constant_values=-1)
+        t[ids, :min(width, tokens.shape[1])] = tokens[:, :width]
+        self.datapoint_to_token = t
+
+    def _apply_delete(self, ids: np.ndarray):
+        self._ensure_mutable_maps()
+        slots = []
+        for i in ids:
+            slots.extend(self._table_pop(int(i)))
+        if not slots:
+            return
+        slot_arr = np.asarray(slots, np.int64)
+        np.add.at(self._leaf_deletions, self._host["leaf"][slot_arr], 1)
+        self._host["dpid"][slot_arr] = -1
+        self._free_slots.extend(slots)
+        sidx = torch.as_tensor(slot_arr, device=self.device)
+        self.index.slot_dpid[sidx] = -1
+        if self._recon_mode and self._recon_bias is not None:
+            self._recon_bias[sidx] = _PAD_PENALTY
+        self._invalidate_pruned()
+        self._num_slots = int(np.sum(self._host["dpid"] >= 0))
+
+    # -------------------------------------------- incremental maintenance
+    def incremental_maintenance(self, max_splits: int = 4,
+                                max_merges: int = 4) -> int:
+        """Split the most oversized leaves (over twice the mean primary
+        count, largest first) and merge the leaves deletes have drained
+        (under max(2, 5% of the mean of non-empty leaves), smallest
+        first, applied in descending leaf order).  The codebook and every
+        untouched leaf's slots stay.  Returns the leaves changed."""
+        if self.partitioner is None or self._mut is None:
+            return 0
+        st = self._mut
+
+        def primary_counts():
+            t = self.datapoint_to_token
+            na = min(len(st.alive), len(t))
+            prim = np.where(st.alive[:na], t[:na, 0], -1)
+            return np.bincount(prim[prim >= 0],
+                               minlength=self.partitioner.num_leaves)
+
+        counts = primary_counts()
+        avg = max(1.0, counts.mean())
+        oversized = np.nonzero(counts > 2.0 * avg)[0]
+        oversized = oversized[np.argsort(-counts[oversized])][:max_splits]
+        changed = 0
+        for tok in oversized:
+            if self._split_partition(int(tok)):
+                changed += 1
+        if max_merges and self.partitioner.num_leaves > 2:
+            counts = primary_counts()
+            avg = max(1.0, counts[counts > 0].mean()
+                      if (counts > 0).any() else 1.0)
+            underfull = np.nonzero((counts < max(2.0, 0.05 * avg))
+                                   & (self._leaf_deletions > 0))[0]
+            underfull = underfull[np.argsort(counts[underfull],
+                                             kind="stable")][:max_merges]
+            for tok in sorted((int(x) for x in underfull), reverse=True):
+                if self.partitioner.num_leaves <= 2:
+                    break
+                if self._merge_partition(tok):
+                    changed += 1
+        self._leaf_mutations[:] = 0
+        return changed
+
+    def _set_centers(self, centers: np.ndarray, upper_assign):
+        """Install a changed center set (int8 copy requantized) and its
+        leaf count in part_cfg and config."""
+        part = self.partitioner
+        c = torch.as_tensor(centers, dtype=torch.float32, device=self.device)
+        centers_int8 = inv_mult = None
+        if part.centers_int8 is not None:
+            from scann_torch.ops import quantize as quant_ops
+            sq = quant_ops.scalar_quantize(c)
+            centers_int8, inv_mult = sq.data, sq.inverse_multipliers
+        self.partitioner = part._replace(
+            centers=c, centers_int8=centers_int8, centers_inv_mult=inv_mult,
+            upper_assign=upper_assign)
+        if (self.reorder_helper is not None
+                and self.reorder_helper._leaf is not None):
+            # The residual rescore biases q.c_leaf against these centers.
+            self.reorder_helper._centers = self.partitioner.centers
+        self.part_cfg = dataclasses.replace(
+            self.part_cfg, num_leaves=centers.shape[0],
+            num_leaves_to_search=min(self.part_cfg.num_leaves_to_search,
+                                     centers.shape[0]))
+        self.config = dataclasses.replace(self.config,
+                                          partitioning=self.part_cfg)
+
+    def _reinsert(self, ids: np.ndarray):
+        """Re-tokenize and re-encode rows under the changed tree."""
+        self._in_maintenance = True
+        try:
+            self._apply_upsert(ids.astype(np.int64), self._mut.vectors[ids])
+        finally:
+            self._in_maintenance = False
+
+    def _merge_partition(self, token: int) -> bool:
+        """Drop one leaf: its center goes, the leaf ids above it shift
+        down by one, and its rows (primary members and SOAR spills) are
+        re-tokenized against the remaining centers."""
+        self._ensure_mutable_maps()
+        st = self._mut
+        t = self.datapoint_to_token
+        na = min(len(st.alive), len(t))
+        affected = np.nonzero(st.alive[:na]
+                              & (t[:na] == token).any(axis=1))[0]
+        centers = np.delete(self.partitioner.centers.cpu().numpy(), token,
+                            axis=0)
+        upper_assign = self.partitioner.upper_assign
+        if upper_assign is not None:
+            keep = np.delete(np.arange(upper_assign.shape[0]), token)
+            upper_assign = upper_assign[torch.as_tensor(
+                keep, device=upper_assign.device)]
+        self._set_centers(centers, upper_assign)
+        t = np.array(t)
+        t[t > token] -= 1
+        self.datapoint_to_token = t
+        h = self._host
+        h["leaf"][h["leaf"] > token] -= 1
+        sl = self.index.slot_leaf
+        self.index = self.index._replace(
+            slot_leaf=torch.where(sl > token, sl - 1, sl))
+        rh = self.reorder_helper
+        if rh is not None and rh._leaf is not None:
+            rh._leaf = torch.where(rh._leaf > token, rh._leaf - 1, rh._leaf)
+        self._leaf_mutations = np.delete(self._leaf_mutations, token)
+        self._leaf_deletions = np.delete(self._leaf_deletions, token)
+        self._invalidate_pruned()
+        if len(affected):
+            self._reinsert(affected)
+        return True
+
+    def _split_partition(self, token: int) -> bool:
+        """Split one leaf by a 2-means (k-means++, 5 iterations) over its
+        members: one half keeps its id, the other becomes a new last leaf,
+        and only its members are re-tokenized."""
+        st = self._mut
+        t = self.datapoint_to_token
+        na = min(len(st.alive), len(t))
+        members = np.nonzero(st.alive[:na] & (t[:na, 0] == token))[0]
+        if len(members) < 4:
+            return False
+        x = self._project_database(torch.as_tensor(
+            st.vectors[members], device=self.device))
+        gen = torch.Generator().manual_seed(self.config.seed + 131 + token)
+        c2 = kmeans_ops.kmeans(gen, x, 2, iterations=5,
+                               init="kmeans++").centers.cpu().numpy()
+        centers = self.partitioner.centers.cpu().numpy().copy()
+        centers[token] = c2[0]
+        centers = np.concatenate([centers, c2[1:2]], axis=0)
+        upper_assign = self.partitioner.upper_assign
+        if upper_assign is not None:
+            up = self.partitioner.upper_centers.cpu().numpy()
+            d = ((up - c2[1][None, :]) ** 2).sum(-1)
+            add = (np.argsort(d)[:2][None, :] if upper_assign.dim() == 2
+                   else np.asarray([np.argmin(d)]))
+            upper_assign = torch.cat([upper_assign, torch.as_tensor(
+                add.astype(np.int32), device=upper_assign.device)])
+        self._set_centers(centers, upper_assign)
+        self._leaf_mutations = np.concatenate(
+            [self._leaf_mutations, np.zeros((1,), np.int64)])
+        self._leaf_deletions = np.concatenate(
+            [self._leaf_deletions, np.zeros((1,), np.int64)])
+        self._reinsert(members)
+        return True

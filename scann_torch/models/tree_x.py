@@ -64,8 +64,8 @@ class TreeXSearcher(base.Searcher):
     """Partitioned exact scoring (tree + score_brute_force)."""
 
     def __init__(self, database: np.ndarray, scann_config: cfg.ScannConfig,
-                 device: torch.device):
-        super().__init__(database, scann_config, device)
+                 device: torch.device, docids=None):
+        super().__init__(database, scann_config, device, docids)
         self.part_cfg = scann_config.partitioning
         self.measure = cfg.internal_measure(scann_config.distance_measure)
         self.quantize_mode = scann_config.brute_force.quantize

@@ -182,6 +182,12 @@ class KMeansTreePartitioner(NamedTuple):
         return _tokenize_soar_run(database, self.centers,
                                   float(soar.lambda_))
 
+    def residualize(self, database, tokens):
+        """x - c_token per row (f32 tensor on the centers' device)."""
+        x = torch.as_tensor(database, device=self.centers.device).float()
+        t = torch.as_tensor(tokens, device=self.centers.device).long()
+        return x - self.centers[t]
+
     def apply_avq(self, database, tokens, eta: float,
                   max_leaf_size: int) -> "KMeansTreePartitioner":
         """Refit each leaf's center by anisotropic least squares over its

@@ -9,8 +9,14 @@ each with or without float32, bfloat16, residual-int8 or per-dimension
 int8 reordering; the partitioner's int8 centers, upper tree and query
 spilling travel with it, and so do a projection (its matrix and output
 width), stacked codebooks, VARIABLE_CHUNK block tables and typed (int8 /
-uint8) rows in their dtype.  Keys, dtypes and the config/meta blob are the
-JAX package's, so each package loads the other's index: the port
+uint8) rows in their dtype.  A searcher built with docids also writes
+``scann_docids.json`` and its mutation state (the float32 row mirror, the
+alive mask and the mutations since the last rebuild), so a reloaded index
+takes upserts and deletes where it left off.  ``searcher_to_tensors`` /
+``searcher_from_tensors`` carry the same assets as one flat dict of numpy
+arrays (the config and the docids as JSON bytes).  Keys, dtypes and the
+config/meta blob are the JAX package's, so each package loads the other's
+index: the port
 searches an index built by scann_tpu (the search parity tests), and
 scann_tpu loads an index built by the port.  Loading
 turns the numpy arrays into tensors on the requested device; index dtypes
@@ -78,6 +84,11 @@ def collect_assets(searcher):
     if searcher.projector is not None:
         put("proj_matrix", searcher.projector.matrix)
         meta["proj_out_dims"] = searcher.projector.out_dims
+    mut = getattr(searcher, "_mut", None)
+    if mut is not None:
+        put("mut_vectors", mut.vectors)
+        put("mut_alive", mut.alive)
+        meta["mutations_since_rebuild"] = mut.mutations_since_rebuild
 
     tname = meta["type"]
     if tname == "BruteForceSearcher":
@@ -142,25 +153,61 @@ def save_searcher(searcher, artifacts_dir: str):
     with open(os.path.join(artifacts_dir, _CONFIG_FILE), "w") as f:
         f.write(json.dumps(blob, indent=2))
     np.savez(os.path.join(artifacts_dir, _ASSETS_FILE), **arrays)
+    if searcher.docids is not None:
+        with open(os.path.join(artifacts_dir, _DOCIDS_FILE), "w") as f:
+            json.dump(searcher.docids, f)
+
+
+def _json_bytes(obj) -> np.ndarray:
+    return np.frombuffer(json.dumps(obj).encode(), np.uint8).copy()
+
+
+def searcher_to_tensors(searcher) -> dict:
+    """Searcher -> flat dict of numpy arrays (embeddable in a checkpoint):
+    the assets, the config/meta blob as ``scann_config_json`` and the
+    docids, when present, as ``scann_docids_json`` (JSON bytes, uint8)."""
+    arrays, blob = collect_assets(searcher)
+    out = dict(arrays)
+    out["scann_config_json"] = _json_bytes(blob)
+    if searcher.docids is not None:
+        out["scann_docids_json"] = _json_bytes(searcher.docids)
+    return out
+
+
+def searcher_from_tensors(tensors: dict, device):
+    """Inverse of searcher_to_tensors, on ``device``."""
+    from scann_torch.models import base
+    dev = base.resolve_device(device)
+    # Own, writable copies: the index tensors are written in place.
+    arrays = {k: np.array(v) for k, v in tensors.items()}
+    blob = json.loads(bytes(arrays.pop("scann_config_json")).decode())
+    docids = None
+    if "scann_docids_json" in arrays:
+        docids = json.loads(bytes(arrays.pop("scann_docids_json")).decode())
+    return _restore_searcher(blob, arrays, docids, dev)
 
 
 def load_searcher(artifacts_dir: str, device):
     """Reconstruct a searcher on ``device`` without retraining."""
-    from scann_torch import factory
     from scann_torch.models import base
     dev = base.resolve_device(device)
     with open(os.path.join(artifacts_dir, _CONFIG_FILE)) as f:
         blob = json.load(f)
+    docids = None
     if os.path.exists(os.path.join(artifacts_dir, _DOCIDS_FILE)):
-        base.not_ported("docids", 15)
+        with open(os.path.join(artifacts_dir, _DOCIDS_FILE)) as f:
+            docids = json.load(f)
+    with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
+        arrays = {k: raw[k] for k in raw.files}
+    return _restore_searcher(blob, arrays, docids, dev)
+
+
+def _restore_searcher(blob: dict, arrays: dict, docids, dev):
+    from scann_torch import factory
     scann_config = cfg._config_from_dict(blob["config"])
     meta = blob["meta"]
     factory.check_supported(scann_config, dev, meta["dims"],
                             meta["n_points"])
-    with np.load(os.path.join(artifacts_dir, _ASSETS_FILE)) as raw:
-        arrays = {k: raw[k] for k in raw.files}
-    if "mut_vectors" in arrays:
-        base.not_ported("index asset mut_vectors", 15)
 
     def tensor(key):
         if key not in arrays:
@@ -198,7 +245,7 @@ def load_searcher(artifacts_dir: str, device):
     if tname == "BruteForceSearcher":
         from scann_torch.models import brute_force
         s = object.__new__(brute_force.BruteForceSearcher)
-        _init_base(s, scann_config, meta, dev, tensor)
+        _init_base(s, scann_config, meta, dev, tensor, arrays, docids)
         s.quantize_mode = scann_config.brute_force.quantize
         s._db = tensor("bf_db")
         s._inv_mult = tensor("bf_inv_mult")
@@ -213,7 +260,7 @@ def load_searcher(artifacts_dir: str, device):
         from scann_torch.ops import ah as ah_ops
         from scann_torch.utils import native
         s = object.__new__(tree_ah.TreeAHSearcher)
-        _init_base(s, scann_config, meta, dev, tensor)
+        _init_base(s, scann_config, meta, dev, tensor, arrays, docids)
         s._init_config(scann_config)
         if "codes_packed" in arrays:
             codes_np = native.unpack4(arrays["codes_packed"],
@@ -243,6 +290,11 @@ def load_searcher(artifacts_dir: str, device):
         s._host = {"codes": codes_np,
                    "leaf": np.asarray(arrays["slot_leaf"], np.int32),
                    "dpid": np.asarray(arrays["slot_dpid"], np.int32)}
+        # A fresh slot table and zero leaf pressure, deletions included
+        # (the JAX loader leaves _leaf_deletions unset, so its maintenance
+        # fails on a reloaded index; ROADMAP section 3).
+        s._reset_mutation_maps(s.partitioner.num_leaves
+                               if s.partitioner is not None else 1)
         # Decoded rows are not stored: reconstruct mode rebuilds them (and
         # the mean) from the codes, as the JAX package does on load.
         s._build_recon()
@@ -250,7 +302,7 @@ def load_searcher(artifacts_dir: str, device):
     if tname == "TreeXSearcher":
         from scann_torch.models import tree_x
         s = object.__new__(tree_x.TreeXSearcher)
-        _init_base(s, scann_config, meta, dev, tensor)
+        _init_base(s, scann_config, meta, dev, tensor, arrays, docids)
         s.part_cfg = scann_config.partitioning
         s.measure = cfg.internal_measure(scann_config.distance_measure)
         s.quantize_mode = scann_config.brute_force.quantize
@@ -278,12 +330,21 @@ def load_searcher(artifacts_dir: str, device):
     raise ValueError(f"unknown searcher type in artifacts: {tname}")
 
 
-def _init_base(s, scann_config, meta, dev, tensor):
+def _init_base(s, scann_config, meta, dev, tensor, arrays, docids):
     from scann_torch.models import base
     s.config = scann_config
     s.device = dev
     s.n_points = meta["n_points"]
     s.dims = meta["dims"]
+    s.docids = docids
+    s._mut = None
+    if "mut_vectors" in arrays:
+        from scann_torch import mutation
+        st = mutation.MutationState(arrays["mut_vectors"], docids)
+        st.alive = np.array(arrays["mut_alive"], bool)
+        st.docid_to_id = {d: i for i, d in enumerate(docids) if st.alive[i]}
+        st.mutations_since_rebuild = meta.get("mutations_since_rebuild", 0)
+        s._mut = st
     s._build_x_dev = None
     s._reorder_deferred = False
     s._crowding_attrs = None

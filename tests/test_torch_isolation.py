@@ -1,7 +1,7 @@
 """The port stands alone: scann_torch and chip_smoke.py import neither JAX
 nor the JAX package, entry points default to CUDA and raise without it,
 configurations the port does not serve raise NotImplementedError (and no
-refusal names ROADMAP items 13, 14 or 16, whose settings are served), and
+refusal names ROADMAP items 13, 14, 15 or 16, whose settings are served), and
 chip_smoke.py's copy of the benchmark corpus is bench.py's."""
 
 import ast
@@ -124,11 +124,12 @@ _UNPORTED = {
     # (test_formerly_unported_settings_build_and_search); each still
     # refuses beside a setting that is not ported.
     "int8_brute_force": lambda b: b.score_brute_force("int8").autopilot(),
-    "score_ah": lambda b: _tree(b, incremental_threshold=0.1).score_ah(
-        2).reorder(10, quantize="int8").opq(),
+    "score_ah": lambda b: _tree(b).score_ah(2).reorder(
+        10, quantize="int8").opq().autopilot(),
     "reorder": lambda b: b.score_brute_force().reorder(10).autopilot(),
-    "pca": lambda b: _tree(b, incremental_threshold=0.1).pca(
-        2, pca_significance_threshold=None).score_brute_force("int8"),
+    "pca": lambda b: _tree(b).pca(
+        2, pca_significance_threshold=None).score_brute_force(
+            "int8").autopilot(),
     "autopilot": lambda b: b.autopilot(),
 }
 
@@ -204,10 +205,15 @@ def test_unported_measures_and_search_params_raise():
     assert (idx == -1).all() and np.isnan(dist).all()
     idx, _ = s.search_batched(db[:2], final_num_neighbors=np.array([1, 2]))
     assert (idx[0, 1:] == -1).all() and (idx[1, :2] >= 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        scann_torch.builder(db, 3, "dot_product",
+    # Docids are served (ROADMAP item 15): results are docids, and the
+    # searcher takes upserts.
+    s = scann_torch.builder(db, 3, "squared_l2",
                             device="cpu").score_brute_force().build(
-                                docids=list(range(64)))
+                                docids=[f"d{i}" for i in range(64)])
+    idx, _ = s.search_batched(db[:2])
+    assert [row[0] for row in idx] == ["d0", "d1"]
+    s.upsert(["d64"], -db[:1])
+    assert s.search(-db[0])[0][0] == "d64"
 
 
 def test_typed_and_sparse_inputs_build_and_search():
@@ -233,9 +239,9 @@ def test_typed_and_sparse_inputs_build_and_search():
     assert idx.shape == (64, 3)
 
 
-@pytest.mark.parametrize("item", [13, 16])
+@pytest.mark.parametrize("item", [13, 15, 16])
 def test_no_refusal_names_a_served_item(item):
-    """Items 13 and 16 are served: no refusal names them."""
+    """Items 13, 15 and 16 are served: no refusal names them."""
     import re
     call = re.compile(r"not_ported\([^()]*,\s*(\d+)\)")
     for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):

@@ -301,24 +301,28 @@ def _ah(b, **kw):
     return b.tree(num_leaves=4, num_leaves_to_search=2).score_ah(2, **kw)
 
 
+def _with_autopilot(config):
+    return dataclasses.replace(
+        config, autopilot=scann_torch.config.AutopilotConfig())
+
+
 _UNPORTED = {
     # Stacked and variable-chunk codes, the single-leaf tree and
     # non-residual int8 reordering through a projection are served
     # (tests/test_torch_stacked.py, tests/test_torch_projection.py,
-    # tests/test_torch_isolation.py); each still refuses beside mutation,
-    # which is not ported.
-    "stacked": (lambda b: b.tree(
-        num_leaves=4, num_leaves_to_search=2, incremental_threshold=0.1)
-        .score_ah(2, quantization_scheme="stacked").create_config(), 15),
-    "variable_chunks": (lambda b: b.tree(
-        num_leaves=4, num_leaves_to_search=2, incremental_threshold=0.1)
-        .score_ah(2, variable_dims_per_block=[2, 2, 4]).create_config(), 15),
-    "mutation": (lambda b: b.tree(num_leaves=4, num_leaves_to_search=2,
-                                  incremental_threshold=0.1).score_ah(2)
-                 .create_config(), 15),
-    "single_leaf_tree": (lambda b: b.tree(
-        num_leaves=1, num_leaves_to_search=1, incremental_threshold=0.1)
-        .score_ah(2).create_config(), 15),
+    # tests/test_torch_isolation.py), and so is mutation
+    # (test_mutation_builds_and_searches); each still refuses beside
+    # autopilot, which is not ported.
+    "stacked": (lambda b: _with_autopilot(b.tree(
+        num_leaves=4, num_leaves_to_search=2)
+        .score_ah(2, quantization_scheme="stacked").create_config()), 17),
+    "variable_chunks": (lambda b: _with_autopilot(b.tree(
+        num_leaves=4, num_leaves_to_search=2)
+        .score_ah(2, variable_dims_per_block=[2, 2, 4]).create_config()),
+        17),
+    "single_leaf_tree": (lambda b: _with_autopilot(b.tree(
+        num_leaves=1, num_leaves_to_search=1)
+        .score_ah(2).create_config()), 17),
     "reorder_int8_raw": (lambda b: dataclasses.replace(
         _ah(b).reorder(10, quantize="int8").create_config(),
         reordering=scann_torch.ReorderConfig(
@@ -326,6 +330,25 @@ _UNPORTED = {
         projection=scann_torch.config.ProjectionConfig(),
         autopilot=scann_torch.config.AutopilotConfig()), 17),
 }
+
+
+def test_mutation_builds_and_searches():
+    """A tree-AH index under the incremental threshold (ROADMAP item 15)
+    builds with docids, searches, and takes an upsert past its threshold
+    (a rebalance); tests/test_torch_mutation*.py hold it against
+    scann_tpu."""
+    db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    config = (scann_torch.builder(db, 3, "dot_product", device="cpu")
+              .tree(num_leaves=4, num_leaves_to_search=2,
+                    incremental_threshold=0.1).score_ah(2).create_config())
+    s = scann_torch.create_searcher(db, config, "cpu",
+                                    docids=list(range(64)))
+    idx, dist = s.search_batched(db[:4])
+    assert len(idx) == 4 and all(row[0] is not None for row in idx)
+    s.upsert(list(range(64, 72)), db[:8] * 2)      # 8 > 0.1 * 72
+    assert s._mut.mutations_since_rebuild == 0 and s.n_points == 72
+    assert s.docids == list(range(72))
+    assert set(s.search(db[3] * 2)[0]) <= set(range(72))
 
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED))

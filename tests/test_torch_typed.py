@@ -176,10 +176,12 @@ def test_dense_dataset_and_metadata(corpora):
     plain = scann_torch.builder(db, 10, "squared_l2", device="cpu"
                                 ).score_brute_force().build()
     np.testing.assert_array_equal(idx, plain.search_batched(q)[0])
-    # Docids enable mutation (ROADMAP item 15), not ported yet.
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        scann_torch.builder(withids, 3, "dot_product", device="cpu"
-                            ).score_brute_force().build()
+    # A DenseDataset's docids serve as the searcher's (ROADMAP item 15).
+    ws = scann_torch.builder(tds.DenseDataset(db[:5], docids=list("abcde")),
+                             3, "squared_l2", device="cpu"
+                             ).score_brute_force().build()
+    assert ws.docids == list("abcde")
+    assert ws.search(db[2].astype(np.float32))[0][0] == "c"
     payloads = [f"row {i}" for i in range(len(db))]
     s.set_metadata(tds.MetadataGetter(payloads))
     meta = s.metadata_for(np.where(np.arange(10) % 4 == 0, -1, idx[0]))
