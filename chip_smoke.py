@@ -145,18 +145,42 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      weighted imbalance lower after the split, recall within
      MUT_INCREMENTAL_MAX_LOSS of its rebalance's; f. float32 and int8
      brute force with docids against numpy exact;
+ 15. the entry points (ROADMAP items 17, 18 and 20) on the phase-3
+     corpus: a. searcher_from_pbtxt of bench.py's tree-SQ config as a
+     reference text proto (its config equal to the builder's, K1 at
+     leaves 100, recall@10 >= RECALL_FLOOR_AT_100); b. autopilot(), tree-AH
+     (K3, recall@10 >= AH_RECALL_FLOOR_AT_100) and engine="tree_sq" (K1,
+     diagnostic against its 0.95 target); c. phase 6's int8-lookup index,
+     written by save_reference_assets in phase 6, reloaded on the card
+     (ids >= 99.9% equal to the live index's at leaves 100 / 100
+     candidates, K3) and the residual-int8-reorder index's refusal; d.
+     serve() of phase 5's serialized index: 2,000 single /search calls
+     from 32 client threads and one octet-stream /search_batched of all
+     queries, each answer against search_batched (ids >= 99.9%, distances
+     within 1e-5 relative where the ids agree), with the dispatch and
+     finalize times of search_batched_async; f. a torch.profiler trace of
+     one tree-SQ search (device-busy and idle share, the longest device
+     operations); e. save_exported_searcher of tree-SQ at leaves 100 (K1)
+     and tree-AH int8 at leaves 100 / 100 (K3), and of indexes of the
+     first EXPORT_ROWS rows: reconstruct at leaves 100 (K2) and full scan
+     (K5), float32 lookup (K4), tree-SQ with the fused merge (K6); each
+     reloaded in a fresh process that imports only scann_torch.export,
+     its ids >= 99.9% equal to the live searcher's, its launches counted
+     there;
 then the occupancy line of the six kernels (registers a thread, dynamic
 shared memory a block, resident blocks an SM, at the main path's shapes;
 K3 and K5 also at the widths of phase 9), the kernels JSON line (with
-each kernel's launches in phases 12, 13 and 14), the card line, and the
-final ok line.
+each kernel's launches in phases 12, 13, 14 and 15), the card line, and
+the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
 """
 
+import atexit
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -248,6 +272,36 @@ SOAR_MAX_LOSS = 0.002
 SOAR_K5_QUERIES = 2_000       # K5 against its plain version on these
 CROWDING_ATTRS, CROWDING_CAP = 1000, 2   # attribute id % 1000, cap 2
 HIERARCHICAL_TOP = 45         # 45 x 45 = 2,025 leaves
+
+# Phase 15: the entry points.  Exported programs take 1,024-query
+# buckets; the indexes of K2, K4, K5 and K6's exports are built on the
+# corpus's first EXPORT_ROWS rows.  Served, reloaded and exported answers
+# agree with the live searcher on ENTRY_ID_AGREE of ids, distances within
+# ENTRY_DIST_RTOL where the ids agree.
+EXPORT_BUCKET, EXPORT_ROWS = 1024, 100_000
+SERVE_SINGLE, SERVE_CLIENTS = 2_000, 32
+ENTRY_ID_AGREE, ENTRY_DIST_RTOL = 0.999, 1e-5
+AUTOPILOT_SQ_TARGET = 0.95
+# bench.py's tree-SQ config (bench.py:269-273) as a reference ScannConfig
+# text proto.
+TREE_SQ_PBTXT = """
+num_neighbors: 10
+distance_measure { distance_measure: "DotProductDistance" }
+partitioning {
+  num_children: 2000
+  min_cluster_size: 50
+  max_clustering_iterations: 12
+  single_machine_center_initialization: RANDOM_INITIALIZATION
+  query_spilling {
+    spilling_type: FIXED_NUMBER_OF_CENTERS
+    max_spill_centers: 100
+  }
+  expected_sample_size: 250000
+  partitioning_type: GENERIC
+  query_tokenization_type: FLOAT
+}
+brute_force { fixed_point { enabled: true } }
+"""
 
 # The benchmark corpus: a verbatim copy of bench.make_glove_like (and its
 # constants); tests/test_torch_isolation.py holds the two equal.
@@ -1134,9 +1188,11 @@ def cross_check(scann_torch, searcher, queries, what, l2_db=None, **kw):
         f"{agree:.4f}")
 
 
-def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
+def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
     """Phase 6; returns (K3 record, K4 record, summary dict) and adds the
-    tree-AH part of K6's record to ``k6``."""
+    tree-AH part of K6's record to ``k6``.  The summary's
+    "reference_assets" entry is phase 15c's input: the int8-lookup
+    index written under ``work`` by save_reference_assets."""
     from scann_torch import _cuda
     from scann_torch.ops import pruned_lut
     from scann_torch.ops import pruned_scan
@@ -1333,9 +1389,26 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6):
 
     cross_check(scann_torch, main, queries, "tree-AH")
     wide_codes_search(scann_torch)
+    # Phase 15c's reference-format copy of the int8-lookup index, with the
+    # live ids it is held to; the residual-int8-reorder index must refuse
+    # without lossy_reorder_downgrade.
+    ref_dir = os.path.join(work, "reference_assets")
+    t0 = time.perf_counter()
+    scann_torch.save_reference_assets(main, ref_dir)
+    ref_save_s = time.perf_counter() - t0
+    ref_ids = main.search_batched(queries, leaves_to_search=LEAVES_TO_SEARCH,
+                                  pre_reorder_num_neighbors=AH_REORDER)[0]
+    try:
+        scann_torch.save_reference_assets(main_i8,
+                                          os.path.join(work, "refused"))
+        refusal = "no error"
+    except ValueError as e:
+        refusal = f"ValueError: {e}"
     return k3, k4, {"build_s": build_s, "points": points, "dense": dense,
                     "merge": merges, "b_pad": main._p_codes.shape[-1] * 2,
-                    "k4_d_pad": main_f._p_mean.shape[0]}
+                    "k4_d_pad": main_f._p_mean.shape[0],
+                    "reference_assets": (ref_dir, ref_ids, ref_save_s,
+                                         refusal)}
 
 
 def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
@@ -2809,6 +2882,466 @@ def mutation_phase(torch, scann_torch, db, queries, ah_at100):
     return launches, errs, out
 
 
+# Phase 15: ROADMAP items 17 (config tooling), 18 (serving and export) and
+# 20 (profiling) on the phase-3 corpus, through the kernels of phases 4-7.
+_KERNEL_COUNTERS = (
+    ("pruned_sq", "pruned_sq", "launches"),
+    ("pruned_rows", "pruned_scan", "launches"),
+    ("pruned_lut", "pruned_lut", "launches_lut"),
+    ("pruned_codes", "pruned_lut", "launches_codes"),
+    ("fused_scan", "fused_scan", "launches"),
+    ("merge_groups", "pruned_scan", "launches_merge"))
+
+# Run in a fresh process: reload each exported program with only
+# scann_torch.export, search the queries, and report the kernels each
+# search launched.
+_RELOAD_EXPORTS = r"""
+import json, sys, time
+import numpy as np
+import torch
+from scann_torch import export
+from scann_torch.ops import fused_scan, pruned_lut, pruned_scan, pruned_sq
+mods = {"pruned_sq": pruned_sq, "pruned_scan": pruned_scan,
+        "pruned_lut": pruned_lut, "fused_scan": fused_scan}
+counters = json.loads(sys.argv[3])
+spec = json.load(open(sys.argv[1]))
+queries = np.load(spec["queries"])
+out = {}
+for name, path in spec["exports"].items():
+    t0 = time.perf_counter()
+    ex = export.load_exported_searcher(path)
+    load_s = time.perf_counter() - t0
+    for _, mod, attr in counters:
+        setattr(mods[mod], attr, 0)
+    t0 = time.perf_counter()
+    idx, dist = ex.search_batched(queries)
+    search_s = time.perf_counter() - t0
+    np.save(path + "/reloaded_idx.npy", idx)
+    np.save(path + "/reloaded_dist.npy", dist)
+    out[name] = {"load_s": load_s, "search_s": search_s,
+                 "launches": {k: getattr(mods[mod], attr)
+                              for k, mod, attr in counters}}
+    del ex
+    torch.cuda.empty_cache()
+bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.",
+                                                             "scann_tpu"))]
+assert not bad, bad
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def kernel_counts():
+    """The six kernels' launch counters, by kernel name."""
+    import importlib
+    return {name: getattr(importlib.import_module(f"scann_torch.ops.{mod}"),
+                          attr) for name, mod, attr in _KERNEL_COUNTERS}
+
+
+def zero_counts():
+    import importlib
+    for _, mod, attr in _KERNEL_COUNTERS:
+        setattr(importlib.import_module(f"scann_torch.ops.{mod}"), attr, 0)
+
+
+def ids_agree(a, b):
+    return float(np.mean(np.asarray(a) == np.asarray(b)))
+
+
+def hold_answers(got_idx, got_dist, want_idx, want_dist, what):
+    """ids >= ENTRY_ID_AGREE equal, distances within ENTRY_DIST_RTOL
+    relative where they are; returns the id agreement."""
+    got_idx, want_idx = np.asarray(got_idx), np.asarray(want_idx)
+    agree = ids_agree(got_idx, want_idx)
+    same = got_idx == want_idx
+    gd, wd = np.asarray(got_dist)[same], np.asarray(want_dist)[same]
+    err = float(np.max(np.abs(gd - wd) / np.maximum(np.abs(wd), 1e-30),
+                       initial=0.0))
+    if agree < ENTRY_ID_AGREE or err > ENTRY_DIST_RTOL:
+        raise AssertionError(f"{what}: ids agree on {agree:.6f} (needs "
+                             f">= {ENTRY_ID_AGREE}), distances within "
+                             f"{err:.3g} relative (needs <= "
+                             f"{ENTRY_DIST_RTOL})")
+    return agree
+
+
+def trace_share(torch, searcher, queries, trace_dir):
+    """One search_batched inside profiling.trace: (device-busy share of
+    the traced window, idle share, the five longest device operations by
+    summed ms), from the Chrome trace's device events; (None, None, [])
+    when the trace holds no device event."""
+    from scann_torch.utils import profiling
+    searcher.search_batched(queries)
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        searcher.search_batched(queries)
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")]
+    if not dev:
+        return None, None, []
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, t0
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    share = busy / (t1 - t0)
+    return share, 1.0 - share, [(n[:90], round(ms, 3)) for n, ms in top]
+
+
+def entry_points_phase(torch, scann_torch, db, queries, truth, sq_dir, ref,
+                       work):
+    """Phase 15: the entry points.  ``sq_dir``: phase 5's serialized tree-SQ
+    index; ``ref``: phase 6's reference-format int8-lookup index (its
+    directory, the live ids it is held to, the save's seconds, the
+    residual-int8 refusal's message).  Returns (launches of the six
+    kernels in this phase's searches and reloaded exports, summary
+    dict)."""
+    from scann_torch import export as texport
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name, _, _ in _KERNEL_COUNTERS}
+    out = {}
+
+    def counted(fn, *args, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernel_counts()
+        for name, n in got.items():
+            launches[name] += n
+        return res, wall, {n: c for n, c in got.items() if c}
+
+    # a. Config text.
+    text_b = scann_torch.builder_from_pbtxt(db, TREE_SQ_PBTXT)
+    want_cfg = (scann_torch.builder(db, K, "dot_product")
+                .tree(num_leaves=NUM_LEAVES,
+                      num_leaves_to_search=LEAVES_TO_SEARCH,
+                      training_sample_size=TRAIN_SAMPLE)
+                .score_brute_force(quantize="int8").create_config())
+    if text_b.create_config().to_json() != want_cfg.to_json():
+        raise AssertionError("15a: the text proto's config differs from "
+                             "phase 3's builder config")
+    t0 = time.perf_counter()
+    s = text_b.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s.search_batched(queries)
+    (idx, dist), wall, got = counted(s.search_batched, queries,
+                                     leaves_to_search=LEAVES_TO_SEARCH)
+    check_results(queries, db, idx, dist, "15a", True)
+    rec = recall_at_k(idx, truth)
+    if not got.get("pruned_sq") or rec < RECALL_FLOOR_AT_100:
+        raise AssertionError(f"15a: recall@10 {rec:.4f} (floor "
+                             f"{RECALL_FLOOR_AT_100}), launches {got}")
+    out["a"] = {"build_s": build_s, "recall": rec, "qps": N_QUERY / wall,
+                "launches": got}
+    log(f"15a searcher_from_pbtxt (bench.py's tree-SQ config as text): "
+        f"config equal to the builder's, built in {build_s:.1f} s, leaves="
+        f"{LEAVES_TO_SEARCH} recall@10 {rec:.4f}, qps {N_QUERY / wall:.0f}, "
+        f"launches {got}")
+    del s, idx, dist
+    torch.cuda.empty_cache()
+
+    # b. Autopilot.
+    out["b"] = {}
+    for engine, kernel in (("tree_ah", "pruned_lut"), ("tree_sq",
+                                                         "pruned_sq")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = scann_torch.builder(db, K, "dot_product").autopilot(
+            engine=engine).build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        s.search_batched(queries)
+        (idx, dist), wall, got = counted(s.search_batched, queries)
+        check_results(queries, db, idx, dist, f"15b {engine}",
+                      engine == "tree_ah")
+        rec = recall_at_k(idx, truth)
+        leaves, nl = s.part_cfg.num_leaves_to_search, \
+            s.partitioner.num_leaves
+        rec_b = {"config": json.loads(s.config.to_json()),
+                 "build_s": build_s, "recall": rec, "qps": N_QUERY / wall,
+                 "leaves_to_search": leaves, "num_leaves": nl,
+                 "launches": got}
+        out["b"][engine] = rec_b
+        if not got.get(kernel):
+            raise AssertionError(f"15b autopilot {engine} did not launch "
+                                 f"{kernel}: {got}")
+        if engine == "tree_ah" and rec < AH_RECALL_FLOOR_AT_100:
+            raise AssertionError(f"15b autopilot tree_ah recall@10 "
+                                 f"{rec:.4f} is under "
+                                 f"{AH_RECALL_FLOOR_AT_100}")
+        if engine == "tree_sq":
+            rec_b["reaches_target"] = rec >= AUTOPILOT_SQ_TARGET
+        log(f"15b autopilot(engine={engine!r}): config "
+            f"{json.dumps(rec_b['config'])}"
+            f"; {nl} leaves after splits, {leaves} searched "
+            f"({leaves / nl:.4f}), built in {build_s:.1f} s, recall@10 "
+            f"{rec:.4f}, qps {N_QUERY / wall:.0f}, launches {got}"
+            + (f", target {AUTOPILOT_SQ_TARGET} reached: "
+               f"{rec_b['reaches_target']}" if engine == "tree_sq" else ""))
+        del s, idx, dist
+        torch.cuda.empty_cache()
+
+    # c. Reference assets (written in phase 6).
+    ref_dir, ref_ids, ref_save_s, refusal = ref
+    if not refusal.startswith("ValueError"):
+        raise AssertionError(f"15c: the residual-int8 index did not refuse "
+                             f"without lossy_reorder_downgrade: {refusal}")
+    t0 = time.perf_counter()
+    ah = scann_torch.load_reference_assets(ref_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    kw_ah = dict(leaves_to_search=LEAVES_TO_SEARCH,
+                 pre_reorder_num_neighbors=AH_REORDER)
+    (ah_idx, ah_dist), wall, got = counted(ah.search_batched, queries,
+                                           **kw_ah)
+    agree = ids_agree(ah_idx, ref_ids)
+    if agree < ENTRY_ID_AGREE or not got.get("pruned_lut"):
+        raise AssertionError(f"15c: reloaded ids agree on {agree:.6f}, "
+                             f"launches {got}")
+    ref_bytes = sum(os.path.getsize(os.path.join(ref_dir, f))
+                    for f in os.listdir(ref_dir))
+    out["c"] = {"save_s": ref_save_s, "load_s": load_s, "bytes": ref_bytes,
+                "ids_agree": agree, "launches": got, "refusal": refusal}
+    log(f"15c reference assets: saved in {ref_save_s:.1f} s ({ref_bytes} "
+        f"bytes), loaded on the card in {load_s:.1f} s, ids agree "
+        f"{agree:.6f} with the live index at leaves {LEAVES_TO_SEARCH} / "
+        f"{AH_REORDER}, launches {got}; residual int8 reorder: {refusal}")
+
+    # d. Serving phase 5's index.
+    import http.client
+    import threading
+    server = scann_torch.serve(sq_dir, host="127.0.0.1", port=0, block=False)
+    ss = server.searcher
+    try:
+        (sq_idx, sq_dist), _, _ = counted(ss.search_batched, queries)
+        zero_counts()
+        lat = [0.0] * SERVE_SINGLE
+        answers = [None] * SERVE_SINGLE
+        errors = []
+        server.service.batches = server.service.queries = 0
+
+        def client(lo):
+            try:
+                for i in range(lo, SERVE_SINGLE, SERVE_CLIENTS):
+                    body = json.dumps({"query": queries[i].tolist()})
+                    t0 = time.perf_counter()
+                    conn = http.client.HTTPConnection(server.host,
+                                                      server.port,
+                                                      timeout=120)
+                    conn.request("POST", "/search", body=body, headers={
+                        "Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    data = json.loads(resp.read())
+                    conn.close()
+                    lat[i] = time.perf_counter() - t0
+                    if resp.status != 200:
+                        raise RuntimeError(f"/search {resp.status}: {data}")
+                    answers[i] = data
+            except Exception as e:
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        single_wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"15d single queries failed: {errors[:3]}")
+        mean_batch = server.service.queries / max(server.service.batches, 1)
+        single_agree = hold_answers(
+            [a["indices"][0] for a in answers],
+            [a["distances"][0] for a in answers], sq_idx[:SERVE_SINGLE],
+            sq_dist[:SERVE_SINGLE], "15d /search")
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/search_batched", body=queries.tobytes(),
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+        batched_wall = time.perf_counter() - t0
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"15d /search_batched {resp.status}")
+        batched_agree = hold_answers(data["indices"], data["distances"],
+                                     sq_idx, sq_dist, "15d /search_batched")
+        got = {n: c for n, c in kernel_counts().items() if c}
+        for name, n in kernel_counts().items():
+            launches[name] += n
+        if not got.get("pruned_sq"):
+            raise AssertionError(f"15d: serving launched no K1: {got}")
+        # Double buffering pays when search_batched_async returns before
+        # the card finishes: its dispatch against its finalize.
+        disp, fin = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = ss.search_batched_async(queries)
+            t1 = time.perf_counter()
+            pending.result()
+            t2 = time.perf_counter()
+            disp.append(t1 - t0)
+            fin.append(t2 - t1)
+        lat_ms = np.asarray(lat) * 1e3
+        out["d"] = {"single_qps": SERVE_SINGLE / single_wall,
+                    "p50_ms": float(np.percentile(lat_ms, 50)),
+                    "p99_ms": float(np.percentile(lat_ms, 99)),
+                    "mean_micro_batch": mean_batch,
+                    "batched_qps": N_QUERY / batched_wall,
+                    "single_ids_agree": single_agree,
+                    "batched_ids_agree": batched_agree,
+                    "dispatch_ms": float(np.median(disp)) * 1e3,
+                    "finalize_ms": float(np.median(fin)) * 1e3,
+                    "launches": got}
+        log(f"15d serving: {SERVE_SINGLE} /search calls from "
+            f"{SERVE_CLIENTS} threads at {out['d']['single_qps']:.0f} qps, "
+            f"latency p50 {out['d']['p50_ms']:.2f} ms p99 "
+            f"{out['d']['p99_ms']:.2f} ms, mean micro-batch "
+            f"{mean_batch:.1f}, ids agree {single_agree:.6f}; one "
+            f"octet-stream /search_batched of {N_QUERY} at "
+            f"{out['d']['batched_qps']:.0f} qps, ids agree "
+            f"{batched_agree:.6f}; search_batched_async dispatch "
+            f"{out['d']['dispatch_ms']:.2f} ms, finalize "
+            f"{out['d']['finalize_ms']:.2f} ms; launches {got}")
+    finally:
+        server.stop()
+
+    # f. The first trace.
+    zero_counts()
+    share, idle, top = trace_share(torch, ss, queries,
+                                   os.path.join(work, "trace"))
+    for name, n in kernel_counts().items():
+        launches[name] += n
+    out["f"] = {"busy_share": share, "idle_share": idle, "top": top}
+    log(f"15f trace of one {N_QUERY}-query tree-SQ search at leaves "
+        f"{LEAVES_TO_SEARCH}: device busy share "
+        + ("not measured (no device events in the trace)" if share is None
+           else f"{share:.4f}, idle {idle:.4f}, longest device operations "
+           f"(ms) {top}"))
+
+    # e. Export: tree-SQ and tree-AH int8 at full size, then the other
+    # kernels' engines on the first EXPORT_ROWS rows.
+    exports, live = {}, {}
+
+    def export(name, searcher, want, **kw):
+        path = os.path.join(work, "export", name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texport.save_exported_searcher(path, searcher,
+                                       batch_sizes=(EXPORT_BUCKET,), **kw)
+        secs = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        exports[name] = path
+        live[name] = want
+        out.setdefault("e", {})[name] = {"export_s": secs, "bytes": nbytes}
+
+    export("tree_sq_l100", ss, (sq_idx, sq_dist))
+    export("tree_ah_l100", ah, (ah_idx, ah_dist), **kw_ah)
+    del ss, ah, server
+    torch.cuda.empty_cache()
+    sub = db[:EXPORT_ROWS]
+    tree = dict(num_leaves=NUM_LEAVES, num_leaves_to_search=LEAVES_TO_SEARCH,
+                training_sample_size=EXPORT_ROWS)
+    recon = scann_torch.create_searcher(
+        sub, ah_config(scann_torch, sub, "dot_product", "reconstruct",
+                       "float32", **tree), "cuda")
+    nl = recon.partitioner.num_leaves
+    for name, leaves, kernel in (("reconstruct_l100", LEAVES_TO_SEARCH,
+                                  "pruned_rows"),
+                                 ("reconstruct_full", nl, "fused_scan")):
+        res, _, got = counted(recon.search_batched, queries,
+                              leaves_to_search=leaves)
+        if not got.get(kernel):
+            raise AssertionError(f"15e live {name} launched no {kernel}")
+        export(name, recon, res, leaves_to_search=leaves)
+    del recon
+    flt = scann_torch.create_searcher(
+        sub, ah_config(scann_torch, sub, "dot_product", "float32", "float32",
+                       **tree), "cuda")
+    res, _, got = counted(flt.search_batched, queries)
+    if not got.get("pruned_codes"):
+        raise AssertionError("15e live float32 lookup launched no K4")
+    export("float32_lookup_l100", flt, res)
+    del flt
+    sq = (scann_torch.builder(sub, K, "dot_product").tree(**tree)
+          .score_brute_force(quantize="int8").build())
+    os.environ["SCANN_TORCH_FUSED_MERGE"] = "1"
+    try:
+        res, _, got = counted(sq.search_batched, queries)
+        if not got.get("merge_groups"):
+            raise AssertionError("15e live fused merge launched no K6")
+        export("tree_sq_fused_merge", sq, res)
+    finally:
+        del os.environ["SCANN_TORCH_FUSED_MERGE"]
+    del sq
+    torch.cuda.empty_cache()
+    qpath = os.path.join(work, "queries.npy")
+    np.save(qpath, queries)
+    spec_path = os.path.join(work, "exports.json")
+    with open(spec_path, "w") as f:
+        json.dump({"queries": qpath, "exports": exports}, f)
+    res_path = os.path.join(work, "reloaded.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _RELOAD_EXPORTS, spec_path, res_path,
+         json.dumps(_KERNEL_COUNTERS)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"15e reload process failed:\n{proc.stderr}")
+    reload_s = time.perf_counter() - t0
+    with open(res_path) as f:
+        reloaded = json.load(f)
+    want_kernel = {"tree_sq_l100": "pruned_sq", "tree_ah_l100": "pruned_lut",
+                   "reconstruct_l100": "pruned_rows",
+                   "reconstruct_full": "fused_scan",
+                   "float32_lookup_l100": "pruned_codes",
+                   "tree_sq_fused_merge": "merge_groups"}
+    for name, path in exports.items():
+        r = reloaded[name]
+        agree = hold_answers(np.load(os.path.join(path, "reloaded_idx.npy")),
+                             np.load(os.path.join(path,
+                                                  "reloaded_dist.npy")),
+                             *live[name], f"15e {name}")
+        got = {n: c for n, c in r["launches"].items() if c}
+        if not got.get(want_kernel[name]):
+            raise AssertionError(f"15e reloaded {name} launched no "
+                                 f"{want_kernel[name]}: {got}")
+        for n, c in got.items():
+            launches[n] += c
+        out["e"][name].update(load_s=r["load_s"], search_s=r["search_s"],
+                              ids_agree=agree, launches=got)
+        log(f"15e export {name}: exported in "
+            f"{out['e'][name]['export_s']:.1f} s, {out['e'][name]['bytes']} "
+            f"bytes; reloaded in a fresh process in {r['load_s']:.1f} s, "
+            f"{N_QUERY} queries in {r['search_s']:.2f} s, ids agree "
+            f"{agree:.6f}, launches {got}")
+    out["e_reload_process_s"] = reload_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 launches: {launches}; {out['seconds']:.1f} s")
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"phase 15 never launched {name}")
+    return launches, out
+
+
 def tree_ah_kpg(s):
     """kpg of a tree-AH searcher's pruned search at the bench budget."""
     from scann_torch.models import tree_ah
@@ -2824,6 +3357,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scann_torch
     from scann_torch import _cuda
+    # Serialized indexes and exports of phases 5, 6 and 15.
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, True)
     from scann_torch.ops import pruned_scan
     from scann_torch.ops import pruned_sq
 
@@ -2950,12 +3486,15 @@ def main():
     k6["launches"] += pruned_scan.launches_merge
 
     cross_check(scann_torch, searcher, queries, "tree-SQ")
+    sq_dir = os.path.join(work, "tree_sq")     # served in phase 15d
+    searcher.serialize(sq_dir)
     del searcher
     torch.cuda.empty_cache()
 
     # 6. tree-AH
     k3, k4, ah_summary = tree_ah_phase(torch, scann_torch, db, queries,
-                                       truth, q_dev, k6)
+                                       truth, q_dev, k6, work)
+    ref_assets = ah_summary.pop("reference_assets")
 
     # 7. tree-AH in reconstruct mode
     k2, k5, recon_summary = recon_phase(torch, scann_torch, db, queries,
@@ -2983,6 +3522,9 @@ def main():
         p["index"], p["leaves"], p["pre"]) == ("int8_f32", 100, 100))["recall"]
     mut_launches, mut_errs, mutation = mutation_phase(
         torch, scann_torch, db, queries, ah_at100)
+    # 15. ROADMAP items 17, 18 and 20: the entry points.
+    entry_launches, entry = entry_points_phase(
+        torch, scann_torch, db, queries, truth, sq_dir, ref_assets, work)
 
     for rec, name in ((k1, "pruned_sq"), (k2, "pruned_rows"),
                       (k3, "pruned_lut"), (k5, "fused_scan")):
@@ -3000,7 +3542,7 @@ def main():
                         "k5_d_960": k5_wide},
                "sift_tree_sq": sift_summary, "compositions": compositions,
                "search_features": features, "encodings": encodings,
-               "mutation": mutation}
+               "mutation": mutation, "entry_points": entry}
     log("summary " + json.dumps(summary))
     # What the card makes of the six kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
@@ -3030,7 +3572,8 @@ def main():
          "library_ms": None, "design": design,
          "launches_phase12": features_launches.get(name, 0),
          "launches_phase13": enc_launches.get(name, 0),
-         "launches_phase14": mut_launches.get(name, 0)}
+         "launches_phase14": mut_launches.get(name, 0),
+         "launches_phase15": entry_launches.get(name, 0)}
         for name, replaces, rec, design in (
             ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1, TILE_MMA),
             ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2, TILE_MMA),

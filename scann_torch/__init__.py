@@ -31,8 +31,16 @@ projections (``sparse_searcher``) or an exact sparse scan
 ``DenseDataset``'s), a brute-force or tree-AH searcher returns docids and
 takes ``upsert``, ``delete`` and ``rebalance``, with the partitioning's
 incremental threshold (a full rebalance, or split / merge maintenance)
-and ``get_health_stats``.  Entry points run on CUDA unless the caller
-asks for the CPU::
+and ``get_health_stats``.  Around the searchers: reference ScannConfig
+text protos (``builder_from_pbtxt``, ``searcher_from_pbtxt``), autopilot
+(``builder(...).autopilot()``), the reference library's index
+directories (``load_reference_assets``, ``save_reference_assets``), an
+HTTP server (``serve``, scann_torch.serving), ``torch.export`` programs
+that search with no searcher (``save_exported_searcher``,
+``load_exported_searcher``; the kernels are ``torch.library`` custom ops,
+ops/library.py), and a ``torch.profiler`` trace
+(scann_torch.utils.profiling).  Entry points run on CUDA unless the
+caller asks for the CPU::
 
     import scann_torch
     searcher = (scann_torch.builder(db, 10, "squared_l2")
@@ -57,7 +65,7 @@ asks for the CPU::
 The package imports torch and numpy only (never jax or scann_tpu).
 """
 
-from scann_torch.builder import ScannBuilder, builder
+from scann_torch.builder import ReorderType, ScannBuilder, builder
 from scann_torch.config import (AsymmetricHashConfig, BruteForceConfig,
                                 PartitioningConfig, ProjectionConfig,
                                 ReorderConfig, ScannConfig, SoarConfig)
@@ -68,12 +76,16 @@ from scann_torch.factory import create_searcher
 
 __version__ = "0.1.0"
 
-__all__ = ["ScannBuilder", "builder", "ScannConfig", "PartitioningConfig",
+__all__ = ["ScannBuilder", "ReorderType", "builder", "ScannConfig",
+           "PartitioningConfig",
            "AsymmetricHashConfig", "BruteForceConfig", "ReorderConfig",
            "SoarConfig", "ProjectionConfig", "DenseDataset",
            "MetadataGetter", "SparseMatrix", "SparseExactSearcher",
            "sparse_searcher", "create_searcher", "load_searcher",
-           "searcher_to_tensors", "searcher_from_tensors"]
+           "searcher_to_tensors", "searcher_from_tensors",
+           "save_exported_searcher", "load_exported_searcher",
+           "load_reference_assets", "save_reference_assets",
+           "builder_from_pbtxt", "searcher_from_pbtxt", "serve"]
 
 
 def load_searcher(artifacts_dir, device="cuda"):
@@ -93,3 +105,58 @@ def searcher_from_tensors(tensors, device="cuda"):
     """Inverse of searcher_to_tensors (either package's dict)."""
     from scann_torch.utils import serialization
     return serialization.searcher_from_tensors(tensors, device)
+
+
+def save_exported_searcher(path, searcher, **kwargs):
+    """Export the searcher's search at one operating point as
+    torch.export programs, one per query bucket (scann_torch/export.py)."""
+    from scann_torch import export as _export
+    return _export.save_exported_searcher(path, searcher, **kwargs)
+
+
+def load_exported_searcher(path):
+    """Reload a save_exported_searcher directory and search it without a
+    searcher object, on the device it was exported on."""
+    from scann_torch import export as _export
+    return _export.load_exported_searcher(path)
+
+
+def load_reference_assets(artifacts_dir, device="cuda"):
+    """Load a reference-format (scann_assets.pbtxt) index directory into a
+    live searcher on ``device``."""
+    from scann_torch.utils import ref_assets
+    return ref_assets.load_reference_assets(artifacts_dir, device)
+
+
+def save_reference_assets(searcher, artifacts_dir,
+                          lossy_reorder_downgrade=False):
+    """Write a brute-force or tree-AH searcher as a reference-format index
+    directory.  lossy_reorder_downgrade: re-quantize residual-int8 reorder
+    rows to the reference's absolute int8 rows instead of raising."""
+    from scann_torch.utils import ref_assets
+    return ref_assets.save_reference_assets(
+        searcher, artifacts_dir,
+        lossy_reorder_downgrade=lossy_reorder_downgrade)
+
+
+def builder_from_pbtxt(db, config_text, device="cuda"):
+    """A builder on ``device`` configured from a reference ScannConfig
+    text proto; call .build() on it."""
+    from scann_torch.utils import config_text as _ct
+    return _ct.builder_from_pbtxt(db, config_text, device)
+
+
+def searcher_from_pbtxt(db, config_text, device="cuda"):
+    """Build a searcher on ``device`` from a reference ScannConfig text
+    proto."""
+    from scann_torch.utils import config_text as _ct
+    return _ct.searcher_from_pbtxt(db, config_text, device)
+
+
+def serve(artifacts_dir, host="0.0.0.0", port=8080, block=True,
+          device="cuda"):
+    """Serve a serialized index on ``device`` over HTTP
+    (scann_torch.serving)."""
+    from scann_torch import serving
+    return serving.serve(artifacts_dir, host=host, port=port, block=block,
+                         device=device)

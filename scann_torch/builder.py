@@ -1,12 +1,12 @@
 """Fluent builder (port of scann_tpu/builder.py: tree, upper_tree,
-score_ah, score_brute_force, reorder and the pca / opq / truncate
-projections).  The methods for parts not ported yet raise
-NotImplementedError naming their ROADMAP item.
+score_ah, score_brute_force, reorder, the pca / opq / truncate projections
+and autopilot), with the device the index is built and searched on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
 from typing import Optional
 
@@ -16,8 +16,21 @@ from scann_torch import config as cfg
 from scann_torch.models import base
 
 
+class ReorderType(enum.Enum):
+    """Row types of score_brute_force and reorder (the JAX package's enum,
+    with the same values)."""
+    FLOAT32 = 1
+    INT8 = 2
+    BFLOAT16 = 3
+
+
 def _quantize_name(quantize) -> str:
-    """Accept bool (legacy) or one of the config's quantize strings."""
+    """Accept ReorderType, bool (legacy) or one of the config's quantize
+    strings."""
+    if isinstance(quantize, ReorderType):
+        return {ReorderType.FLOAT32: cfg.FLOAT32,
+                ReorderType.INT8: cfg.INT8,
+                ReorderType.BFLOAT16: cfg.BFLOAT16}[quantize]
     if quantize is True:
         return cfg.INT8
     if quantize is False:
@@ -51,7 +64,15 @@ class ScannBuilder:
         self._reorder: Optional[cfg.ReorderConfig] = None
         self._upper_tree: Optional[cfg.UpperTreeConfig] = None
         self._projection: Optional[cfg.ProjectionConfig] = None
+        self._autopilot: Optional[cfg.AutopilotConfig] = None
+        self.training_threads = 0
         self.seed = 42
+
+    def set_n_training_threads(self, threads: int) -> "ScannBuilder":
+        """Kept for API parity: the build runs as device programs, not on
+        host threads."""
+        self.training_threads = threads
+        return self
 
     def set_seed(self, seed: int) -> "ScannBuilder":
         self.seed = seed
@@ -67,8 +88,7 @@ class ScannBuilder:
              query_spilling_threshold=None,
              expected_spill_factor=2.0,
              hierarchical_top=0) -> "ScannBuilder":
-        """Configure partitioning (same arguments as the JAX package; the
-        factory raises for the settings not ported yet)."""
+        """Configure partitioning (same arguments as the JAX package)."""
         if self._partitioning is not None:
             raise ValueError("tree has already been configured")
         if (avq is not None and cfg.internal_measure(self.distance_measure)
@@ -103,7 +123,7 @@ class ScannBuilder:
             soar=soar)
         return self
 
-    def score_brute_force(self, quantize=cfg.FLOAT32) -> "ScannBuilder":
+    def score_brute_force(self, quantize=ReorderType.FLOAT32) -> "ScannBuilder":
         """Configure exact scoring: float32, int8 or bfloat16 rows, alone
         (brute force) or as a tree's leaves (int8: residual tree-SQ)."""
         if self._bf is not None:
@@ -113,7 +133,8 @@ class ScannBuilder:
 
     def upper_tree(self, num_leaves, num_leaves_to_search,
                    avq=float("nan"), soar_lambda=None,
-                   overretrieve_factor=None, scoring_mode=cfg.INT8,
+                   overretrieve_factor=None,
+                   scoring_mode=ReorderType.INT8,
                    anisotropic_quantization_threshold=float("nan")
                    ) -> "ScannBuilder":
         """Configure a second tree level over the leaf centers (requires
@@ -139,7 +160,7 @@ class ScannBuilder:
                  quantization_scheme="product",
                  variable_dims_per_block=None) -> "ScannBuilder":
         """Configure asymmetric hashing (same arguments as the JAX
-        package; the factory raises for the settings not ported yet)."""
+        package)."""
         del min_cluster_size  # deprecated
         if self._ah is not None:
             raise ValueError("score_ah has already been configured")
@@ -156,7 +177,7 @@ class ScannBuilder:
             quantization_scheme=quantization_scheme)
         return self
 
-    def reorder(self, reordering_num_neighbors, quantize=cfg.FLOAT32,
+    def reorder(self, reordering_num_neighbors, quantize=ReorderType.FLOAT32,
                 anisotropic_quantization_threshold=float("nan")
                 ) -> "ScannBuilder":
         """Configure exact reordering of the best candidates."""
@@ -209,8 +230,27 @@ class ScannBuilder:
             pca_significance_threshold=None, pca_truncation_threshold=None)
         return self
 
-    def autopilot(self, *args, **kwargs):
-        base.not_ported("autopilot", 17)
+    def autopilot(self, mode=None, quantize=ReorderType.FLOAT32,
+                  engine="tree_ah", heuristics="tpu",
+                  target_recall=0.95) -> "ScannBuilder":
+        """Let the factory choose the index from the corpus's shape
+        (utils/autopilot.py).  engine="tree_sq" picks residual-int8 tree-SQ
+        leaves with no reorder (dot product and cosine) instead of tree-AH;
+        heuristics="tpu" (the default) sizes the tree and its
+        leaves_to_search toward ``target_recall`` with the JAX package's
+        constants, heuristics="reference" follows the reference library's
+        AutopilotTreeAh rules.  ``mode`` is the incremental mode (None,
+        "online" or "online_incremental"); ``quantize`` the reorder rows'
+        type."""
+        if engine not in ("tree_ah", "tree_sq"):
+            raise ValueError(f"unknown autopilot engine: {engine!r}")
+        if heuristics not in ("tpu", "reference"):
+            raise ValueError(f"unknown autopilot heuristics: {heuristics!r}")
+        self._autopilot = cfg.AutopilotConfig(
+            incremental_mode="none" if mode is None else str(mode),
+            reordering_dtype=_quantize_name(quantize), engine=engine,
+            heuristics=heuristics, target_recall=float(target_recall))
+        return self
 
     def create_config(self) -> cfg.ScannConfig:
         """Resolve the typed config."""
@@ -219,6 +259,11 @@ class ScannBuilder:
             raise ValueError(
                 "distance_measure must be one of ['dot_product',"
                 " 'squared_l2', 'cosine', 'l1']")
+        if self._autopilot is not None:
+            return cfg.ScannConfig(
+                num_neighbors=self.num_neighbors,
+                distance_measure=self.distance_measure,
+                autopilot=self._autopilot, seed=self.seed)
         ah = self._ah
         if ah is not None and ah.residual_quantization is None:
             # Residual quantization is on for partitioned dot product.

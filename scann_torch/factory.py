@@ -11,9 +11,9 @@ projection (pca, eigenvalue OPQ, truncate, random orthogonal) applies
 before any of them.  Typed (int8 / uint8) databases stay typed where the
 JAX package's rule keeps them (brute force and Tree-X without a
 reorder, a projection or cosine) and are cast to float32 everywhere
-else, where the JAX package casts them.  Every other composition raises
-NotImplementedError naming the ROADMAP item that will port it; no setting
-is silently dropped.
+else, where the JAX package casts them.  An autopilot config is rewritten
+into one of these compositions first (utils/autopilot.py), on the
+normalized rows under cosine, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,14 +26,12 @@ from scann_torch.models import base
 
 def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
                     rows=None):
-    """Raise NotImplementedError for any setting the port does not serve.
-    The port serves every width and index size on every device; ``device``,
+    """Raise ValueError for a tree-AH setting no searcher serves.  The port
+    serves every width and index size on every device; ``device``,
     ``dims`` and ``rows`` are accepted for the loader's and the
     constructor's calls."""
     del device, dims, rows
     c = scann_config
-    if c.autopilot is not None:
-        base.not_ported("autopilot", 17)
     if c.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         tree_ah.check_supported(c)
@@ -75,12 +73,15 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
         database = np.asarray(database, dtype=np.float32)
     if database.ndim != 2:
         raise ValueError(f"database must be 2d, got shape {database.shape}")
-    check_supported(scann_config, dev, database.shape[1], database.shape[0])
     if scann_config.distance_measure == cfg.COSINE:
         # Cosine = dot product over unit vectors (queries normalize at
         # search time, base.Searcher.search_batched).
         norms = np.linalg.norm(database, axis=1, keepdims=True)
         database = database / np.maximum(norms, 1e-20)
+    if scann_config.autopilot is not None:
+        from scann_torch.utils import autopilot
+        scann_config = autopilot.autopilot_rewrite(scann_config, database)
+    check_supported(scann_config, dev, database.shape[1], database.shape[0])
     if scann_config.asymmetric_hash is not None:
         from scann_torch.models import tree_ah
         return tree_ah.TreeAHSearcher(database, scann_config, dev, docids)

@@ -222,11 +222,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP item "
-                              f"{item})")
-
-
 class Searcher:
     """Base searcher; subclasses implement _select_candidates()."""
 
@@ -293,6 +288,11 @@ class Searcher:
         if self.projector is None:
             return queries
         return self.projector.project(queries)
+
+    @property
+    def query_dims(self) -> int:
+        """Width of the queries a search takes (before any projection)."""
+        return self.dims
 
     @property
     def _index_dims(self) -> int:
@@ -705,6 +705,17 @@ class Searcher:
             return idx, dist
 
         return PendingSearch(_finalize)
+
+    def search_batched_parallel(self, queries, final_num_neighbors=None,
+                                pre_reorder_num_neighbors=None,
+                                leaves_to_search=None, batch_size=256,
+                                **kwargs):
+        """The reference API's name for search_batched (one device batch
+        already fills the card; ``batch_size`` is accepted and unused)."""
+        del batch_size
+        return self.search_batched(queries, final_num_neighbors,
+                                   pre_reorder_num_neighbors,
+                                   leaves_to_search, **kwargs)
 
     def search(self, q, final_num_neighbors=None,
                pre_reorder_num_neighbors=None, leaves_to_search=None,

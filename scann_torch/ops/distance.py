@@ -64,6 +64,47 @@ def similarity_to_user_distance(sim, measure):
     return -sim
 
 
+def cosine_distance(queries, database):
+    """(q, d) x (n, d) -> (q, n) 1 - cos(q, x), each side normalized with
+    its norm floored at 1e-20."""
+    q = queries.float()
+    x = database.float()
+    qn = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True),
+                             1e-20)
+    xn = x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True),
+                             1e-20)
+    return 1.0 - qn @ xn.T
+
+
+def hamming_distance(queries, database):
+    """(q, d) x (n, d) -> (q, n) int64 Hamming distances between the
+    binarized (> 0) vectors."""
+    qb = queries > 0
+    xb = database > 0
+    return (qb[:, None, :] != xb[None, :, :]).sum(-1)
+
+
+def jaccard_distance(queries, database):
+    """(q, d) x (n, d) -> (q, n) 1 - sum(min) / sum(max) over nonnegative
+    vectors (the denominator floored at 1e-20)."""
+    q = queries.float()[:, None, :]
+    x = database.float()[None, :, :]
+    mins = torch.minimum(q, x).sum(-1)
+    maxs = torch.maximum(q, x).sum(-1)
+    return 1.0 - mins / torch.clamp_min(maxs, 1e-20)
+
+
+def limited_inner_product_distance(queries, database):
+    """(q, d) x (n, d) -> (q, n) -<q, x> / (||q|| * max(||q||, ||x||))
+    (the denominator floored at 1e-20)."""
+    q = queries.float()
+    x = database.float()
+    dots = q @ x.T
+    qn = torch.linalg.norm(q, dim=-1)[:, None]
+    xn = torch.linalg.norm(x, dim=-1)[None, :]
+    return -dots / torch.clamp_min(qn * torch.maximum(qn, xn), 1e-20)
+
+
 def one_to_many_gathered(queries, database, candidate_idx, measure,
                          db_sq_norms=None, query_sq_norms=None):
     """Exact scores of per-query candidate lists (the reordering product).

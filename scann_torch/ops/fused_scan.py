@@ -21,22 +21,22 @@ random slots loses a true top-k candidate only when two of them share a
 group: about k^2 * SUB / (2 S) expected losses, absorbed by the reorder
 budget.
 
-``fused_scan_groupmax`` is the entry point: on CUDA tensors it launches
-the hand-written kernel csrc/fused_scan.cu (the port of the Pallas kernel
-of the same name) or raises; on CPU tensors it runs
-``fused_scan_groupmax_torch``, the plain torch version.
+``fused_scan_groupmax`` is the entry point, through the custom op of the
+same name (ops/library.py): on CUDA tensors it launches the hand-written
+kernel csrc/fused_scan.cu (the port of the Pallas kernel of the same
+name) or raises; on CPU tensors it runs ``fused_scan_groupmax_torch``, the
+plain torch version.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from scann_torch.ops.pruned_scan import _check
+from scann_torch.ops import pruned_scan as ps
 
-# Kernel launches made by fused_scan_groupmax (CPU calls never count).
+# Kernel launches of K5, counted by its CUDA implementation in
+# ops/library.py (CPU calls never count).
 launches = 0
 
 QT = 128    # queries per kernel block: the wrapper pads a batch to it
@@ -117,34 +117,15 @@ def fused_scan_groupmax(queries, rows, bias, *, measure_l2=False):
                          f", rows {tuple(rows.shape)}, bias "
                          f"{tuple(bias.shape)} (rows need a multiple of {BS} "
                          f"slots and of 64 dimensions)")
+    ps.check_device(rows)
+    from scann_torch.ops import library
     if rows.device.type == "cpu":
-        return fused_scan_groupmax_torch(queries, rows, bias,
-                                         measure_l2=measure_l2)
-    if rows.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows.device}")
-    global launches
-    from scann_torch import _cuda
-    dev = rows.device
-    _check("queries", queries, torch.bfloat16, (q, d), dev)
-    _check("rows", rows, torch.bfloat16, (s, d), dev)
-    _check("bias", bias, torch.float32, (s,), dev)
+        return library.fused_scan_groupmax(queries, rows, bias, measure_l2)
+    # The kernel takes whole query tiles: pad, then drop the padding.
     q_pad = _round_up(max(q, 1), QT)
     if q_pad != q:
         queries = torch.nn.functional.pad(queries, (0, 0, 0, q_pad - q))
-    n_groups = s // SUB
-    vals = torch.empty((q_pad, n_groups), dtype=torch.float32, device=dev)
-    idx = torch.empty((q_pad, n_groups), dtype=torch.int32, device=dev)
-    lib = _cuda.library("fused_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_scan_groupmax(
-            queries.data_ptr(), rows.data_ptr(), bias.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), q_pad, s, d,
-            ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_scan kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches += 1
+    vals, idx = library.fused_scan_groupmax(queries, rows, bias, measure_l2)
     return vals[:q], idx[:q]
 
 

@@ -20,26 +20,27 @@ and write int32 (G_pad, 128, mnt * kpg * 16), the contract of
 ops/pruned_scan.py.  Under residual quantization the q.c_leaf term joins
 at merge time (merge_candidates pair_bias).
 
-On CUDA tensors the entry points launch the hand-written kernels
-csrc/pruned_lut.cu and csrc/pruned_codes.cu (ports of the Pallas kernels
+The entry points call custom ops (ops/library.py).  On CUDA tensors
+they launch the hand-written kernels csrc/pruned_lut.cu and
+csrc/pruned_codes.cu (ports of the Pallas kernels
 ``score_work_pallas_lut`` and ``score_work_pallas_codes``; K4 on the
-tile product of csrc/tile_mma.cuh, as K1 and K2) or raise; on
-CPU tensors they run ``score_work_torch_lut`` / ``score_work_torch_codes``,
-the plain torch versions with the same output contract.
+tile product of csrc/tile_mma.cuh, as K1 and K2) or raise; on CPU
+tensors they run ``lut_build_torch`` + ``lut_score_torch`` /
+``score_work_torch_codes``, the plain torch versions with the same
+output contract.
 """
 
 from __future__ import annotations
 
-import ctypes
+import types
 
 import numpy as np
 import torch
 
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops.pruned_scan import _check
 
-# Kernel launches made by score_work_lut / score_work_codes (CPU calls
-# never count).
+# Kernel launches of K3 and K4, counted by their CUDA implementations in
+# ops/library.py (CPU calls never count).
 launches_lut = 0
 launches_codes = 0
 
@@ -124,56 +125,87 @@ def _finish(out, w_pad: int, mnt: int, kpg: int):
             .reshape(g, ps.QG, mnt * kpg * ps.GP))
 
 
-def score_work_torch_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
-                         measure_l2: bool, kpg: int = ps.KPG,
-                         work_chunk: int = _WORK_CHUNK):
-    """Plain torch version of the K3 scorer (twin of the JAX package's
-    score_work_xla_lut, which takes the query groups transposed and the
-    expanded codebook).  qg_rows: (G_pad, QG, d_pad) bf16; codes3p:
-    (num_tiles, TILE, b_pad/2) uint8; cb_k, csq: lut_tables(); bias:
-    (num_tiles, TILE[, 1]) f32.  The LUT sums bf16 x bf16 products, exact
-    in f32; with two dimensions per block a LUT entry is one rounded sum
-    and order-free, so the int8 LUT and the packed output are bit-equal to
-    the JAX package's.  Wider blocks may differ in the last bit of an
-    entry.  The integer sums are exact in f32 (below 2^24).  Computes
-    inactive items too (never read)."""
+def lut_build_torch(q_rows, cb_k, csq, *, measure_l2: bool):
+    """Plain torch version of K3's pre-pass.  q_rows: (nq, d_pad) bf16;
+    cb_k, csq: lut_tables().  Returns (lut (nq, b_pad * 16) int8, inv
+    (nq,) f32): each query's LUT ``scale * c.q - ||c||^2`` quantized with
+    the multiplier 127 / max|entry|, and max|entry| / 127.  The LUT sums
+    bf16 x bf16 products, exact in f32; with two dimensions per block an
+    entry is one rounded sum and order-free, so the int8 LUT is bit-equal
+    to the JAX package's.  Wider blocks may differ in the last bit of an
+    entry."""
+    nq, d_pad = q_rows.shape
+    dpb = cb_k.shape[1]
+    b_pad = d_pad // dpb
+    scale = 2.0 if measure_l2 else 1.0
+    cb3 = cb_k.reshape(b_pad, _LUT_CENTERS, dpb)
+    q = q_rows.float().reshape(1, nq, b_pad, dpb)
+    lutf = torch.einsum("bkd,nqbd->nbkq", cb3, q).reshape(
+        b_pad * _LUT_CENTERS, nq)                        # (W, nq)
+    lutf = scale * lutf - csq[:, None]
+    m = torch.clamp_min(lutf.abs().amax(dim=0, keepdim=True), 1e-20)
+    # A true division: torch evaluates scalar / tensor as a reciprocal
+    # times the scalar, which rounds differently.
+    lut = torch.clamp(torch.round(lutf * torch.div(
+        torch.tensor(127.0, device=q_rows.device), m)), -127, 127)
+    return (lut.T.to(torch.int8).contiguous(),
+            (m * (1.0 / 127.0)).reshape(nq))
+
+
+def lut_score_torch(plan, lut, inv, codes3p, bias, *, kpg: int = ps.KPG,
+                    work_chunk: int = _WORK_CHUNK):
+    """Plain torch version of K3's scorer: each slot's int32 sum of its
+    blocks' LUT entries (lut_build_torch of the query the plan's qg_query
+    names), times inv, plus the bias; then the packed top kpg of every
+    32-slot group.  codes3p: (num_tiles, TILE, b_pad/2) uint8; bias:
+    (num_tiles, TILE[, 1]) f32.  The integer sums are exact in f32 (below
+    2^24).  Computes inactive items too (never read)."""
     w_pad = plan.work_tile.shape[0]
     mnt = w_pad // plan.qg_query.shape[0]
-    scale = 2.0 if measure_l2 else 1.0
     b_pad = codes3p.shape[-1] * 2
-    dpb = cb_k.shape[1]
     dev = codes3p.device
     bias2 = bias.reshape(bias.shape[0], -1)
-    cb3 = cb_k.reshape(b_pad, _LUT_CENTERS, dpb)
     centers = torch.arange(_LUT_CENTERS, dtype=torch.int32, device=dev)
-    c127 = torch.tensor(127.0, device=dev)
     out = torch.empty((w_pad, ps.QG, kpg * ps.GP), dtype=torch.int32,
                       device=dev)
     wi = torch.arange(w_pad, dtype=torch.int32, device=dev) % mnt
     for s0 in range(0, w_pad, work_chunk):
         wt = plan.work_tile[s0:s0 + work_chunk].long()
-        wq = plan.work_qg[s0:s0 + work_chunk].long()
+        qq = plan.qg_query[plan.work_qg[s0:s0 + work_chunk].long()].long()
         c = wt.shape[0]
-        q = qg_rows[wq].float().reshape(c, ps.QG, b_pad, dpb)
-        lutf = torch.einsum("bkd,nqbd->nbkq", cb3, q).reshape(
-            c, b_pad * _LUT_CENTERS, ps.QG)              # (C, W, QG)
-        lutf = scale * lutf - csq[None, :, None]
-        m = torch.clamp_min(lutf.abs().amax(dim=1, keepdim=True), 1e-20)
-        # A true division: torch evaluates scalar / tensor as a reciprocal
-        # times the scalar, which rounds differently.
-        lut = torch.clamp(torch.round(lutf * torch.div(c127, m)), -127, 127)
+        lut_g = lut[qq].float().transpose(1, 2)          # (C, W, QG)
         packed_c = codes3p[wt].to(torch.int32)           # (C, TILE, b2)
         codes = torch.stack([packed_c & 15, packed_c >> 4], dim=-1).reshape(
             c, ps.TILE, b_pad)
         oh = (codes[..., None] == centers).to(torch.float32).reshape(
             c, ps.TILE, b_pad * _LUT_CENTERS)
-        acc = torch.bmm(oh, lut)                         # exact integers
-        s = acc * (m * (1.0 / 127.0)) + bias2[wt][:, :, None]
+        acc = torch.bmm(oh, lut_g)                       # exact integers
+        s = acc * inv[qq][:, None, :] + bias2[wt][:, :, None]
         g = s.reshape(c, ps.GP, ps.SUBP, ps.QG)
         packed = ps._group_top_packed(g, wi[s0:s0 + c, None, None, None],
                                       axis=2, cat_axis=1, kpg=kpg)
         out[s0:s0 + c] = packed.transpose(1, 2)
     return _finish(out, w_pad, mnt, kpg)
+
+
+def score_work_torch_lut(plan, qg_rows, codes3p, cb_k, csq, bias, *,
+                         measure_l2: bool, kpg: int = ps.KPG,
+                         work_chunk: int = _WORK_CHUNK):
+    """Plain torch version of the K3 scorer (twin of the JAX package's
+    score_work_xla_lut, which takes the query groups transposed and the
+    expanded codebook).  qg_rows: (G_pad, QG, d_pad) bf16, the gathered
+    query groups, one LUT each row (lut_build_torch, then
+    lut_score_torch); the rest as for those two.  The packed output is
+    bit-equal to the JAX package's with two dimensions per block."""
+    g_pad, qg, d_pad = qg_rows.shape
+    lut, inv = lut_build_torch(qg_rows.reshape(g_pad * qg, d_pad), cb_k,
+                               csq, measure_l2=measure_l2)
+    rows = torch.arange(g_pad * qg, dtype=torch.int32,
+                        device=qg_rows.device).reshape(g_pad, qg)
+    return lut_score_torch(
+        types.SimpleNamespace(work_tile=plan.work_tile, work_qg=plan.work_qg,
+                              qg_query=rows),
+        lut, inv, codes3p, bias, kpg=kpg, work_chunk=work_chunk)
 
 
 def score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
@@ -218,134 +250,35 @@ def score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
     return _finish(out, w_pad, mnt, kpg)
 
 
-def _common_checks(plan, qg_rows, codes, bias, kpg, d_pad, dev):
-    num_tiles, tile = codes.shape[:2]
-    g_pad = plan.qg_query.shape[0]
-    w_pad = plan.work_tile.shape[0]
-    if tile != ps.TILE or w_pad % g_pad:
-        raise ValueError(f"unsupported shapes: tile {tile} (needs "
-                         f"{ps.TILE}), w_pad {w_pad}, g_pad {g_pad}")
-    if not 1 <= kpg <= ps.SUBP:
-        raise ValueError(f"kpg must be in [1, {ps.SUBP}], got {kpg}")
-    _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
-    _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)
-    if qg_rows is not None:
-        _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, ps.QG, d_pad),
-               dev)
-    _check("bias", bias, torch.float32,
-           (num_tiles, tile) + (1,) * (bias.dim() - 2), dev)
-    return g_pad, w_pad, w_pad // g_pad
-
-
 def score_work_lut(plan, q_rows, codes3p, cb_k, csq, bias, *,
                    measure_l2: bool, kpg: int = ps.KPG):
     """K3 scorer.  q_rows: (nq, d_pad) bf16, the batch's queries (the
     plan's qg_query maps each group row to one of them); the rest as for
-    score_work_torch_lut.  CPU tensors run the plain version on the
-    gathered query groups; CUDA tensors launch the CUDA kernels (or raise:
-    there is no fallback on the GPU): a pre-pass that builds each query's
-    int8 LUT once into device memory, then the scorer, which streams the
-    LUT and the codes through shared memory in chunks, so it serves every
-    b_pad.  cb_k and csq are the index's lut_tables() (centering the
+    score_work_torch_lut.  Two custom ops (ops/library.py): the pre-pass
+    that builds each query's int8 LUT once, then the scorer, which on the
+    card streams the LUT and the codes through shared memory in chunks,
+    so it serves every b_pad.  CPU tensors run their plain versions; CUDA
+    tensors launch the kernels (or raise: there is no fallback on the
+    GPU).  cb_k and csq are the index's lut_tables() (centering the
     codebook is done once per index; the JAX package does it per call,
     outside its kernel)."""
-    if codes3p.device.type == "cpu":
-        return score_work_torch_lut(plan, q_rows[plan.qg_query.long()],
-                                    codes3p, cb_k, csq, bias,
-                                    measure_l2=measure_l2, kpg=kpg)
-    if codes3p.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes3p.device}")
-    global launches_lut
-    from scann_torch import _cuda
-    dev = codes3p.device
-    num_tiles, tile, b2 = codes3p.shape
-    b_pad = b2 * 2
-    if b_pad % _BLK:
-        raise ValueError(f"b_pad {b_pad} must be a multiple of {_BLK}")
-    dims_per_block = cb_k.shape[1]
-    d_pad = b_pad * dims_per_block
-    nq = q_rows.shape[0]
-    g_pad, w_pad, mnt = _common_checks(plan, None, codes3p, bias, kpg,
-                                       d_pad, dev)
-    _check("q_rows", q_rows, torch.bfloat16, (nq, d_pad), dev)
-    _check("qg_query", plan.qg_query, torch.int32, (g_pad, ps.QG), dev)
-    _check("codes3p", codes3p, torch.uint8, (num_tiles, tile, b2), dev)
-    _check("cb_k", cb_k, torch.float32,
-           (b_pad * _LUT_CENTERS, dims_per_block), dev)
-    _check("csq", csq, torch.float32, (b_pad * _LUT_CENTERS,), dev)
-    if nq == 0:
-        raise ValueError("q_rows holds no query")
-    if cb_k.data_ptr() % 16 or csq.data_ptr() % 16:
-        raise ValueError("cb_k and csq must start on a 16-byte boundary "
-                         "(the kernel reads them 16 bytes at a time)")
-    lut = torch.empty((nq, b_pad * _LUT_CENTERS), dtype=torch.int8,
-                      device=dev)
-    inv = torch.empty((nq,), dtype=torch.float32, device=dev)
-    out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
-                      device=dev)
-    lib = _cuda.library("pruned_lut")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pruned_lut_build(
-            q_rows.data_ptr(), cb_k.data_ptr(), csq.data_ptr(),
-            lut.data_ptr(), inv.data_ptr(), nq, b_pad, dims_per_block,
-            d_pad, ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
-        if err == 0:
-            err = lib.pruned_lut_score(
-                plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
-                plan.qg_query.data_ptr(), lut.data_ptr(), inv.data_ptr(),
-                codes3p.data_ptr(), bias.data_ptr(), out.data_ptr(), g_pad,
-                mnt, kpg, b_pad, stream)
-    if err != 0:
-        raise RuntimeError(f"pruned_lut kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches_lut += 1
-    return out
+    ps.check_device(codes3p)
+    from scann_torch.ops import library
+    lut, inv = library.pruned_lut_build(q_rows, cb_k, csq, measure_l2)
+    return library.pruned_lut_score(plan.work_tile, plan.work_qg,
+                                    plan.work_active, plan.qg_query, lut,
+                                    inv, codes3p, bias, kpg)
 
 
 def score_work_codes(plan, qg_rows, codes3, cb_k, mean, bias, *,
                      measure_l2: bool, kpg: int = ps.KPG):
-    """K4 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU) at any
-    width: its shared memory does not grow with d_pad
-    (ps.tile_smem_bytes("codes", kpg)).  cb_k is the index's
-    codes_table()."""
-    if codes3.device.type == "cpu":
-        return score_work_torch_codes(plan, qg_rows, codes3, cb_k, mean,
-                                      bias, measure_l2=measure_l2, kpg=kpg)
-    if codes3.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes3.device}")
-    global launches_codes
-    from scann_torch import _cuda
-    dev = codes3.device
-    num_tiles, tile, b_pad = codes3.shape
-    w, dims_per_block = cb_k.shape
-    d_pad = b_pad * dims_per_block
-    cpb = w // b_pad
-    if b_pad % _BLK or cpb not in (16, 256) or cpb * b_pad != w:
-        raise ValueError(f"unsupported codes: b_pad {b_pad} (needs a "
-                         f"multiple of {_BLK}), {w} codebook rows (needs 16 "
-                         f"or 256 per block)")
-    g_pad, w_pad, mnt = _common_checks(plan, qg_rows, codes3, bias, kpg,
-                                       d_pad, dev)
-    _check("codes3", codes3, torch.uint8, (num_tiles, tile, b_pad), dev)
-    _check("cb_k", cb_k, torch.float32, (w, dims_per_block), dev)
-    _check("mean", mean, torch.float32, (d_pad,), dev)
-    if mean.data_ptr() % 16:
-        raise ValueError("mean must start on a 16-byte boundary (the "
-                         "kernel copies it 16 bytes at a time)")
-    out = torch.empty((g_pad, ps.QG, mnt * kpg * ps.GP), dtype=torch.int32,
-                      device=dev)
-    lib = _cuda.library("pruned_codes")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pruned_codes_score(
-            plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
-            qg_rows.data_ptr(), codes3.data_ptr(), cb_k.data_ptr(),
-            mean.data_ptr(), bias.data_ptr(), out.data_ptr(), w_pad, mnt,
-            kpg, b_pad, cpb, dims_per_block, int(measure_l2), stream)
-    if err != 0:
-        raise RuntimeError(f"pruned_codes kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches_codes += 1
-    return out
+    """K4 scorer, the custom op ``pruned_codes_score`` (ops/library.py).
+    CPU tensors run the plain version; CUDA tensors launch the CUDA kernel
+    (or raise: there is no fallback on the GPU) at any width: its shared
+    memory does not grow with d_pad (ps.tile_smem_bytes("codes", kpg)).
+    cb_k is the index's codes_table()."""
+    ps.check_device(codes3)
+    from scann_torch.ops import library
+    return library.pruned_codes_score(
+        plan.work_tile, plan.work_qg, plan.work_active, qg_rows, codes3,
+        cb_k, mean, bias, plan.qg_query.shape[0], measure_l2, kpg)

@@ -13,9 +13,10 @@ survivors into each query's top-k.
 Two hand-written CUDA kernels live behind this module: ``score_work`` (K2,
 csrc/pruned_rows.cu, the port of the Pallas kernel ``score_work_pallas``:
 decoded bf16 rows of tree-AH in reconstruct mode) and ``merge_groups`` (K6,
-csrc/merge_groups.cu, the port of ``merge_groups_pallas``).  On CUDA
-tensors they launch their kernel or raise; on CPU tensors they run
-``score_work_torch`` / ``merge_groups_torch``.  The tree-SQ and LUT scorers
+csrc/merge_groups.cu, the port of ``merge_groups_pallas``), each through
+its custom op (ops/library.py).  On CUDA tensors they launch their kernel
+or raise; on CPU tensors they run ``score_work_torch`` /
+``merge_groups_torch``.  The tree-SQ and LUT scorers
 live in ops/pruned_sq.py and ops/pruned_lut.py.
 
 Shapes, constants and path boundaries are the JAX package's, unchanged, so
@@ -24,7 +25,6 @@ both packages take the same path on the same batch.
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import NamedTuple
 
@@ -53,8 +53,8 @@ _SENTINEL = 1 << 30
 _ID_BITS = _IDX_BITS + _TILE_BITS
 _ID_MASK = (1 << _ID_BITS) - 1
 
-# Kernel launches made by score_work (K2) and merge_groups (K6); CPU calls
-# never count.
+# Kernel launches of K2 and K6, counted by their CUDA implementations in
+# ops/library.py (CPU calls never count).
 launches = 0
 launches_merge = 0
 
@@ -297,49 +297,23 @@ def tile_smem_bytes(rows: str, kpg: int) -> int:
     return 256 * 4 * (2 if converted else 1) + max(ring, stage)
 
 
+def check_device(t):
+    """Raise ValueError unless ``t`` lies on the CPU (plain versions) or a
+    CUDA device (the kernels)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
 def score_work(plan: WorkPlan, qg_rows, rows3, bias, *, measure_l2: bool,
                kpg: int = KPG):
-    """K2 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU)."""
-    if rows3.device.type == "cpu":
-        return score_work_torch(plan, qg_rows, rows3, bias,
-                                measure_l2=measure_l2, kpg=kpg)
-    if rows3.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows3.device}")
-    global launches
-    from scann_torch import _cuda
-    dev = rows3.device
-    num_tiles, tile, d_pad = rows3.shape
-    g_pad = plan.qg_query.shape[0]
-    w_pad = plan.work_tile.shape[0]
-    if tile != TILE or w_pad % g_pad or d_pad % 8:
-        raise ValueError(f"unsupported shapes: tile {tile} (needs {TILE}), "
-                         f"w_pad {w_pad}, g_pad {g_pad}, d_pad {d_pad} "
-                         f"(needs a multiple of 8)")
-    if not 1 <= kpg <= SUBP:
-        raise ValueError(f"kpg must be in [1, {SUBP}], got {kpg}")
-    mnt = w_pad // g_pad
-    _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
-    _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)
-    _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, QG, d_pad), dev)
-    _check("rows3", rows3, torch.bfloat16, (num_tiles, tile, d_pad), dev)
-    _check("bias", bias, torch.float32,
-           (num_tiles, tile) + (1,) * (bias.dim() - 2), dev)
-    out = torch.empty((g_pad, QG, mnt * kpg * GP), dtype=torch.int32,
-                      device=dev)
-    lib = _cuda.library("pruned_rows")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pruned_rows_score(
-            plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
-            qg_rows.data_ptr(), rows3.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), w_pad, mnt, kpg, d_pad,
-            ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
-    if err != 0:
-        raise RuntimeError(f"pruned_rows kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches += 1
-    return out
+    """K2 scorer, the custom op ``pruned_rows_score`` (ops/library.py).
+    CPU tensors run the plain version; CUDA tensors launch the CUDA kernel
+    (or raise: there is no fallback on the GPU)."""
+    check_device(rows3)
+    from scann_torch.ops import library
+    return library.pruned_rows_score(
+        plan.work_tile, plan.work_qg, plan.work_active, qg_rows, rows3, bias,
+        plan.qg_query.shape[0], measure_l2, kpg)
 
 
 def merge_candidates(plan: WorkPlan, packed, sel, valid_sel, tile_start,
@@ -516,43 +490,15 @@ def merge_groups_torch(packed, qg_nt, *, kgp: int, tile: int, k: int,
 
 
 def merge_groups(packed, qg_nt, *, kgp: int, tile: int, k: int):
-    """K6, the group-major fused merge.  packed (g_pad, QG, w) int32;
-    qg_nt (g_pad,) int32 tile count of each group's leaf (any valid count
-    for dead groups: their rows are never addressed).  Returns (m_bits,
-    t_sel), each (g_pad, QG, k) int32.  CPU tensors run the plain version;
-    CUDA tensors launch the CUDA kernel (or raise)."""
-    if packed.device.type == "cpu":
-        return merge_groups_torch(packed, qg_nt, kgp=kgp, tile=tile, k=k)
-    if packed.device.type != "cuda":
-        raise ValueError(f"unsupported device {packed.device}")
-    global launches_merge
-    from scann_torch import _cuda
-    dev = packed.device
-    g_pad, qg, w = packed.shape
-    gp = tile // SUBP
-    if (qg != QG or kgp & (kgp - 1) or gp & (gp - 1)
-            or _bits(gp) > _TILE_BITS or w % kgp):
-        raise ValueError(f"unsupported shapes: {qg} rows per group (needs "
-                         f"{QG}), kgp {kgp} and tile/32 = {gp} (need powers "
-                         f"of two, tile/32 <= {MAX_NTILES}), w {w}")
-    if not 1 <= k <= min(_FUSED_MAX_K, w):
-        raise ValueError(f"k must be in [1, min({_FUSED_MAX_K}, w)], got "
-                         f"{k}")
-    _check("packed", packed, torch.int32, (g_pad, qg, w), dev)
-    _check("qg_nt", qg_nt, torch.int32, (g_pad,), dev)
-    mb = torch.empty((g_pad, qg, k), dtype=torch.int32, device=dev)
-    ts = torch.empty_like(mb)
-    lib = _cuda.library("merge_groups")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.merge_groups_topk(
-            packed.data_ptr(), qg_nt.data_ptr(), mb.data_ptr(),
-            ts.data_ptr(), g_pad, w, k, _bits(gp), _bits(kgp), stream)
-    if err != 0:
-        raise RuntimeError(f"merge_groups kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches_merge += 1
-    return mb, ts
+    """K6, the group-major fused merge, the custom op ``merge_groups``
+    (ops/library.py).  packed (g_pad, QG, w) int32; qg_nt (g_pad,) int32
+    tile count of each group's leaf (any valid count for dead groups:
+    their rows are never addressed).  Returns (m_bits, t_sel), each
+    (g_pad, QG, k) int32.  CPU tensors run the plain version; CUDA tensors
+    launch the CUDA kernel (or raise)."""
+    check_device(packed)
+    from scann_torch.ops import library
+    return library.merge_groups(packed, qg_nt, kgp, tile, k)
 
 
 _PAIR_CHUNK = 4096

@@ -10,7 +10,8 @@ the (tile, slot) identity packed into the low mantissa bits
 [(w % mnt) * kpg * gp, ...) of group w // mnt; inactive segments are left
 unwritten and the merge never reads them.
 
-``score_work_sq`` is the entry point: on CUDA tensors it launches the
+``score_work_sq`` is the entry point, through the custom op
+``pruned_sq_score`` (ops/library.py): on CUDA tensors it launches the
 hand-written kernel csrc/pruned_sq.cu (the port of the Pallas kernel
 ``score_work_pallas_sq``); on CPU tensors it runs ``score_work_torch_sq``,
 the plain torch version with the same output contract.
@@ -18,14 +19,12 @@ the plain torch version with the same output contract.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from scann_torch.ops import pruned_scan as ps
-from scann_torch.ops.pruned_scan import _check
 
-# Kernel launches made by score_work_sq (CPU calls never count).
+# Kernel launches of K1, counted by its CUDA implementation in
+# ops/library.py (CPU calls never count).
 launches = 0
 
 _WORK_CHUNK = 128
@@ -72,46 +71,11 @@ def score_work_torch_sq(plan, qg_rows, rows3, scale, bias, *,
 
 def score_work_sq(plan, qg_rows, rows3, scale, bias, *, measure_l2: bool,
                   kpg: int = 4):
-    """K1 scorer.  CPU tensors run the plain version; CUDA tensors launch
-    the CUDA kernel (or raise: there is no fallback on the GPU)."""
-    if rows3.device.type == "cpu":
-        return score_work_torch_sq(plan, qg_rows, rows3, scale, bias,
-                                   measure_l2=measure_l2, kpg=kpg)
-    if rows3.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows3.device}")
-    global launches
-    from scann_torch import _cuda
-    dev = rows3.device
-    num_tiles, tile, d_pad = rows3.shape
-    g_pad = plan.qg_query.shape[0]
-    w_pad = plan.work_tile.shape[0]
-    if tile != _TILE or w_pad % g_pad or d_pad % 8:
-        raise ValueError(f"unsupported shapes: tile {tile} (needs {_TILE}),"
-                         f" w_pad {w_pad}, g_pad {g_pad}, d_pad {d_pad} "
-                         f"(needs a multiple of 8)")
-    if not 1 <= kpg <= ps.SUBP:
-        raise ValueError(f"kpg must be in [1, {ps.SUBP}], got {kpg}")
-    mnt = w_pad // g_pad
-    gp = tile // ps.SUBP
-    _check("work_tile", plan.work_tile, torch.int32, (w_pad,), dev)
-    _check("work_active", plan.work_active, torch.int32, (w_pad,), dev)
-    _check("qg_rows", qg_rows, torch.bfloat16, (g_pad, ps.QG, d_pad), dev)
-    _check("rows3", rows3, torch.int8, (num_tiles, tile, d_pad), dev)
-    for name, plane in (("scale", scale), ("bias", bias)):
-        _check(name, plane, torch.float32,
-               (num_tiles, tile) + (1,) * (plane.dim() - 2), dev)
-    out = torch.empty((g_pad, ps.QG, mnt * kpg * gp), dtype=torch.int32,
-                      device=dev)
-    lib = _cuda.library("pruned_sq")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pruned_sq_score(
-            plan.work_tile.data_ptr(), plan.work_active.data_ptr(),
-            qg_rows.data_ptr(), rows3.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), w_pad, mnt, kpg, d_pad,
-            ctypes.c_float(2.0 if measure_l2 else 1.0), stream)
-    if err != 0:
-        raise RuntimeError(f"pruned_sq kernel launch failed: "
-                           f"{_cuda.error_string(lib, err)} ({err})")
-    launches += 1
-    return out
+    """K1 scorer, the custom op ``pruned_sq_score`` (ops/library.py).  CPU
+    tensors run the plain version; CUDA tensors launch the CUDA kernel (or
+    raise: there is no fallback on the GPU)."""
+    ps.check_device(rows3)
+    from scann_torch.ops import library
+    return library.pruned_sq_score(
+        plan.work_tile, plan.work_qg, plan.work_active, qg_rows, rows3, scale,
+        bias, plan.qg_query.shape[0], measure_l2, kpg)

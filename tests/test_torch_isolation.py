@@ -1,8 +1,8 @@
 """The port stands alone: scann_torch and chip_smoke.py import neither JAX
 nor the JAX package, entry points default to CUDA and raise without it,
-configurations the port does not serve raise NotImplementedError (and no
-refusal names ROADMAP items 13, 14, 15 or 16, whose settings are served), and
-chip_smoke.py's copy of the benchmark corpus is bench.py's."""
+every setting is served (no refusal remains; the former refusal cases,
+autopilot among them, build and search), and chip_smoke.py's copy of the
+benchmark corpus is bench.py's."""
 
 import ast
 import os
@@ -118,11 +118,9 @@ def _tree(b, **kw):
     return b.tree(num_leaves=4, num_leaves_to_search=2, **kw)
 
 
-_UNPORTED = {
-    # int8 brute force, int8 reordering without a tree, reordering a
-    # brute-force search and the projections are served
-    # (test_formerly_unported_settings_build_and_search); each still
-    # refuses beside a setting that is not ported.
+_AUTOPILOT = {
+    # The former refusal cases: each setting beside autopilot, which the
+    # factory rewrites (ROADMAP item 17) into the JAX package's config.
     "int8_brute_force": lambda b: b.score_brute_force("int8").autopilot(),
     "score_ah": lambda b: _tree(b).score_ah(2).reorder(
         10, quantize="int8").opq().autopilot(),
@@ -134,12 +132,33 @@ _UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED))
-def test_unported_settings_raise(name):
+@pytest.mark.parametrize("name", sorted(_AUTOPILOT))
+def test_autopilot_settings_build_and_search(name):
+    import scann_tpu
+    from scann_tpu.utils import autopilot as jap
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        _UNPORTED[name](scann_torch.builder(db, 3, "dot_product",
-                                            device="cpu")).build()
+    s = _AUTOPILOT[name](scann_torch.builder(db, 3, "dot_product",
+                                             device="cpu")).build()
+    want = jap.autopilot_rewrite(_AUTOPILOT[name](scann_tpu.builder(
+        db, 3, "dot_product")).create_config(), db)
+    assert s.config.to_json() == want.to_json()
+    # A 64-row corpus rewrites to brute force: exact dot products.
+    idx, dist = s.search_batched(db[:4])
+    assert idx.shape == (4, 3)
+    np.testing.assert_array_equal(idx[:, 0], (db[:4] @ db.T).argmax(1))
+    assert np.isfinite(dist).all()
+
+
+def test_no_refusal_remains():
+    """No setting refuses: the refusal helper and its calls are gone."""
+    from scann_torch.models import base
+    assert not hasattr(base, "not_ported")
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                text = open(os.path.join(dirpath, n)).read()
+                assert "not_ported(" not in text, n
+                assert "is not ported yet" not in text, n
 
 
 _FORMERLY_UNPORTED = {
@@ -239,9 +258,9 @@ def test_typed_and_sparse_inputs_build_and_search():
     assert idx.shape == (64, 3)
 
 
-@pytest.mark.parametrize("item", [13, 15, 16])
+@pytest.mark.parametrize("item", [13, 15, 16, 17])
 def test_no_refusal_names_a_served_item(item):
-    """Items 13, 15 and 16 are served: no refusal names them."""
+    """Items 13, 15, 16 and 17 are served: no refusal names them."""
     import re
     call = re.compile(r"not_ported\([^()]*,\s*(\d+)\)")
     for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):

@@ -27,8 +27,8 @@ signature (_flush_fault_rows) and bounds their share.
 Build, statistically: the port's k-means draws differ from jax.random's,
 so a port-built index is held to the JAX-built index's recall@10 (within
 0.02); scann_tpu loads the port's saved index and returns the port's
-results.  Settings the port does not serve raise NotImplementedError
-naming their ROADMAP item."""
+results.  The settings that once refused beside an autopilot config
+build through the JAX package's autopilot rewrite."""
 
 import dataclasses
 
@@ -306,29 +306,26 @@ def _with_autopilot(config):
         config, autopilot=scann_torch.config.AutopilotConfig())
 
 
-_UNPORTED = {
+_AUTOPILOT = {
     # Stacked and variable-chunk codes, the single-leaf tree and
-    # non-residual int8 reordering through a projection are served
-    # (tests/test_torch_stacked.py, tests/test_torch_projection.py,
-    # tests/test_torch_isolation.py), and so is mutation
-    # (test_mutation_builds_and_searches); each still refuses beside
-    # autopilot, which is not ported.
-    "stacked": (lambda b: _with_autopilot(b.tree(
+    # non-residual int8 reordering through a projection, each beside an
+    # autopilot config: the factory rewrites it (ROADMAP item 17) into the
+    # JAX package's config, which replaces the rest.
+    "stacked": lambda b: _with_autopilot(b.tree(
         num_leaves=4, num_leaves_to_search=2)
-        .score_ah(2, quantization_scheme="stacked").create_config()), 17),
-    "variable_chunks": (lambda b: _with_autopilot(b.tree(
+        .score_ah(2, quantization_scheme="stacked").create_config()),
+    "variable_chunks": lambda b: _with_autopilot(b.tree(
         num_leaves=4, num_leaves_to_search=2)
         .score_ah(2, variable_dims_per_block=[2, 2, 4]).create_config()),
-        17),
-    "single_leaf_tree": (lambda b: _with_autopilot(b.tree(
+    "single_leaf_tree": lambda b: _with_autopilot(b.tree(
         num_leaves=1, num_leaves_to_search=1)
-        .score_ah(2).create_config()), 17),
-    "reorder_int8_raw": (lambda b: dataclasses.replace(
+        .score_ah(2).create_config()),
+    "reorder_int8_raw": lambda b: dataclasses.replace(
         _ah(b).reorder(10, quantize="int8").create_config(),
         reordering=scann_torch.ReorderConfig(
             reordering_num_neighbors=10, quantize="int8", residual=False),
         projection=scann_torch.config.ProjectionConfig(),
-        autopilot=scann_torch.config.AutopilotConfig()), 17),
+        autopilot=scann_torch.config.AutopilotConfig()),
 }
 
 
@@ -351,12 +348,20 @@ def test_mutation_builds_and_searches():
     assert set(s.search(db[3] * 2)[0]) <= set(range(72))
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED))
-def test_unported_tree_ah_settings_raise(name):
+@pytest.mark.parametrize("name", sorted(_AUTOPILOT))
+def test_autopilot_tree_ah_settings_build_and_search(name):
+    import json
+    from scann_tpu import config as jcfg
+    from scann_tpu.utils import autopilot as jap
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
-    make, item = _UNPORTED[name]
-    config = make(scann_torch.builder(db, 3, "dot_product", device="cpu"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        scann_torch.create_searcher(db, config, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        scann_torch.builder(db, 3, "dot_product", device="cpu").autopilot()
+    config = _AUTOPILOT[name](scann_torch.builder(db, 3, "dot_product",
+                                                  device="cpu"))
+    s = scann_torch.create_searcher(db, config, "cpu")
+    want = jap.autopilot_rewrite(
+        jcfg._config_from_dict(json.loads(config.to_json())), db)
+    assert s.config.to_json() == want.to_json()
+    # A 64-row corpus rewrites to brute force: exact dot products.
+    idx, dist = s.search_batched(db[:4])
+    assert idx.shape == (4, 3)
+    np.testing.assert_array_equal(idx[:, 0], (db[:4] @ db.T).argmax(1))
+    assert np.isfinite(dist).all()

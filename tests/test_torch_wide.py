@@ -156,16 +156,21 @@ def _config(d, lookup, tree, num_leaves=8, reorder=20, dpb=2):
 def test_check_supported_refuses_unserved_widths_on_cuda(d, lookup, tree,
                                                          refused):
     """Every width is served on a CUDA device, the ones the card once
-    refused (``refused``) included; the settings still unported keep
-    raising by item number."""
+    refused (``refused``) included, and so is autopilot (ROADMAP item
+    17), the last setting that refused: its rewrite at this width passes
+    the same check."""
     del refused
     config = _config(d, lookup, tree)
     tree_ah.check_supported(config)
     for dev in (torch.device("cpu"), CUDA):
         scann_torch.factory.check_supported(config, dev, d)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        scann_torch.factory.check_supported(dataclasses.replace(
-            config, autopilot=object()), CUDA, d)
+    from scann_torch.utils import autopilot
+    auto = dataclasses.replace(
+        config, autopilot=scann_torch.config.AutopilotConfig())
+    for n in (100, 100_000):
+        rewritten = autopilot.autopilot_rewrite(
+            auto, np.broadcast_to(np.float32(0), (n, d)))
+        scann_torch.factory.check_supported(rewritten, CUDA, d, n)
 
 
 @pytest.mark.parametrize("rows,refused", [
