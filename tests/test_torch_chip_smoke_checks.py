@@ -1,7 +1,8 @@
 """chip_smoke.py's per-query pre_reorder_num_neighbors check, driven on a
 small CPU SOAR index whose rows come in exact triplicates: every score
 ties two others, so each query's 10th candidate ties its 11th and the two
-budgets may keep different ones of a tied triple."""
+budgets may keep different ones of a tied triple.  Rows planted in the
+searches' output stand for the rescore's rounding at another width."""
 
 import numpy as np
 import pytest
@@ -48,7 +49,7 @@ def _alter_row(monkeypatch, searcher, row):
 
 
 def test_triplicated_rows_tie_at_the_cut(index):
-    ties, differ = _check(index)
+    ties, differ, _ = _check(index)
     assert ties == index[1].shape[0] // 2
     assert differ <= ties
 
@@ -67,6 +68,67 @@ def test_a_row_that_differs_without_a_tie_fails(index, monkeypatch, row):
     monkeypatch.setattr(chip_smoke, "cut_at_a_tie", lambda *a: False)
     with pytest.raises(AssertionError, match="pre_reorder_num_neighbors"):
         _check(index)
+
+
+def _same_candidates_row(index):
+    """An even row whose best K_SMALL candidates are the same, in the same
+    order, at both budgets."""
+    s, queries, q, _ = index
+    rows = np.arange(0, queries.shape[0], 2)
+    (va, da), (vb, db_) = chip_smoke.cut_lists(torch, s, q, rows, K_SMALL,
+                                               K_LARGE, LEAVES)
+    same = [j for j in range(len(rows))
+            if np.array_equal(da[j], db_[j][:K_SMALL])
+            and np.array_equal(va[j], vb[j][:K_SMALL])]
+    assert same
+    return rows[same[0]]
+
+
+def test_a_row_that_differs_by_rounding_passes(index, monkeypatch):
+    # The first two results of a row trade places, their distances 1e-7
+    # apart, as the rescore at another width may round them.
+    s, queries = index[0], index[1]
+    row = _same_candidates_row(index)
+    ids, dist = s.search_batched(queries, pre_reorder_num_neighbors=K_SMALL,
+                                 leaves_to_search=LEAVES)
+    a, b = ids[row, :2]
+    v = dist[row, 0]
+    w = np.float32(v * (1 + 1e-7))
+    search = s.search_batched
+
+    def planted(queries, **kw):
+        idx, dist = search(queries, **kw)
+        k_pre = kw.get("pre_reorder_num_neighbors")
+        put = (([b, a], [w, v]) if isinstance(k_pre, np.ndarray)
+               else ([a, b], [v, w]) if k_pre == K_SMALL else None)
+        if put is not None:
+            idx, dist = idx.copy(), dist.copy()
+            idx[row, :2], dist[row, :2] = put
+        return idx, dist
+    monkeypatch.setattr(s, "search_batched", planted)
+    monkeypatch.setattr(chip_smoke, "cut_at_a_tie", lambda *a: False)
+    assert _check(index)[2] == 1
+
+
+_NEAR = [0.5, 0.5000001, 0.25]
+
+
+@pytest.mark.parametrize("da,ib,db_,want", [
+    # The first two trade places, 1e-7 apart.
+    (_NEAR, [1, 0, 2], [0.5, 0.5000001, 0.25], True),
+    # The same swap between distances 1e-4 apart.
+    ([0.5, 0.5001, 0.25], [1, 0, 2], [0.5, 0.5001, 0.25], False),
+    # Two ids 0.25 apart trade places, each taking the other's distance.
+    ([0.5, 0.25, 0.1], [1, 0, 2], [0.5, 0.25, 0.1], False),
+    # The last result is another candidate, 1e-7 away.
+    (_NEAR, [0, 1, 3], [0.5, 0.5000001, 0.2500001], True),
+    # The last result is no candidate.
+    (_NEAR, [0, 1, 9], [0.5, 0.5000001, 0.25], False),
+])
+def test_equal_up_to_rounding(da, ib, db_, want):
+    assert chip_smoke.equal_up_to_rounding(
+        np.array([0, 1, 2]), np.array(da, np.float32), np.array(ib),
+        np.array(db_, np.float32), np.arange(5)) is want
 
 
 @pytest.mark.parametrize("vb,db_,want", [
