@@ -167,10 +167,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      reloaded in a fresh process that imports only scann_torch.export,
      its ids >= 99.9% equal to the live searcher's, its launches counted
      there;
+ 16. the sharded index (ROADMAP item 19) on a (1, 1) NCCL DeviceMesh: a.
+     ShardedTreeAHSearcher.from_searcher of phase 6's residual-int8
+     tree-AH index (recall@10 at leaves 100 / 100 candidates >= phase 6's
+     reading less SHARDED_AH_SLACK) and b. of phase 5's tree-SQ index (sq
+     format, leaves 100, >= phase 5's less SHARDED_SQ_SLACK); c.
+     build_sharded of bench.py's tree-AH and tree-SQ configs (phases 6's
+     and 5's floors, build seconds); d. serialize -> load_sharded (ids
+     equal on every query); e. upsert of the queries as 10,000 new rows
+     (each its own first result) and delete of 10,000 ids (none
+     returned); f. a restrict allowlist of even ids (only even ids).  It
+     launches none of the six kernels (the JAX sharded path reaches no
+     Pallas call);
 then the occupancy line of the six kernels (registers a thread, dynamic
 shared memory a block, resident blocks an SM, at the main path's shapes;
 K3 and K5 also at the widths of phase 9), the kernels JSON line (with
-each kernel's launches in phases 12, 13, 14 and 15), the card line, and
+each kernel's launches in phases 12-16), the card line, and
 the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
@@ -1403,6 +1415,9 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
     ref_save_s = time.perf_counter() - t0
     ref_ids = main.search_batched(queries, leaves_to_search=LEAVES_TO_SEARCH,
                                   pre_reorder_num_neighbors=AH_REORDER)[0]
+    # Phase 16's input: the residual-int8 index, resharded there.
+    i8_dir = os.path.join(work, "tree_ah_int8")
+    main_i8.serialize(i8_dir)
     try:
         scann_torch.save_reference_assets(main_i8,
                                           os.path.join(work, "refused"))
@@ -1413,7 +1428,8 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
                     "merge": merges, "b_pad": main._p_codes.shape[-1] * 2,
                     "k4_d_pad": main_f._p_mean.shape[0],
                     "reference_assets": (ref_dir, ref_ids, ref_save_s,
-                                         refusal)}
+                                         refusal),
+                    "int8_residual_dir": i8_dir}
 
 
 def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
@@ -3376,6 +3392,163 @@ def entry_points_phase(torch, scann_torch, db, queries, truth, sq_dir, ref,
     return launches, out
 
 
+# Phase 16: the sharded index (ROADMAP item 19) on a (1, 1) NCCL mesh.
+# Its recall floors, from this run: phase 6's residual-int8 reading at
+# leaves 100 / pre 100 less 0.01 (the same codes and leaves, every slot of
+# them scored; int8-LUT ties may fall otherwise), phase 5's at leaves 100
+# less 0.002 (exact within the leaves), and the builds at phases 6's and
+# 5's floors.  The held-out rows of 16e are the 10,000 queries (unit
+# vectors, so each is its own best match).
+SHARDED_AH_SLACK, SHARDED_SQ_SLACK = 0.01, 0.002
+
+
+def sharded_search(torch, s, queries, **kw):
+    """One warm-up on 1,000 queries, then the timed search."""
+    s.search_batched(queries[:1000], **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, dist = s.search_batched(queries, **kw)
+    torch.cuda.synchronize()
+    return idx, dist, len(queries) / (time.perf_counter() - t0)
+
+
+def sharded_phase(torch, scann_torch, db, queries, truth, sq_dir, ah_dir,
+                  sq_at100, ah_i8_at100, work):
+    """Phase 16: ShardedTreeAHSearcher on the card.  ``sq_dir`` / ``ah_dir``:
+    phases 5's and 6's serialized tree-SQ and residual-int8 tree-AH
+    indexes, ``sq_at100`` / ``ah_i8_at100`` their recall@10 at leaves 100.
+    Returns (the six kernels' launches in this phase, summary dict)."""
+    import torch.distributed as dist
+    from scann_torch.parallel import build as build_mod
+    from scann_torch.parallel import launch
+    from scann_torch.parallel import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    out = {}
+    zero_counts()
+    store = dist.FileStore(os.path.join(work, "mesh_store"), 1)
+    mesh = launch.init_mesh(1, 1, store=store, device_type="cuda")
+
+    def card_bytes(s):
+        return sum(t.numel() * t.element_size() for t in s.state.values()
+                   ) / s.n_points
+
+    def hold(name, idx, dist_, qps, floor, extra=""):
+        check_results(queries, db, idx, dist_, f"sharded {name}", True)
+        r = recall_at_k(idx, truth)
+        log(f"sharded {name}: recall@10 {r:.4f} (floor {floor:.4f}), "
+            f"{qps:.0f} QPS{extra}")
+        if r < floor:
+            raise AssertionError(f"sharded {name}: recall@10 {r:.4f} is "
+                                 f"under {floor:.4f}")
+        return r
+
+    try:
+        # a, b. from_searcher of phases 6's and 5's indexes.
+        for name, path, kw, floor in (
+                ("from_tree_ah_int8", ah_dir,
+                 dict(leaves_to_search=100, pre_reorder_num_neighbors=100),
+                 ah_i8_at100 - SHARDED_AH_SLACK),
+                ("from_tree_sq", sq_dir, dict(leaves_to_search=100),
+                 sq_at100 - SHARDED_SQ_SLACK)):
+            single = scann_torch.load_searcher(path, device="cuda")
+            t0 = time.perf_counter()
+            s = mesh_mod.ShardedTreeAHSearcher.from_searcher(single, db, mesh)
+            torch.cuda.synchronize()
+            reshard_s = time.perf_counter() - t0
+            del single
+            idx, dist_, qps = sharded_search(torch, s, queries, **kw)
+            out[name] = {"recall": hold(name, idx, dist_, qps, floor,
+                                        f", resharded in {reshard_s:.1f} s"),
+                         "floor": floor, "qps": qps, "reshard_s": reshard_s,
+                         "format": s.leaf_format,
+                         "card_bytes_per_vector": card_bytes(s)}
+            del s
+            torch.cuda.empty_cache()
+        # c. build_sharded of bench.py's tree-AH and tree-SQ configs.
+        tree = dict(num_leaves=NUM_LEAVES,
+                    num_leaves_to_search=LEAVES_TO_SEARCH,
+                    training_sample_size=TRAIN_SAMPLE)
+        configs = {
+            "build_tree_ah": (ah_config(scann_torch, db, "dot_product",
+                                        "int8", "int8", **tree),
+                              AH_RECALL_FLOOR_AT_100),
+            "build_tree_sq": (scann_torch.builder(db, K, "dot_product")
+                              .tree(**tree).score_brute_force(quantize="int8")
+                              .create_config(), RECALL_FLOOR_AT_100)}
+        built = {}
+        for name, (config, floor) in configs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = build_mod.build_sharded(db, config, mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            idx, dist_, qps = sharded_search(torch, s, queries)
+            out[name] = {"recall": hold(name, idx, dist_, qps, floor,
+                                        f", built in {build_s:.1f} s"),
+                         "floor": floor, "qps": qps, "build_s": build_s,
+                         "num_leaves": s.num_leaves,
+                         "card_bytes_per_vector": card_bytes(s)}
+            built[name] = (s, idx)
+        # d. serialize -> load_sharded: the same ids on every query.
+        s, idx = built["build_tree_ah"]
+        t0 = time.perf_counter()
+        s.serialize(os.path.join(work, "sharded"))
+        s2 = mesh_mod.load_sharded(os.path.join(work, "sharded"), mesh)
+        round_s = time.perf_counter() - t0
+        idx2, _ = s2.search_batched(queries)
+        agree = ids_agree(idx, idx2)
+        del s2
+        log(f"sharded serialize + load_sharded in {round_s:.1f} s: ids "
+            f"equal on {agree:.6f}")
+        if agree != 1.0:
+            raise AssertionError("load_sharded changed the answers")
+        out["reload"] = {"ids_equal": agree, "seconds": round_s}
+        # e. upsert the 10,000 held-out rows, delete 10,000 ids.
+        new_ids = np.arange(N_DB, N_DB + len(queries))
+        t0 = time.perf_counter()
+        s.upsert(new_ids, queries)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        idx, _ = s.search_batched(queries)
+        first = float(np.mean(idx[:, 0] == new_ids))
+        gone = np.arange(0, N_DB, N_DB // 10_000)[:10_000]
+        t0 = time.perf_counter()
+        s.delete(gone)
+        torch.cuda.synchronize()
+        del_s = time.perf_counter() - t0
+        idx, _ = s.search_batched(queries)
+        back = int(np.isin(idx, gone).sum())
+        log(f"sharded upsert of {len(new_ids)} rows in {up_s:.2f} s (each "
+            f"its own first: {first:.6f}), delete of {len(gone)} ids in "
+            f"{del_s:.2f} s ({back} deleted ids returned)")
+        if first != 1.0 or back:
+            raise AssertionError("sharded upsert / delete answers wrong")
+        out["mutation"] = {"upsert_s": up_s, "own_first": first,
+                           "delete_s": del_s, "deleted_returned": back}
+        # f. a restrict allowlist of even ids.
+        s, _ = built["build_tree_sq"]
+        allow = np.zeros(s.n_points, bool)
+        allow[::2] = True
+        idx, _ = s.search_batched(queries, restrict_allowlist=allow)
+        odd = int((idx[idx >= 0] % 2).sum())
+        log(f"sharded restrict to even ids: {odd} odd ids returned, "
+            f"{float(np.mean(idx >= 0)):.6f} of the slots filled")
+        if odd:
+            raise AssertionError("the allowlist let odd ids through")
+        out["restrict_odd_ids"] = odd
+        del built, s
+        torch.cuda.empty_cache()
+    finally:
+        launch.close()
+    launches = kernel_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the sharded path launched a kernel: "
+                             f"{launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 (sharded index) in {out['seconds']:.1f} s")
+    return launches, out
+
+
 def tree_ah_kpg(s):
     """kpg of a tree-AH searcher's pruned search at the bench budget."""
     from scann_torch.models import tree_ah
@@ -3529,6 +3702,7 @@ def main():
     k3, k4, ah_summary = tree_ah_phase(torch, scann_torch, db, queries,
                                        truth, q_dev, k6, work)
     ref_assets = ah_summary.pop("reference_assets")
+    ah_i8_dir = ah_summary.pop("int8_residual_dir")
 
     # 7. tree-AH in reconstruct mode
     k2, k5, recon_summary = recon_phase(torch, scann_torch, db, queries,
@@ -3559,6 +3733,12 @@ def main():
     # 15. ROADMAP items 17, 18 and 20: the entry points.
     entry_launches, entry = entry_points_phase(
         torch, scann_torch, db, queries, truth, sq_dir, ref_assets, work)
+    # 16. ROADMAP item 19: the sharded index.
+    ah_i8_at100 = next(p for p in ah_summary["points"] if (
+        p["index"], p["leaves"], p["pre"]) == ("int8_int8", 100, 100))["recall"]
+    sharded_launches, sharded = sharded_phase(
+        torch, scann_torch, db, queries, truth, sq_dir, ah_i8_dir, at100,
+        ah_i8_at100, work)
 
     for rec, name in ((k1, "pruned_sq"), (k2, "pruned_rows"),
                       (k3, "pruned_lut"), (k5, "fused_scan")):
@@ -3576,7 +3756,8 @@ def main():
                         "k5_d_960": k5_wide},
                "sift_tree_sq": sift_summary, "compositions": compositions,
                "search_features": features, "encodings": encodings,
-               "mutation": mutation, "entry_points": entry}
+               "mutation": mutation, "entry_points": entry,
+               "sharded": sharded}
     log("summary " + json.dumps(summary))
     # What the card makes of the six kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
@@ -3607,7 +3788,8 @@ def main():
          "launches_phase12": features_launches.get(name, 0),
          "launches_phase13": enc_launches.get(name, 0),
          "launches_phase14": mut_launches.get(name, 0),
-         "launches_phase15": entry_launches.get(name, 0)}
+         "launches_phase15": entry_launches.get(name, 0),
+         "launches_phase16": sharded_launches.get(name, 0)}
         for name, replaces, rec, design in (
             ("pruned_sq", "scann_tpu/ops/pruned_sq.py:43", k1, TILE_MMA),
             ("pruned_rows", "scann_tpu/ops/pruned_scan.py:297", k2, TILE_MMA),

@@ -34,6 +34,7 @@ from scann_tpu.ops import ah as jah
 from scann_tpu.ops import kmeans as jkm
 from scann_tpu.ops import lut16 as jl16
 from scann_tpu.utils import native as jnative
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -16,6 +16,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.ops import distance as tdist
 from scann_tpu.ops import distance as jdist
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def _db(n=300, d=16, seed=0):

@@ -18,6 +18,7 @@ from scann_torch import config as tcfg
 from scann_torch.utils import autopilot as tap
 from scann_tpu import config as jcfg
 from scann_tpu.utils import autopilot as jap
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def _shape_only(n, d):

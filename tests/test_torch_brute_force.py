@@ -23,6 +23,7 @@ import pytest
 
 import scann_torch
 import scann_tpu
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ID_AGREE, DIST_RTOL = 0.999, 1e-4
 KINDS = [(m, q) for m in ("dot_product", "squared_l2", "cosine")

@@ -15,6 +15,7 @@ from scann_torch import config as tcfg
 from scann_torch.models import tree_x as ttx
 from scann_torch.partitioning import kmeans_tree as tkt
 from scann_tpu.partitioning import kmeans_tree as jkt
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

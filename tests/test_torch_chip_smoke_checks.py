@@ -10,6 +10,7 @@ import torch
 
 import chip_smoke
 import scann_torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 K, K_SMALL, K_LARGE, LEAVES = 5, 10, 40, 4
 

@@ -6,6 +6,7 @@ import pytest
 import scann_torch.config as tcfg
 import scann_tpu
 import scann_tpu.config as jcfg
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def _configs():

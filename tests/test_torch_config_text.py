@@ -13,6 +13,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.utils import config_text as tct
 from scann_tpu.utils import config_text as jct
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 NOTEBOOK_STYLE = """
   num_neighbors: 10

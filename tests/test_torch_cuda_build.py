@@ -10,6 +10,7 @@ import time
 import pytest
 
 from scann_torch import _cuda
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def test_every_signature_has_its_source_and_entry_points():

@@ -22,6 +22,7 @@ from scann_torch.ops import fused_scan
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -27,6 +27,7 @@ from scann_torch.ops import fused_scan, pruned_lut
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq
 from scann_torch.tools import op_cases
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -24,6 +24,7 @@ import scann_torch
 from scann_torch.ops import fused_scan
 from scann_torch.ops import pruned_lut
 from scann_torch.ops import pruned_scan as ps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -20,6 +20,7 @@ import torch
 
 from scann_torch.ops import pruned_scan as tps
 from scann_tpu.ops import pruned_scan as jps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def _layout_and_plan(seed=3, num_leaves=12, b=96, l=5, d=128, kpg=8):

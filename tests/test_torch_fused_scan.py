@@ -16,6 +16,7 @@ import torch
 
 from scann_torch.ops import fused_scan as tfs
 from scann_tpu.ops import fused_scan as jfs
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 RTOL, ATOL, MIN_ID = 1e-5, 1e-5, 0.999
 

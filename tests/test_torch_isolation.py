@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import scann_torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,6 +57,29 @@ def test_chip_smoke_and_port_sources_import_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for path in files:
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "scann_tpu", "bench"}, path
+
+
+def test_parallel_package_imports_no_jax():
+    """The sharded index (scann_torch/parallel/) and the job the CPU tests
+    spawn for it import neither JAX nor the JAX package, and every module
+    the JAX package's parallel/ has stands there."""
+    mods = set(_port_modules())
+    assert {"scann_torch.parallel.mesh", "scann_torch.parallel.build",
+            "scann_torch.parallel.layout", "scann_torch.parallel.launch",
+            "scann_torch.parallel.dryrun"} <= mods
+    jax_side = {f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "scann_tpu", "parallel")) if f.endswith(".py")}
+    port_side = {f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "scann_torch", "parallel")) if f.endswith(".py")}
+    assert jax_side <= port_side
+    files = [os.path.join(ROOT, "tests", "torch_sharded_job.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch",
+                                                  "parallel")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 6
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "scann_tpu", "bench"}, path
@@ -258,9 +282,9 @@ def test_typed_and_sparse_inputs_build_and_search():
     assert idx.shape == (64, 3)
 
 
-@pytest.mark.parametrize("item", [13, 15, 16, 17])
+@pytest.mark.parametrize("item", [13, 15, 16, 17, 19])
 def test_no_refusal_names_a_served_item(item):
-    """Items 13, 15, 16 and 17 are served: no refusal names them."""
+    """Items 13, 15, 16, 17 and 19 are served: no refusal names them."""
     import re
     call = re.compile(r"not_ported\([^()]*,\s*(\d+)\)")
     for dirpath, _, names in os.walk(os.path.join(ROOT, "scann_torch")):

@@ -24,6 +24,7 @@ import torch
 import scann_torch
 import scann_tpu
 from test_torch_tree_ah import _assert_same, _clustered, _config
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 N, N_EXTRA = 4000, 1600
 

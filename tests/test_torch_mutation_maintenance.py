@@ -23,6 +23,7 @@ from scann_torch.utils import health
 from scann_tpu import mutation as jmut
 from test_torch_mutation import N, data, ids_of  # noqa: F401 (fixture)
 from test_torch_tree_ah import _assert_same
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 def _tree_ah(builder_fn, db, **tree_kw):

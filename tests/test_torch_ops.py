@@ -19,6 +19,7 @@ from scann_tpu.models import base as jbase
 from scann_tpu.ops import distance as jdist
 from scann_tpu.ops import kmeans as jkm
 from scann_tpu.ops import topk as jtopk
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -32,6 +32,7 @@ import scann_tpu
 from scann_torch.partitioning import kmeans_tree as tkt
 from scann_tpu.partitioning import kmeans_tree as jkt
 from test_torch_tree_ah import _assert_same, _clustered, _recall
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -213,10 +214,24 @@ def _add_partitioner_meta(path, part):
     json.dump(blob, open(cfg_path, "w"))
 
 
+@pytest.fixture(scope="module")
+def jax_built(data):
+    """The JAX package's builds by (config name, seed), made once for the
+    tests of this module that search the same index."""
+    cache = {}
+
+    def get(name, seed=42):
+        if (name, seed) not in cache:
+            cache[name, seed] = _build(scann_tpu.builder, data[0], name,
+                                       seed=seed)
+        return cache[name, seed]
+    return get
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_jax_built_index_search_parity(data, name, tmp_path):
+def test_jax_built_index_search_parity(data, jax_built, name, tmp_path):
     db, q = data
-    js = _build(scann_tpu.builder, db, name)
+    js = jax_built(name)
     js.serialize(str(tmp_path))
     _add_partitioner_meta(str(tmp_path), js.partitioner)
     ts = scann_torch.load_searcher(str(tmp_path), device="cpu")
@@ -235,7 +250,7 @@ def test_jax_built_index_search_parity(data, name, tmp_path):
 
 @pytest.mark.parametrize("name", ["hierarchical", "upper_tree_soar_avq",
                                   "spill_multiplicative", "int8_centroids"])
-def test_port_built_recall_and_cross_load(data, name, tmp_path):
+def test_port_built_recall_and_cross_load(data, jax_built, name, tmp_path):
     """Recall@10 at 4 and 8 leaves, averaged over builds: the upper tree's
     six clusters move recall by up to 0.1 from one k-means draw to the
     next in either package, so it takes three seeds."""
@@ -247,7 +262,7 @@ def test_port_built_recall_and_cross_load(data, name, tmp_path):
     seeds = (1, 2, 3) if name.startswith("upper") else (42,)
     rj, rt = [], []
     for seed in seeds:
-        js = _build(scann_tpu.builder, db, name, seed=seed)
+        js = jax_built(name, seed)
         ts = _build(scann_torch.builder, db, name, seed=seed, device="cpu")
         for leaves in (4, 8):
             rj.append(_recall(js.search_batched(q, leaves_to_search=leaves)[0],

@@ -30,6 +30,7 @@ import scann_tpu
 from scann_torch.ops import projection as tproj
 from scann_tpu import config as jcfg
 from scann_tpu.ops import projection as jproj
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ID_AGREE, DIST_RTOL = 0.999, 1e-4
 TREE = dict(num_leaves=16, num_leaves_to_search=5, training_sample_size=3000)

@@ -18,6 +18,7 @@ from scann_torch.ops import pruned_scan as tps
 from scann_torch.ops import pruned_sq as tsq
 from scann_tpu.ops import pruned_scan as jps
 from scann_tpu.ops import pruned_sq as jsq
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 TILE = 256
 K1_RTOL, K1_MIN_ID_AGREE = 2.0 ** -14, 0.999

@@ -30,6 +30,7 @@ from scann_torch.ops import pruned_lut as tpl
 from scann_torch.ops import pruned_scan as tps
 from scann_tpu.ops import pruned_lut as jpl
 from scann_tpu.ops import pruned_scan as jps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 TILE = 512
 K4_RTOL, K4_MIN_ID_AGREE = 2.0 ** -14, 0.999

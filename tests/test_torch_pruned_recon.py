@@ -29,6 +29,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.ops import pruned_scan as tps
 from scann_tpu.ops import pruned_scan as jps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 RTOL, ATOL, MIN_ID = 2.0 ** -14, 1e-5, 0.9999
 

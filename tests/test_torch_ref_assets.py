@@ -17,6 +17,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.utils import ref_assets as tra
 from scann_tpu.utils import ref_assets as jra
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

@@ -33,6 +33,7 @@ import scann_tpu
 from scann_torch.ops import quantize as tq
 from scann_tpu.ops import quantize as jq
 from tests.test_torch_brute_force import assert_same
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 # Noise shaping changes rows only where eta(T) > 1, T^2 over a fair share

@@ -24,6 +24,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.ops import pruned_scan as tps
 from scann_tpu.ops import pruned_scan as jps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -34,6 +34,7 @@ from scann_tpu.models import base as jbase
 from scann_tpu.ops import pruned_scan as jps
 from scann_tpu.ops import topk as jtopk
 from test_torch_tree_ah import _assert_same, _clustered, _flush_fault_rows
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

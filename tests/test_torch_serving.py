@@ -14,6 +14,7 @@ import scann_torch
 import scann_tpu
 from scann_torch import serving as tserving
 from scann_tpu import serving as jserving
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 @pytest.fixture(scope="module")

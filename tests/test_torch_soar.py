@@ -37,6 +37,7 @@ from scann_tpu.ops import pruned_scan as jps
 from scann_tpu.ops import topk as jtopk
 from scann_tpu.partitioning import kmeans_tree as jkt
 from test_torch_tree_ah import _assert_same, _clustered, _recall
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

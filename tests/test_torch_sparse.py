@@ -23,6 +23,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.data import sparse as tsp
 from scann_tpu.data import sparse as jsp
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ID_AGREE = 0.999
 

@@ -28,6 +28,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.ops import ah as tah
 from scann_torch.ops import stacked as tst
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ID_AGREE, DIST_RTOL = 0.999, 1e-4
 TREE = dict(num_leaves=8, num_leaves_to_search=3, training_sample_size=2000)

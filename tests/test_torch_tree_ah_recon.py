@@ -19,14 +19,15 @@ import pytest
 
 import scann_torch
 import scann_tpu
-import test_torch_tree_ah as base
+import test_torch_tree_ah_build as base
 from test_torch_tree_ah import (CASES, _assert_same, _clustered, _config,
                                 _recall, data)  # noqa: F401  (data: fixture)
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 @pytest.mark.parametrize("case", ["dot_recon_f32", "l2_recon_none"])
 def test_build_parity_and_cross_load(data, case, tmp_path):  # noqa: F811
-    """The build-parity test of tests/test_torch_tree_ah.py on the
+    """The build-parity test of tests/test_torch_tree_ah_build.py on the
     reconstruct cases (6,000 rows: the pruned path through K2's plain
     version, the full scan through the dense scan of the decoded rows)."""
     base.test_build_parity_and_cross_load(data, case, tmp_path)

@@ -25,6 +25,7 @@ import scann_tpu
 from scann_torch.models import tree_x as ttx
 from scann_tpu.models import tree_x as jtx
 from tests.test_torch_brute_force import assert_same
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 # kind -> (quantize, num_leaves, pruned layout declined)
 KINDS = {"float32": ("float32", 16, False), "bf16": ("bfloat16", 16, False),

@@ -23,6 +23,7 @@ import scann_torch
 import scann_tpu
 from scann_torch.data import dataset as tds
 from scann_tpu.data import dataset as jds
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ID_AGREE, DIST_RTOL = 0.999, 1e-4
 TREE = dict(num_leaves=12, num_leaves_to_search=4, training_sample_size=2000)

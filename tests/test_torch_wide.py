@@ -32,6 +32,7 @@ from scann_torch.ops import pruned_lut as tpl
 from scann_torch.ops import pruned_scan as tps
 from scann_tpu.ops import pruned_lut as jpl
 from scann_tpu.ops import pruned_scan as jps
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 CUDA = torch.device("cuda")
 
