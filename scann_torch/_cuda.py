@@ -131,17 +131,20 @@ def build_all() -> dict:
 
 
 def library(name: str):
-    """The loaded ctypes library of csrc/<name>.cu, built on first use."""
+    """The loaded ctypes library of csrc/<name>.cu, built on first use
+    (a ``register`` span of utils/profiling.py)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(library_path(name))
-            for fn, (args, res) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = res
-            lib.error_string.argtypes = [_I]
-            lib.error_string.restype = ctypes.c_char_p
+            from scann_torch.utils import profiling
+            with profiling.phase("register"):
+                build(name)
+                lib = ctypes.CDLL(library_path(name))
+                for fn, (args, res) in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = res
+                lib.error_string.argtypes = [_I]
+                lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 

@@ -36,6 +36,7 @@ import torch
 
 # Registers the kernels' custom ops for torch.export.load.
 from scann_torch.ops import library  # noqa: F401
+from scann_torch.utils import profiling
 
 _META = "meta.json"
 
@@ -85,7 +86,10 @@ def save_exported_searcher(path: str, searcher, batch_sizes=(1024,),
     os.makedirs(path, exist_ok=True)
     buckets = sorted({_next_bucket(b) for b in batch_sizes})
     program = _SearchProgram(searcher, k, k_pre, leaves, full_scan)
+    # Neither the stage marks nor the spans' profiler ranges belong in a
+    # program.
     hook, searcher.stage_hook = searcher.stage_hook, None
+    spans_were = profiling.enable_spans(False)
     try:
         for bucket in buckets:
             prepare = getattr(searcher, "_prepare_for_query", None)
@@ -98,6 +102,7 @@ def save_exported_searcher(path: str, searcher, batch_sizes=(1024,),
             torch.export.save(ep, os.path.join(path, _program_file(bucket)))
     finally:
         searcher.stage_hook = hook
+        profiling.enable_spans(spans_were)
     with open(os.path.join(path, _META), "w") as f:
         json.dump({"buckets": buckets, "k": k, "k_pre": k_pre,
                    "leaves": leaves, "dims": int(searcher.query_dims),

@@ -22,6 +22,7 @@ import numpy as np
 
 from scann_torch import config as cfg
 from scann_torch.models import base
+from scann_torch.utils import profiling
 
 
 def check_supported(scann_config: cfg.ScannConfig, device=None, dims=None,
@@ -60,7 +61,13 @@ def create_searcher(database, scann_config: cfg.ScannConfig, device,
     """Build a searcher from a config on ``device``.  ``database`` is an
     (n, d) array or a data.dataset.DenseDataset, whose docids serve when
     ``docids`` is None.  With docids, results are lists of docids and the
-    searcher takes upsert / delete / rebalance (brute force and tree-AH)."""
+    searcher takes upsert / delete / rebalance (brute force and tree-AH).
+    The build is the ``build`` span of utils/profiling.py."""
+    with profiling.phase("build"):
+        return _create_searcher(database, scann_config, device, docids)
+
+
+def _create_searcher(database, scann_config, device, docids):
     from scann_torch.data import dataset as dataset_mod
     if isinstance(database, dataset_mod.DenseDataset):
         if docids is None:

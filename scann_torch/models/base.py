@@ -25,21 +25,25 @@ from scann_torch import config as cfg
 from scann_torch.ops import distance as dist_ops
 from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
+from scann_torch.utils import profiling
 
 
 class PendingSearch:
     """Handle for an enqueued batched search; .result() waits for the
-    device, copies (indices, distances) to the host and caches them."""
+    device, copies (indices, distances) to the host and caches them (the
+    ``result`` span, with the search's batch id)."""
 
-    __slots__ = ("_finalize", "_result")
+    __slots__ = ("_finalize", "_result", "_batch")
 
-    def __init__(self, finalize):
+    def __init__(self, finalize, batch=None):
         self._finalize = finalize
         self._result = None
+        self._batch = batch
 
     def result(self):
         if self._finalize is not None:
-            self._result = self._finalize()
+            with profiling.span("result", self._batch):
+                self._result = self._finalize()
             self._finalize = None
         return self._result
 
@@ -229,7 +233,8 @@ class Searcher:
     # search stage has been enqueued ("tokenize", "plan", "score",
     # "merge" on the pruned path, "tokenize", "scan" on the dense scan,
     # then "reorder" when a reorder helper is set, then "finish");
-    # chip_smoke.py records CUDA events with it.
+    # chip_smoke.py records CUDA events with it.  Each stage's host span
+    # (utils/profiling.py) ends at its call.
     stage_hook = None
 
     # Whether _apply_upsert / _apply_delete are served: brute force and
@@ -246,12 +251,16 @@ class Searcher:
             raise ValueError("docids must have one entry per database row")
         # One upload shared by every build phase; typed (int8 / uint8)
         # rows stay 1 B a dimension and each phase casts what it gathers.
+        # The upload puts the rows on the device: the first part of the
+        # ``layout`` phase.
         if database.dtype not in (np.int8, np.uint8):
             database = np.asarray(database, np.float32)
-        self._build_x_dev = torch.as_tensor(database, device=device)
-        if self.docids is not None and device.type == "cpu":
-            # Mutation writes the index rows in place: never the caller's.
-            self._build_x_dev = self._build_x_dev.clone()
+        with profiling.phase("layout"):
+            self._build_x_dev = torch.as_tensor(database, device=device)
+            if self.docids is not None and device.type == "cpu":
+                # Mutation writes the index rows in place: never the
+                # caller's.
+                self._build_x_dev = self._build_x_dev.clone()
         self.reorder_helper = None
         self._reorder_deferred = False
         self._crowding_attrs = None
@@ -265,9 +274,11 @@ class Searcher:
                 # subclass build calls _finish_deferred_reorder.
                 self._reorder_deferred = True
             else:
-                self.reorder_helper = ReorderHelper(
-                    self._build_x_dev,
-                    cfg.internal_measure(scann_config.distance_measure), ro)
+                with profiling.phase("quantize"):
+                    self.reorder_helper = ReorderHelper(
+                        self._build_x_dev,
+                        cfg.internal_measure(scann_config.distance_measure),
+                        ro)
         self.projector = None
         if scann_config.projection is not None:
             from scann_torch.ops import projection as proj_ops
@@ -321,10 +332,11 @@ class Searcher:
         tokenization exists."""
         if not self._reorder_deferred:
             return
-        self.reorder_helper = ReorderHelper(
-            x_dev, cfg.internal_measure(self.config.distance_measure),
-            self.config.reordering, residual_tokens=tokens,
-            centers=self.partitioner.centers)
+        with profiling.phase("quantize"):
+            self.reorder_helper = ReorderHelper(
+                x_dev, cfg.internal_measure(self.config.distance_measure),
+                self.config.reordering, residual_tokens=tokens,
+                centers=self.partitioner.centers)
         self._reorder_deferred = False
 
     def _stage(self, name: str):
@@ -423,41 +435,45 @@ class Searcher:
                                            restrict=restrict,
                                            pre_tokenized=pre_tokenized)
         if self.reorder_helper is not None:
-            # Keep the best k_pre, rescore exactly, then take the final k.
-            if sim.shape[-1] > k_pre:
-                sim, pos = topk_ops.top_k(sim, k_pre)
-                idx = torch.gather(idx, -1, pos.long())
-            if k_pre_vec is not None:
-                # Best first, a per-query k_pre is a column mask.
-                sim, idx = topk_ops.sort_results(sim, idx)
-                col = torch.arange(sim.shape[-1], device=sim.device)
-                keep = col[None, :] < k_pre_vec[:, None]
-                sim = torch.where(keep, sim, float("-inf"))
-                idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
-            if pre_epsilon is not None:
-                keep = sim >= pre_epsilon[:, None]
-                sim = torch.where(keep, sim, float("-inf"))
-                idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
-            if pre_crowding_limit:
-                sim, idx = self._crowd(sim, idx, pre_crowding_limit)
-            sim = self.reorder_helper.rescore(queries, idx)
-            self._stage("reorder")
-        if crowding_limit:
-            sim, idx = self._crowd(sim, idx, crowding_limit)
-        kk = min(k, sim.shape[-1])
-        vals, pos = topk_ops.top_k(sim, kk)
-        idx = torch.gather(idx, -1, pos.long())
-        idx = torch.where(torch.isneginf(vals), topk_ops.INVALID_INDEX, idx)
-        dist = dist_ops.similarity_to_user_distance(
-            vals, self.config.distance_measure)
-        dist = torch.where(idx == topk_ops.INVALID_INDEX, float("nan"), dist)
-        if kk < k:
-            pad = k - kk
-            idx = torch.nn.functional.pad(idx, (0, pad),
-                                          value=topk_ops.INVALID_INDEX)
-            dist = torch.nn.functional.pad(dist, (0, pad),
-                                           value=float("nan"))
-        self._stage("finish")
+            with profiling.span("reorder"):
+                # Keep the best k_pre, rescore exactly, then the final k.
+                if sim.shape[-1] > k_pre:
+                    sim, pos = topk_ops.top_k(sim, k_pre)
+                    idx = torch.gather(idx, -1, pos.long())
+                if k_pre_vec is not None:
+                    # Best first, a per-query k_pre is a column mask.
+                    sim, idx = topk_ops.sort_results(sim, idx)
+                    col = torch.arange(sim.shape[-1], device=sim.device)
+                    keep = col[None, :] < k_pre_vec[:, None]
+                    sim = torch.where(keep, sim, float("-inf"))
+                    idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
+                if pre_epsilon is not None:
+                    keep = sim >= pre_epsilon[:, None]
+                    sim = torch.where(keep, sim, float("-inf"))
+                    idx = torch.where(keep, idx, topk_ops.INVALID_INDEX)
+                if pre_crowding_limit:
+                    sim, idx = self._crowd(sim, idx, pre_crowding_limit)
+                sim = self.reorder_helper.rescore(queries, idx)
+                self._stage("reorder")
+        with profiling.span("finish"):
+            if crowding_limit:
+                sim, idx = self._crowd(sim, idx, crowding_limit)
+            kk = min(k, sim.shape[-1])
+            vals, pos = topk_ops.top_k(sim, kk)
+            idx = torch.gather(idx, -1, pos.long())
+            idx = torch.where(torch.isneginf(vals), topk_ops.INVALID_INDEX,
+                              idx)
+            dist = dist_ops.similarity_to_user_distance(
+                vals, self.config.distance_measure)
+            dist = torch.where(idx == topk_ops.INVALID_INDEX, float("nan"),
+                               dist)
+            if kk < k:
+                pad = k - kk
+                idx = torch.nn.functional.pad(idx, (0, pad),
+                                              value=topk_ops.INVALID_INDEX)
+                dist = torch.nn.functional.pad(dist, (0, pad),
+                                               value=float("nan"))
+            self._stage("finish")
         return idx, dist
 
     def _resolve_params(self, final_num_neighbors, pre_reorder_num_neighbors,
@@ -561,7 +577,29 @@ class Searcher:
         the other measures distance <= epsilon).  final_num_neighbors,
         pre_reorder_num_neighbors and both epsilons also take one value a
         query; the batch is sized by the largest and the rest apply as
-        masks."""
+        masks.
+
+        The call is the ``search`` span of utils/profiling.py, and the
+        handle's result() the ``result`` span of the same batch id."""
+        batch = profiling.batch_id()
+        with profiling.span("search", batch):
+            finalize = self._dispatch(
+                queries, final_num_neighbors, pre_reorder_num_neighbors,
+                leaves_to_search, restrict_allowlist,
+                per_crowding_attribute_num_neighbors, pre_tokenized_leaves,
+                post_reordering_epsilon, pre_reordering_epsilon,
+                per_crowding_attribute_pre_reordering_num_neighbors)
+        return PendingSearch(finalize, batch)
+
+    def _dispatch(self, queries, final_num_neighbors,
+                  pre_reorder_num_neighbors, leaves_to_search,
+                  restrict_allowlist, per_crowding_attribute_num_neighbors,
+                  pre_tokenized_leaves, post_reordering_epsilon,
+                  pre_reordering_epsilon,
+                  per_crowding_attribute_pre_reordering_num_neighbors):
+        """Check, upload and enqueue one batch (a split batch: each of its
+        sub-batches); returns the function that copies the results to the
+        host."""
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim != 2:
             raise ValueError(f"queries must be 2d, got shape {queries.shape}")
@@ -640,7 +678,7 @@ class Searcher:
                     return [row for o in outs for row in o[0]], dist
                 return np.concatenate([o[0] for o in outs], axis=0), dist
 
-            return PendingSearch(_combine)
+            return _combine
         restrict = None
         if restrict_allowlist is not None:
             allow = np.asarray(restrict_allowlist, bool)
@@ -704,7 +742,7 @@ class Searcher:
                          for row in idx], dist)
             return idx, dist
 
-        return PendingSearch(_finalize)
+        return _finalize
 
     def search_batched_parallel(self, queries, final_num_neighbors=None,
                                 pre_reorder_num_neighbors=None,

@@ -32,6 +32,7 @@ from scann_torch.models import base
 from scann_torch.ops import distance as dist_ops
 from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
+from scann_torch.utils import profiling
 
 # Chunk the database axis so one chunk's score block stays under ~256M
 # entries (1 GiB of f32); chunk top-ks are merged.
@@ -50,22 +51,24 @@ class BruteForceSearcher(base.Searcher):
         self.quantize_mode = scann_config.brute_force.quantize
         self._inv_mult = None
         self._sq_norms = None
-        if x.dtype in (torch.int8, torch.uint8):
-            # Typed rows; ops/distance converts each scoring chunk exactly.
-            self._db = x
-            if cfg.internal_measure(scann_config.distance_measure) \
-                    == cfg.SQUARED_L2:
-                self._sq_norms = (x.float() ** 2).sum(-1)
-        elif self.quantize_mode == cfg.INT8:
-            sq = quant_ops.scalar_quantize(x)
-            self._db = sq.data
-            self._inv_mult = sq.inverse_multipliers
-            self._sq_norms = sq.sq_norms
-        elif self.quantize_mode == cfg.BFLOAT16:
-            self._db = quant_ops.bfloat16_quantize(x)
-            self._sq_norms = (x * x).sum(-1)
-        else:
-            self._db = x
+        with profiling.phase("quantize"):
+            if x.dtype in (torch.int8, torch.uint8):
+                # Typed rows; ops/distance converts each scoring chunk
+                # exactly.
+                self._db = x
+                if cfg.internal_measure(scann_config.distance_measure) \
+                        == cfg.SQUARED_L2:
+                    self._sq_norms = (x.float() ** 2).sum(-1)
+            elif self.quantize_mode == cfg.INT8:
+                sq = quant_ops.scalar_quantize(x)
+                self._db = sq.data
+                self._inv_mult = sq.inverse_multipliers
+                self._sq_norms = sq.sq_norms
+            elif self.quantize_mode == cfg.BFLOAT16:
+                self._db = quant_ops.bfloat16_quantize(x)
+                self._sq_norms = (x * x).sum(-1)
+            else:
+                self._db = x
         self._valid = torch.ones((x.shape[0],), dtype=torch.bool,
                                  device=device)
         self._build_x_dev = None
@@ -131,34 +134,35 @@ class BruteForceSearcher(base.Searcher):
     def _select_candidates(self, queries, k_pre, leaves, full_scan=False,
                            restrict=None, pre_tokenized=None):
         del leaves, full_scan, pre_tokenized
-        nq = queries.shape[0]
-        n, d = self._db.shape
-        measure = cfg.internal_measure(self.config.distance_measure)
-        valid = self._valid
-        if restrict is not None:
-            # Rows past n_points are spare capacity.
-            valid = valid & torch.nn.functional.pad(
-                restrict, (0, n - restrict.shape[0]), value=False)
-        q, q_sq = self._query_operand(queries)
-        # L1 has no product form: its (q, chunk, d) block is the live cost.
-        cost = d if measure == cfg.L1 else 1
-        k = min(k_pre, n)
-        chunk = min(n, max(1, _MAX_SCORES // max(nq * cost, 1)))
-        vals = idx = None
-        for start in range(0, n, chunk):
-            cs = slice(start, start + chunk)
-            sim = dist_ops.similarity(
-                q, self._db[cs], measure,
-                db_sq_norms=(None if self._sq_norms is None
-                             else self._sq_norms[cs]),
-                query_sq_norms=q_sq)
-            cvals, cpos = topk_ops.chunk_top_k(
-                sim, min(k, sim.shape[1]), valid=valid[cs][None, :])
-            cidx = torch.where(cpos >= 0, start + cpos,
-                               topk_ops.INVALID_INDEX)
-            if vals is None:
-                vals, idx = cvals, cidx
-            else:
-                vals, idx = topk_ops.merge_top_k(vals, idx, cvals, cidx, k)
-        self._stage("scan")
+        with profiling.span("scan"):
+            nq = queries.shape[0]
+            n, d = self._db.shape
+            measure = cfg.internal_measure(self.config.distance_measure)
+            valid = self._valid
+            if restrict is not None:
+                # Rows past n_points are spare capacity.
+                valid = valid & torch.nn.functional.pad(
+                    restrict, (0, n - restrict.shape[0]), value=False)
+            q, q_sq = self._query_operand(queries)
+            # L1 has no product form: its (q, chunk, d) block is the live cost.
+            cost = d if measure == cfg.L1 else 1
+            k = min(k_pre, n)
+            chunk = min(n, max(1, _MAX_SCORES // max(nq * cost, 1)))
+            vals = idx = None
+            for start in range(0, n, chunk):
+                cs = slice(start, start + chunk)
+                sim = dist_ops.similarity(
+                    q, self._db[cs], measure,
+                    db_sq_norms=(None if self._sq_norms is None
+                                 else self._sq_norms[cs]),
+                    query_sq_norms=q_sq)
+                cvals, cpos = topk_ops.chunk_top_k(
+                    sim, min(k, sim.shape[1]), valid=valid[cs][None, :])
+                cidx = torch.where(cpos >= 0, start + cpos,
+                                   topk_ops.INVALID_INDEX)
+                if vals is None:
+                    vals, idx = cvals, cidx
+                else:
+                    vals, idx = topk_ops.merge_top_k(vals, idx, cvals, cidx, k)
+            self._stage("scan")
         return vals, idx

@@ -79,6 +79,7 @@ from scann_torch.ops import stacked as stacked_ops
 from scann_torch.ops import topk as topk_ops
 from scann_torch.partitioning import kmeans_tree
 from scann_torch.utils import native
+from scann_torch.utils import profiling
 
 _SCORE_CHUNK = 65536    # slots per chunk of the dense masked scan
 _ENCODE_CHUNK = 32768   # rows per encoding chunk (bounds the (chunk, B, J)
@@ -198,47 +199,56 @@ class TreeAHSearcher(base.Searcher):
         n, d = x_dev.shape
         seed = self.config.seed
         tokens2 = None
-        if self.part_cfg is None:
-            tokens = np.zeros((n,), np.int32)
-        else:
-            tokens, tokens2 = self._train_partition(x_dev)
+        with profiling.phase("partition"):
+            if self.part_cfg is None:
+                tokens = np.zeros((n,), np.int32)
+            else:
+                tokens, tokens2 = self._train_partition(x_dev)
         self.datapoint_to_token = (tokens2 if tokens2 is not None
                                    else tokens[:, None])
+        # Residual int8 reordering waits for the final primary tokens: its
+        # q.c_leaf bias must match the centers the residuals are taken
+        # against.
+        self._finish_deferred_reorder(x_dev, tokens)
 
-        if self.residual and self.partitioner is not None:
-            primary_vecs = self.partitioner.residualize(x_dev, tokens)
-        else:
-            primary_vecs = x_dev
-
-        gen = torch.Generator().manual_seed(seed + 1)
-        sample_idx = kmeans_ops.sample_rows(
-            gen, n, self.ah_cfg.training_sample_size)
-        sample = primary_vecs[sample_idx.to(self.device)]
-        if self.stacked:
-            self.model = stacked_ops.train_stacked(
-                gen, sample, -(-d // self.ah_cfg.dimensions_per_block),
-                self.ah_cfg.clusters_per_block,
-                self.ah_cfg.training_iterations)
-        else:
-            self.model = ah_ops.train_ah_model(
-                gen, sample, self.ah_cfg.dimensions_per_block,
-                self.ah_cfg.clusters_per_block,
-                self.ah_cfg.training_iterations, dims=d,
-                variable_dims_per_block=self.ah_cfg.variable_dims_per_block)
-        self._encoded_slots = 0
-        self._quantization_error_sq = 0.0
-        codes = self._encode_dataset(primary_vecs, x_dev)
-        leaf = tokens
-        dpid = np.arange(n, dtype=np.int32)
-        if tokens2 is not None:
-            # SOAR: each row also lives in its secondary leaf, encoded as
-            # the residual against that leaf's center; 2n slots.
-            codes = np.concatenate([codes, self._encode_dataset(
-                self.partitioner.residualize(x_dev, tokens2[:, 1]), x_dev)])
-            leaf = np.concatenate([tokens2[:, 0], tokens2[:, 1]])
-            dpid = np.concatenate([dpid, dpid])
-        self.index = self._layout_slots(codes, leaf.astype(np.int32), dpid)
-        self._build_recon()
+        with profiling.phase("quantize"):
+            if self.residual and self.partitioner is not None:
+                primary_vecs = self.partitioner.residualize(x_dev, tokens)
+            else:
+                primary_vecs = x_dev
+            gen = torch.Generator().manual_seed(seed + 1)
+            sample_idx = kmeans_ops.sample_rows(
+                gen, n, self.ah_cfg.training_sample_size)
+            sample = primary_vecs[sample_idx.to(self.device)]
+            if self.stacked:
+                self.model = stacked_ops.train_stacked(
+                    gen, sample, -(-d // self.ah_cfg.dimensions_per_block),
+                    self.ah_cfg.clusters_per_block,
+                    self.ah_cfg.training_iterations)
+            else:
+                self.model = ah_ops.train_ah_model(
+                    gen, sample, self.ah_cfg.dimensions_per_block,
+                    self.ah_cfg.clusters_per_block,
+                    self.ah_cfg.training_iterations, dims=d,
+                    variable_dims_per_block=(
+                        self.ah_cfg.variable_dims_per_block))
+            self._encoded_slots = 0
+            self._quantization_error_sq = 0.0
+            codes = self._encode_dataset(primary_vecs, x_dev)
+            leaf = tokens
+            dpid = np.arange(n, dtype=np.int32)
+            if tokens2 is not None:
+                # SOAR: each row also lives in its secondary leaf, encoded
+                # as the residual against that leaf's center; 2n slots.
+                codes = np.concatenate([codes, self._encode_dataset(
+                    self.partitioner.residualize(x_dev, tokens2[:, 1]),
+                    x_dev)])
+                leaf = np.concatenate([tokens2[:, 0], tokens2[:, 1]])
+                dpid = np.concatenate([dpid, dpid])
+        with profiling.phase("layout"):
+            self.index = self._layout_slots(codes, leaf.astype(np.int32),
+                                            dpid)
+            self._build_recon()
 
     def _train_partition(self, x_dev):
         """Train the tree; return the final primary token of each row and,
@@ -297,12 +307,7 @@ class TreeAHSearcher(base.Searcher):
                 tokens, minlength=self.part_cfg.num_leaves).max())
             self.partitioner = self.partitioner.apply_avq(
                 x_dev, tokens, float(self.part_cfg.avq), max(1, max_leaf))
-        tokens = np.asarray(tokens, np.int32)
-        # Residual int8 reordering waits for the final primary tokens: its
-        # q.c_leaf bias must match the centers the residuals are taken
-        # against.
-        self._finish_deferred_reorder(x_dev, tokens)
-        return tokens, tokens2
+        return np.asarray(tokens, np.int32), tokens2
 
     def _encode_dataset(self, vectors, originals) -> np.ndarray:
         """Encode all vectors in fixed-size chunks; also keeps the running
@@ -517,9 +522,13 @@ class TreeAHSearcher(base.Searcher):
         under squared L2) for K2; pair-packed 4-bit codes for K3 or one
         byte per block (255 = padding) for K4, plus the scorer's compact
         codebook table (centered, with its squared norms, for K3), the
-        pad-penalty bias plane and the mean."""
+        pad-penalty bias plane and the mean.  A ``layout`` span."""
         if not self._pruned_available or self._pruned_built:
             return
+        with profiling.phase("layout"):
+            self._build_pruned()
+
+    def _build_pruned(self):
         h = self._host
         live = np.nonzero(h["dpid"] >= 0)[0]
         order, tile_start, ntiles, num_tiles = pruned_scan.build_layout_host(
@@ -641,24 +650,26 @@ class TreeAHSearcher(base.Searcher):
         one candidate per 256-slot group, no materialized score matrix,
         then an exact top-k over the group winners (the JAX package takes
         approx_max_k there)."""
-        q_c, q_bf = self._recon_queries(queries, self._recon_rows.shape[1])
-        l2 = self.measure == cfg.SQUARED_L2
-        self._stage("tokenize")
-        vals, slots = fused_scan.fused_scan_groupmax(
-            q_bf, self._recon_rows, self._recon_bias, measure_l2=l2)
-        vals, pos = topk_ops.top_k(vals, min(self._k_fetch(k_pre),
-                                             vals.shape[-1]))
-        slots = torch.gather(slots, -1, pos.long())
-        dpids = self.index.slot_dpid[torch.clamp_min(slots, 0).long()]
-        dead = vals < -1e20
-        vals = torch.where(dead, float("-inf"), vals)
-        dpids = torch.where(dead, -1, dpids)
-        if l2:
-            # Restore the rank-invariant -||q||^2 of the centered query, so
-            # the values are true negated squared distances.
-            vals = vals - (q_c * q_c).sum(-1)[:, None]
-        vals, dpids = self._dedup(vals, dpids, k_pre)
-        self._stage("scan")
+        with profiling.span("tokenize"):
+            q_c, q_bf = self._recon_queries(queries, self._recon_rows.shape[1])
+            l2 = self.measure == cfg.SQUARED_L2
+            self._stage("tokenize")
+        with profiling.span("scan"):
+            vals, slots = fused_scan.fused_scan_groupmax(
+                q_bf, self._recon_rows, self._recon_bias, measure_l2=l2)
+            vals, pos = topk_ops.top_k(vals, min(self._k_fetch(k_pre),
+                                                 vals.shape[-1]))
+            slots = torch.gather(slots, -1, pos.long())
+            dpids = self.index.slot_dpid[torch.clamp_min(slots, 0).long()]
+            dead = vals < -1e20
+            vals = torch.where(dead, float("-inf"), vals)
+            dpids = torch.where(dead, -1, dpids)
+            if l2:
+                # Restore the rank-invariant -||q||^2 of the centered query, so
+                # the values are true negated squared distances.
+                vals = vals - (q_c * q_c).sum(-1)[:, None]
+            vals, dpids = self._dedup(vals, dpids, k_pre)
+            self._stage("scan")
         return vals, dpids
 
     def _dense_select(self, queries, k_pre, leaves, full_scan, restrict,
@@ -671,199 +682,207 @@ class TreeAHSearcher(base.Searcher):
         decoded rows chunk by chunk (a plain product, as in the JAX
         package) and, given enough groups, keeps one candidate per
         256-slot group of the randomly ordered slots before the top-k."""
-        nq = queries.shape[0]
-        dev = queries.device
-        recon = self._recon_mode
-        l2 = self.measure == cfg.SQUARED_L2
-        luts = lut_flat = inv_mult = None
-        if recon:
-            q_c, q_bf = self._recon_queries(queries,
-                                            self._recon_rows.shape[1])
-            q_f = q_bf.float()
-            q_sq = (q_c * q_c).sum(-1)
-        else:
-            if self.stacked:
-                # Stacked LUTs carry no residual bias: quantized on a zero
-                # base (dot product only; squared L2 is refused).
-                luts = ah_ops.quantize_luts(
-                    stacked_ops.build_stacked_luts(queries, self.model),
-                    torch.zeros((nq,), dtype=torch.float32, device=dev),
-                    self.ah_cfg.lookup_type)
-            else:
-                luts = ah_ops.build_luts(queries, self.model, self.measure,
-                                         self.ah_cfg.lookup_type)
-            lut_flat = lut16_ops.lut_matrix(luts)
-            inv_mult = luts.inv_multiplier if luts.int8 is not None else None
-        combo = None
-        if self._partitioned:
-            num_leaves = self.partitioner.num_leaves
-            leaves = (num_leaves if full_scan
-                      else max(1, min(leaves, num_leaves)))
-            bias = self.residual and not recon
-            leaf_ids, keep, center_sims = self.partitioner.select_leaves(
-                queries, leaves, pre_tokenized, pair_sims=bias)
-            # One (query, leaf) table: -inf for unselected leaves, else the
-            # q.c_leaf bias under residual quantization (0 otherwise, and
-            # in reconstruct mode, whose rows hold the center).  Unused
-            # entries scatter to a spare column past the last leaf.
-            vals = (center_sims if bias
-                    else torch.zeros(leaf_ids.shape, device=dev))
-            cols = torch.where(keep, leaf_ids, num_leaves).long()
-            combo = torch.full((nq, num_leaves + 1), float("-inf"),
-                               device=dev)
-            combo.scatter_(1, cols, torch.where(keep, vals, float("-inf")))
-            combo = combo[:, :num_leaves]
-        self._stage("tokenize")
-
-        leaf_all = self.index.slot_leaf.long()
-        dpid_all = self.index.slot_dpid
-        cpb = self.ah_cfg.clusters_per_block
-        chunk = self._chunk
-        n_slots = dpid_all.shape[0]
-        k_fetch = min(self._k_fetch(k_pre), n_slots)
-        groupmax = (recon and chunk % _GROUP == 0
-                    and n_slots // _GROUP >= 4 * k_fetch)
-        blocks = range(0, nq, _DENSE_QUERY_BLOCK)
-        state = [None] * len(blocks)
-        for start in range(0, n_slots, chunk):
-            cs = slice(start, start + chunk)
-            leaf_c, dpid_c = leaf_all[cs], dpid_all[cs]
+        with profiling.span("tokenize"):
+            nq = queries.shape[0]
+            dev = queries.device
+            recon = self._recon_mode
+            l2 = self.measure == cfg.SQUARED_L2
+            luts = lut_flat = inv_mult = None
             if recon:
-                rows_c = self._recon_rows[cs].float()
+                q_c, q_bf = self._recon_queries(queries,
+                                                self._recon_rows.shape[1])
+                q_f = q_bf.float()
+                q_sq = (q_c * q_c).sum(-1)
             else:
-                oh = lut16_ops.one_hot_codes(self.index.codes[cs], cpb)
-            valid = (dpid_c >= 0)[None, :]
-            if restrict is not None:
-                allow = restrict[torch.clamp(
-                    dpid_c, 0, restrict.shape[0] - 1).long()]
-                valid = valid & allow[None, :]
-            for bi, b0 in enumerate(blocks):
-                qb = slice(b0, b0 + _DENSE_QUERY_BLOCK)
-                if recon:
-                    sim = q_f[qb] @ rows_c.T
-                    if l2:
-                        sim = -(q_sq[qb][:, None] - 2.0 * sim
-                                + self._recon_sq[cs][None, :])
+                if self.stacked:
+                    # Stacked LUTs carry no residual bias: quantized on a zero
+                    # base (dot product only; squared L2 is refused).
+                    luts = ah_ops.quantize_luts(
+                        stacked_ops.build_stacked_luts(queries, self.model),
+                        torch.zeros((nq,), dtype=torch.float32, device=dev),
+                        self.ah_cfg.lookup_type)
                 else:
-                    sim = lut16_ops.score_one_hot(
-                        oh, lut_flat[qb],
-                        None if inv_mult is None else inv_mult[qb])
-                if combo is not None:
-                    sim = sim + combo[qb][:, leaf_c]
-                if groupmax:
-                    gv, gslot = fused_scan.group_max_first(
-                        torch.where(valid, sim, float("-inf")), start)
-                    if state[bi] is None:
-                        state[bi] = ([], [])
-                    state[bi][0].append(gv)
-                    state[bi][1].append(gslot)
-                    continue
-                cvals, cpos = topk_ops.chunk_top_k(
-                    sim, min(k_fetch, chunk), valid=valid)
-                cslot = torch.where(cpos >= 0, start + cpos, -1)
-                if state[bi] is not None:
-                    cvals, cslot = topk_ops.merge_top_k(
-                        *state[bi], cvals, cslot, k_fetch)
-                state[bi] = (cvals, cslot)
-        if groupmax:
-            gvs = torch.cat([torch.cat(s[0], dim=1) for s in state])
-            gss = torch.cat([torch.cat(s[1], dim=1) for s in state])
-            vals, pos = topk_ops.top_k(gvs, min(k_fetch, gvs.shape[1]))
-            slots = torch.gather(gss, -1, pos.long())
-            slots = torch.where(torch.isneginf(vals), -1, slots)
-        else:
-            vals = torch.cat([s[0] for s in state])
-            slots = torch.cat([s[1] for s in state])
-        dpids = torch.where(slots >= 0,
-                            dpid_all[torch.clamp_min(slots, 0).long()], -1)
-        if luts is not None:
-            vals = vals + luts.base[:, None]
-        vals, dpids = self._dedup(vals, dpids, k_pre)
-        self._stage("scan")
+                    luts = ah_ops.build_luts(queries, self.model, self.measure,
+                                             self.ah_cfg.lookup_type)
+                lut_flat = lut16_ops.lut_matrix(luts)
+                inv_mult = (luts.inv_multiplier if luts.int8 is not None
+                            else None)
+            combo = None
+            if self._partitioned:
+                num_leaves = self.partitioner.num_leaves
+                leaves = (num_leaves if full_scan
+                          else max(1, min(leaves, num_leaves)))
+                bias = self.residual and not recon
+                leaf_ids, keep, center_sims = self.partitioner.select_leaves(
+                    queries, leaves, pre_tokenized, pair_sims=bias)
+                # One (query, leaf) table: -inf for unselected leaves, else the
+                # q.c_leaf bias under residual quantization (0 otherwise, and
+                # in reconstruct mode, whose rows hold the center).  Unused
+                # entries scatter to a spare column past the last leaf.
+                vals = (center_sims if bias
+                        else torch.zeros(leaf_ids.shape, device=dev))
+                cols = torch.where(keep, leaf_ids, num_leaves).long()
+                combo = torch.full((nq, num_leaves + 1), float("-inf"),
+                                   device=dev)
+                combo.scatter_(1, cols, torch.where(keep, vals, float("-inf")))
+                combo = combo[:, :num_leaves]
+            self._stage("tokenize")
+
+        with profiling.span("scan"):
+            leaf_all = self.index.slot_leaf.long()
+            dpid_all = self.index.slot_dpid
+            cpb = self.ah_cfg.clusters_per_block
+            chunk = self._chunk
+            n_slots = dpid_all.shape[0]
+            k_fetch = min(self._k_fetch(k_pre), n_slots)
+            groupmax = (recon and chunk % _GROUP == 0
+                        and n_slots // _GROUP >= 4 * k_fetch)
+            blocks = range(0, nq, _DENSE_QUERY_BLOCK)
+            state = [None] * len(blocks)
+            for start in range(0, n_slots, chunk):
+                cs = slice(start, start + chunk)
+                leaf_c, dpid_c = leaf_all[cs], dpid_all[cs]
+                if recon:
+                    rows_c = self._recon_rows[cs].float()
+                else:
+                    oh = lut16_ops.one_hot_codes(self.index.codes[cs], cpb)
+                valid = (dpid_c >= 0)[None, :]
+                if restrict is not None:
+                    allow = restrict[torch.clamp(
+                        dpid_c, 0, restrict.shape[0] - 1).long()]
+                    valid = valid & allow[None, :]
+                for bi, b0 in enumerate(blocks):
+                    qb = slice(b0, b0 + _DENSE_QUERY_BLOCK)
+                    if recon:
+                        sim = q_f[qb] @ rows_c.T
+                        if l2:
+                            sim = -(q_sq[qb][:, None] - 2.0 * sim
+                                    + self._recon_sq[cs][None, :])
+                    else:
+                        sim = lut16_ops.score_one_hot(
+                            oh, lut_flat[qb],
+                            None if inv_mult is None else inv_mult[qb])
+                    if combo is not None:
+                        sim = sim + combo[qb][:, leaf_c]
+                    if groupmax:
+                        gv, gslot = fused_scan.group_max_first(
+                            torch.where(valid, sim, float("-inf")), start)
+                        if state[bi] is None:
+                            state[bi] = ([], [])
+                        state[bi][0].append(gv)
+                        state[bi][1].append(gslot)
+                        continue
+                    cvals, cpos = topk_ops.chunk_top_k(
+                        sim, min(k_fetch, chunk), valid=valid)
+                    cslot = torch.where(cpos >= 0, start + cpos, -1)
+                    if state[bi] is not None:
+                        cvals, cslot = topk_ops.merge_top_k(
+                            *state[bi], cvals, cslot, k_fetch)
+                    state[bi] = (cvals, cslot)
+            if groupmax:
+                gvs = torch.cat([torch.cat(s[0], dim=1) for s in state])
+                gss = torch.cat([torch.cat(s[1], dim=1) for s in state])
+                vals, pos = topk_ops.top_k(gvs, min(k_fetch, gvs.shape[1]))
+                slots = torch.gather(gss, -1, pos.long())
+                slots = torch.where(torch.isneginf(vals), -1, slots)
+            else:
+                vals = torch.cat([s[0] for s in state])
+                slots = torch.cat([s[1] for s in state])
+            dpids = torch.where(slots >= 0,
+                                dpid_all[torch.clamp_min(slots, 0).long()], -1)
+            if luts is not None:
+                vals = vals + luts.base[:, None]
+            vals, dpids = self._dedup(vals, dpids, k_pre)
+            self._stage("scan")
         return vals, dpids
 
     def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
                        pre_tokenized=None):
         """Leaf-gathered candidate selection through K2, K3 or K4."""
-        partitioner = self.partitioner
-        num_leaves = partitioner.num_leaves
-        leaves = max(1, min(leaves, num_leaves))
-        nq = queries.shape[0]
-        recon_path = self._p_rows is not None
-        # The decoded rows already hold the leaf center.
-        residual_bias = self.residual and not recon_path
-        leaf_ids, valid_sel, center_sims = partitioner.select_leaves(
-            queries, leaves, pre_tokenized, pair_sims=residual_bias)
-        self._stage("tokenize")
+        with profiling.span("tokenize"):
+            partitioner = self.partitioner
+            num_leaves = partitioner.num_leaves
+            leaves = max(1, min(leaves, num_leaves))
+            nq = queries.shape[0]
+            recon_path = self._p_rows is not None
+            # The decoded rows already hold the leaf center.
+            residual_bias = self.residual and not recon_path
+            leaf_ids, valid_sel, center_sims = partitioner.select_leaves(
+                queries, leaves, pre_tokenized, pair_sims=residual_bias)
+            self._stage("tokenize")
 
-        pair_bias = center_sims if residual_bias else None
-        d_pad = (self._p_rows.shape[-1] if recon_path
-                 else self._p_mean.shape[0])
-        q_c, q_bf = self._recon_queries(queries, d_pad)
-        merge_hot = pruned_scan.HOT_LEAVES
-        if nq * leaves <= pruned_scan.QG:
-            # Small-batch fast path: one group per pair, no sorts, and an
-            # all-hot merge (the full-survivor gather is tiny).
-            plan = pruned_scan.invert_small(
-                leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                self._p_max_ntiles)
-            merge_hot = leaves
-        else:
-            g_pad, w_pad = pruned_scan.plan_capacities(
-                nq, leaves, num_leaves, self._p_num_tiles,
-                self._p_max_ntiles)
-            plan = pruned_scan.invert(
-                leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                self._p_max_ntiles, g_pad, w_pad)
-        p_bias = self._p_bias
-        if restrict is not None:
-            # Allowlists fold into the per-slot bias plane, so disallowed
-            # slots never take survivor capacity.
-            dp = self._p_dpid
-            allow = restrict[torch.clamp(dp, 0,
-                                         restrict.shape[0] - 1).long()]
-            allow = allow & (dp >= 0)
-            p_bias = p_bias + torch.where(allow.reshape(p_bias.shape), 0.0,
-                                          _PAD_PENALTY)
-        # K3 takes the batch's queries whole (its LUT pre-pass builds one
-        # LUT per query); K2 and K4 take the gathered query groups.
-        qg_rows = (None if self._int8_lut and not recon_path
-                   else q_bf[plan.qg_query.long()])   # (G_pad, QG, d_pad)
-        l2 = self.measure == cfg.SQUARED_L2
-        k_fetch = self._k_fetch(k_pre)
-        kpg = self._kpg_override or _survivors_per_group(
-            k_fetch, self._num_slots, num_leaves)
-        self._stage("plan")
-        if recon_path:
-            packed = pruned_scan.score_work(
-                plan, qg_rows, self._p_rows, p_bias, measure_l2=l2, kpg=kpg)
-        elif self._int8_lut:
-            packed = pruned_lut.score_work_lut(
-                plan, q_bf, self._p_codes, self._p_cb, self._p_csq,
-                p_bias, measure_l2=l2, kpg=kpg)
-        else:
-            packed = pruned_lut.score_work_codes(
-                plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
-                p_bias, measure_l2=l2, kpg=kpg)
-        self._stage("score")
-        if pruned_scan.fused_merge_enabled(k_fetch):
-            cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
-                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                self._p_ntiles, self._p_max_ntiles, k_fetch,
-                pair_bias=pair_bias)
-        else:
-            cand_vals, cand_slots = pruned_scan.merge_candidates(
-                plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                self._p_ntiles, self._p_max_ntiles, k_fetch,
-                pair_bias=pair_bias, hot=merge_hot)
-        dpids = torch.where(
-            cand_slots >= 0,
-            self._p_dpid[torch.clamp_min(cand_slots, 0).long()], -1)
-        if l2:
-            # Restore the rank-invariant -||q||^2 of the centered query.
-            cand_vals = cand_vals - (q_c * q_c).sum(-1)[:, None]
-        cand_vals, dpids = self._dedup(cand_vals, dpids, k_pre)
-        self._stage("merge")
+        with profiling.span("plan"):
+            pair_bias = center_sims if residual_bias else None
+            d_pad = (self._p_rows.shape[-1] if recon_path
+                     else self._p_mean.shape[0])
+            q_c, q_bf = self._recon_queries(queries, d_pad)
+            merge_hot = pruned_scan.HOT_LEAVES
+            if nq * leaves <= pruned_scan.QG:
+                # Small-batch fast path: one group per pair, no sorts, and an
+                # all-hot merge (the full-survivor gather is tiny).
+                plan = pruned_scan.invert_small(
+                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
+                    self._p_max_ntiles)
+                merge_hot = leaves
+            else:
+                g_pad, w_pad = pruned_scan.plan_capacities(
+                    nq, leaves, num_leaves, self._p_num_tiles,
+                    self._p_max_ntiles)
+                plan = pruned_scan.invert(
+                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
+                    self._p_max_ntiles, g_pad, w_pad)
+            p_bias = self._p_bias
+            if restrict is not None:
+                # Allowlists fold into the per-slot bias plane, so disallowed
+                # slots never take survivor capacity.
+                dp = self._p_dpid
+                allow = restrict[torch.clamp(dp, 0,
+                                             restrict.shape[0] - 1).long()]
+                allow = allow & (dp >= 0)
+                p_bias = p_bias + torch.where(allow.reshape(p_bias.shape), 0.0,
+                                              _PAD_PENALTY)
+            # K3 takes the batch's queries whole (its LUT pre-pass builds one
+            # LUT per query); K2 and K4 take the gathered query groups.
+            qg_rows = (None if self._int8_lut and not recon_path
+                       else q_bf[plan.qg_query.long()])   # (G_pad, QG, d_pad)
+            l2 = self.measure == cfg.SQUARED_L2
+            k_fetch = self._k_fetch(k_pre)
+            kpg = self._kpg_override or _survivors_per_group(
+                k_fetch, self._num_slots, num_leaves)
+            self._stage("plan")
+        with profiling.span("score"):
+            if recon_path:
+                packed = pruned_scan.score_work(
+                    plan, qg_rows, self._p_rows, p_bias, measure_l2=l2,
+                    kpg=kpg)
+            elif self._int8_lut:
+                packed = pruned_lut.score_work_lut(
+                    plan, q_bf, self._p_codes, self._p_cb, self._p_csq,
+                    p_bias, measure_l2=l2, kpg=kpg)
+            else:
+                packed = pruned_lut.score_work_codes(
+                    plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
+                    p_bias, measure_l2=l2, kpg=kpg)
+            self._stage("score")
+        with profiling.span("merge"):
+            if pruned_scan.fused_merge_enabled(k_fetch):
+                cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
+                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                    self._p_ntiles, self._p_max_ntiles, k_fetch,
+                    pair_bias=pair_bias)
+            else:
+                cand_vals, cand_slots = pruned_scan.merge_candidates(
+                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
+                    self._p_ntiles, self._p_max_ntiles, k_fetch,
+                    pair_bias=pair_bias, hot=merge_hot)
+            dpids = torch.where(
+                cand_slots >= 0,
+                self._p_dpid[torch.clamp_min(cand_slots, 0).long()], -1)
+            if l2:
+                # Restore the rank-invariant -||q||^2 of the centered query.
+                cand_vals = cand_vals - (q_c * q_c).sum(-1)[:, None]
+            cand_vals, dpids = self._dedup(cand_vals, dpids, k_pre)
+            self._stage("merge")
         return cand_vals, dpids
 
     # ----------------------------------------------------------- mutation

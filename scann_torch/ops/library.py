@@ -28,6 +28,14 @@ program holds calls to ``torch.ops.scann_torch.*``, and the process that
 loads it imports this module to register them.  The entry points of
 ops/pruned_sq.py, ops/pruned_scan.py, ops/pruned_lut.py and
 ops/fused_scan.py call these ops on every device.
+
+The first import registers the ops; it is the ``register`` span of
+utils/profiling.py, opened below and closed at the end of this module.  A
+custom op's first call imports ``torch._dynamo`` (its implementations run
+under ``torch._disable_dynamo``), and with it ``torch.distributed`` and
+sympy: seconds, 8-10 on the CUDA build.  This module imports it itself,
+so that the cost falls in the registration and not in the first search
+stage that calls an op.
 """
 
 from __future__ import annotations
@@ -42,6 +50,11 @@ from scann_torch.ops import pruned_lut as pl
 from scann_torch.ops import pruned_scan as ps
 from scann_torch.ops import pruned_sq as psq
 from scann_torch.ops.pruned_scan import _check
+from scann_torch.utils import profiling
+
+_registering = profiling.phase("register")
+_registering.__enter__()
+import torch._dynamo  # noqa: E402,F401  (see the module's docstring)
 
 Tensor = torch.Tensor
 
@@ -403,3 +416,6 @@ def _(packed, qg_nt, kgp, tile, k):
 OPS = (pruned_sq_score, pruned_rows_score, pruned_lut_build,
        pruned_lut_score, pruned_codes_score, fused_scan_groupmax,
        merge_groups)
+
+_registering.__exit__(None, None, None)
+del _registering
