@@ -21,13 +21,18 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      raw-scale data, where its float64 excess is held to 1.5 times the
      plain version's (tile_cases.RAW_EXCESS_RATIO);
   5. main path: search_batched over all queries at leaves 50, 80, 100, 150
-     and the full scan with recall@10, QPS and per-stage times, and a
+     and the full scan with recall@10, QPS and per-stage times (every
+     pruned batch must launch K1 and the plan kernels), and a
      16-query cross-check of the CUDA path against the CPU plain path on
      the same (serialized) index;
   6. tree-AH (bench.py's tree + AH + reorder config on the same corpus:
      score_ah(2, anisotropic threshold 0.2), reorder(100)): three builds
      (int8 lookup with float32 reorder, the same with residual-int8
-     reorder, float32 lookup); K3 and K4 against their plain versions at
+     reorder, float32 lookup); the plan kernels (csrc/pruned_plan.cu,
+     through pruned_scan.work_plan) on the int8-lookup index's own
+     operands at leaves 100 (the glove cell's shape) against plain invert
+     on the same operands, every field bit-equal, both timed with the
+     plan's byte bound; K3 and K4 against their plain versions at
      the main path's inputs (dot and squared L2, 8 and 16 survivors per
      group, K4 also with 256 centers per block on a small index) with
      timings and bounds; K4 also at d_pad 256, 384 and 768 (16 centers x
@@ -70,8 +75,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
  10. the tree-SQ + reorder main path (benchmarks/extra_configs.py config
      3b): make_sift_like(1,000,000, 10,000, 128), squared L2, exact
      float32 ground truth, tree(2000 leaves, 100 to search, 100,000
-     training samples) + score_brute_force("int8"), alone and with an
-     exact float32 reorder(40), swept at leaves 8 / 16 / 40 / 100 with
+     training samples) + score_brute_force("int8"), alone (there also
+     the plan kernels at leaves 8, the SIFT cell's shape, held and timed
+     as in phase 6) and with an exact float32 reorder(40), swept at
+     leaves 8 / 16 / 40 / 100 with
      recall@10, QPS and stage times; every point must launch K1, and
      recall@10 at leaves=8 with the reorder must reach
      SIFT_RECALL_FLOOR_AT_8; the reorder index is cross-checked against
@@ -177,12 +184,13 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      equal on every query); e. upsert of the queries as 10,000 new rows
      (each its own first result) and delete of 10,000 ids (none
      returned); f. a restrict allowlist of even ids (only even ids).  It
-     launches none of the six kernels (the JAX sharded path reaches no
+     launches none of the seven kernels (the JAX sharded path reaches no
      Pallas call);
-then the occupancy line of the six kernels (registers a thread, dynamic
+then the occupancy line of the seven kernels (registers a thread, dynamic
 shared memory a block, resident blocks an SM, at the main path's shapes;
-K3 and K5 also at the widths of phase 9), the kernels JSON line (with
-each kernel's launches in phases 12-16), the card line, and
+K3 and K5 also at the widths of phase 9; the plan's four kernels with
+their static shared memory), the kernels JSON line (with each kernel's
+launches in phases 12-16), the card line, and
 the final ok line.
 Exits non-zero without CUDA, and in a directory without the scann_torch
 package.
@@ -429,19 +437,72 @@ class StageTimer:
         return out
 
 
-def pruned_plan(torch, searcher, queries, leaves):
-    """The work plan the main path builds for this batch."""
+def plan_operands(searcher, queries, leaves):
+    """The operands of the main path's plan for this batch, as its
+    _pruned_select makes them: (leaf ids and their valid mask from the
+    partitioner's select_leaves, tile starts, tile counts, max tiles,
+    g_pad)."""
     from scann_torch.ops import pruned_scan
     part = searcher.partitioner
-    nq = queries.shape[0]
-    leaf_ids, _ = part.tokenize_queries(queries, leaves)
-    valid = torch.ones((nq, leaves), dtype=torch.bool, device=queries.device)
-    g_pad, w_pad = pruned_scan.plan_capacities(
-        nq, leaves, part.num_leaves, searcher._p_num_tiles,
+    leaf_ids, valid, _ = part.select_leaves(queries, leaves, None)
+    g_pad, _ = pruned_scan.plan_capacities(
+        queries.shape[0], leaves, part.num_leaves, searcher._p_num_tiles,
         searcher._p_max_ntiles)
-    return pruned_scan.invert(leaf_ids, valid, searcher._p_tile_start,
-                              searcher._p_ntiles, searcher._p_max_ntiles,
-                              g_pad, w_pad)
+    return (leaf_ids, valid, searcher._p_tile_start, searcher._p_ntiles,
+            searcher._p_max_ntiles, g_pad)
+
+
+def pruned_plan(torch, searcher, queries, leaves):
+    """The work plan the main path builds for this batch (the plan kernels
+    on the card, plain invert on the CPU)."""
+    from scann_torch.ops import pruned_scan
+    return pruned_scan.work_plan(*plan_operands(searcher, queries, leaves))
+
+
+def plan_bound_bytes(p, nl, g_pad, w_pad):
+    """The plan's bytes read and written once: sel (4 B) and valid (1 B) a
+    pair, the two leaf tables, qg_query and qg_leaf a group, the three
+    work tables an item, pair_gid and pair_row a pair."""
+    return 5 * p + 8 * nl + g_pad * (4 * 128 + 4) + 12 * w_pad + 8 * p
+
+
+def plan_check(torch, searcher, queries, leaves, what):
+    """The plan of the main path's operands (pruned_scan.work_plan: the
+    plan kernels on CUDA tensors) against plain invert on the same
+    operands, every WorkPlan field bit for bit; on the card also both
+    timed and the byte bound.  Returns the record."""
+    from scann_torch.ops import pruned_scan
+    ops = plan_operands(searcher, queries, leaves)
+    g_pad, mnt = ops[-1], ops[-2]
+    w_pad = g_pad * mnt
+    before = pruned_scan.launches_plan
+    got = pruned_scan.work_plan(*ops)
+    launched = pruned_scan.launches_plan - before
+    want = pruned_scan.invert(*ops, w_pad)
+    for name, g, w in zip(pruned_scan.WorkPlan._fields, got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"plan of {what}: {name} differs from "
+                                 f"invert")
+    b, l = ops[0].shape
+    nl = ops[2].shape[0]
+    rec = {"queries": b, "leaves": l, "num_leaves": nl, "max_ntiles": mnt,
+           "g_pad": g_pad, "invalid": int((~ops[1]).sum()),
+           "bit_equal": True, "max_abs_err": 0.0,
+           "launches": launched}
+    if queries.is_cuda:
+        if launched != 1:
+            raise AssertionError(f"plan of {what}: {launched} plan kernel "
+                                 f"calls, want 1")
+        rec["ms"] = time_ms(torch, lambda: pruned_scan.work_plan(*ops))
+        rec["plain_ms"] = time_ms(torch, lambda: pruned_scan.invert(
+            *ops, w_pad), reps=PLAIN_TIMING_REPS)
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            plan_bound_bytes(b * l, nl, g_pad, w_pad), 0.0)
+        log(f"plan of {what} ({b} x {l} of {nl} leaves, max_ntiles {mnt}, "
+            f"{rec['invalid']} invalid entries): bit-equal to invert; "
+            f"{rec['ms']:.3f} ms (plain invert {rec['plain_ms']:.3f} ms), "
+            f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+    return rec
 
 
 def k1_inputs(torch, searcher, queries, leaves, measure_l2):
@@ -830,6 +891,11 @@ def sift_phase(torch, scann_torch):
         rec = {"build_s": time.perf_counter() - t0, "points": []}
         log(f"SIFT {name}: build {rec['build_s']:.1f} s, "
             f"{s.partitioner.num_leaves} leaves")
+        if not reorder:
+            # The plan kernels at the SIFT cell's shape (leaves 8).
+            out["plan"] = plan_check(
+                torch, s, torch.as_tensor(queries, device="cuda"),
+                SIFT_SWEEP[0], f"SIFT tree-SQ at leaves={SIFT_SWEEP[0]}")
         s.stage_hook = timer
         pruned_sq.launches = 0
         for leaves in SIFT_SWEEP:
@@ -1242,6 +1308,9 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
     main, main_i8, main_f = (searchers[n] for n in
                              ("int8_f32", "int8_int8", "float_f32"))
     dpb = main.model.dims_per_block
+    # The plan kernels at the glove cell's shape (this index, leaves 100).
+    plan = plan_check(torch, main, q_dev, LEAVES_TO_SEARCH,
+                      f"tree-AH at leaves={LEAVES_TO_SEARCH}")
 
     # Kernel phase: K3 and K4 at the main path's inputs.
     k3, k4 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
@@ -1424,7 +1493,8 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
         refusal = "no error"
     except ValueError as e:
         refusal = f"ValueError: {e}"
-    return k3, k4, {"build_s": build_s, "points": points, "dense": dense,
+    return k3, k4, {"build_s": build_s, "plan": plan, "points": points,
+                    "dense": dense,
                     "merge": merges, "b_pad": main._p_codes.shape[-1] * 2,
                     "k4_d_pad": main_f._p_mean.shape[0],
                     "reference_assets": (ref_dir, ref_ids, ref_save_s,
@@ -1792,6 +1862,7 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     out = {}
     launches = {"pruned_sq": 0, "pruned_rows": 0, "pruned_lut": 0,
                 "pruned_codes": 0, "fused_scan": 0}
+    pruned_scan.launches_plan = 0     # read once, at the phase's end
     timer = StageTimer(torch)
 
     def index_mb(s):
@@ -2031,6 +2102,7 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
         cross_check(scann_torch, s, queries, f"tree-SQ {name}")
         s = None
         torch.cuda.empty_cache()
+    launches["pruned_plan"] = pruned_scan.launches_plan
     out["launches"] = launches
     log(f"phase 12 launches: {launches}")
     return launches, out
@@ -2165,6 +2237,7 @@ def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
     out = {}
     launches = {"pruned_sq": 0, "pruned_rows": 0, "pruned_lut": 0,
                 "pruned_codes": 0, "fused_scan": 0}
+    pruned_scan.launches_plan = 0     # read once, at the phase's end
     errs = {}
     timer = StageTimer(torch)
 
@@ -2507,6 +2580,7 @@ def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
         raise AssertionError("SparseExactSearcher disagrees with the exact "
                              "product")
     out["sparse"] = sp
+    launches["pruned_plan"] = pruned_scan.launches_plan
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 13 launches: {launches}; {out['seconds']:.1f} s")
@@ -2633,6 +2707,7 @@ def mutation_phase(torch, scann_torch, db, queries, ah_at100):
     from scann_torch.ops import pruned_scan
     t_phase = time.perf_counter()
     launches = {"pruned_rows": 0, "pruned_lut": 0, "fused_scan": 0}
+    pruned_scan.launches_plan = 0     # read once, at the phase's end
     errs = {}
     out = {}
     q_dev = torch.as_tensor(queries, device="cuda")
@@ -2923,6 +2998,7 @@ def mutation_phase(torch, scann_torch, db, queries, ah_at100):
         s = None
     out["f"] = bf
     log(f"14f brute force with docids against numpy exact: {bf}")
+    launches["pruned_plan"] = pruned_scan.launches_plan
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 14 launches: {launches}; {out['seconds']:.1f} s")
@@ -2940,7 +3016,8 @@ _KERNEL_COUNTERS = (
     ("pruned_lut", "pruned_lut", "launches_lut"),
     ("pruned_codes", "pruned_lut", "launches_codes"),
     ("fused_scan", "fused_scan", "launches"),
-    ("merge_groups", "pruned_scan", "launches_merge"))
+    ("merge_groups", "pruned_scan", "launches_merge"),
+    ("pruned_plan", "pruned_scan", "launches_plan"))
 
 # Run in a fresh process: reload each exported program with only
 # scann_torch.export, search the queries, and report the kernels each
@@ -2981,7 +3058,7 @@ json.dump(out, open(sys.argv[2], "w"))
 
 
 def kernel_counts():
-    """The six kernels' launch counters, by kernel name."""
+    """The seven kernels' launch counters, by kernel name."""
     import importlib
     return {name: getattr(importlib.import_module(f"scann_torch.ops.{mod}"),
                           attr) for name, mod, attr in _KERNEL_COUNTERS}
@@ -3417,7 +3494,7 @@ def sharded_phase(torch, scann_torch, db, queries, truth, sq_dir, ah_dir,
     """Phase 16: ShardedTreeAHSearcher on the card.  ``sq_dir`` / ``ah_dir``:
     phases 5's and 6's serialized tree-SQ and residual-int8 tree-AH
     indexes, ``sq_at100`` / ``ah_i8_at100`` their recall@10 at leaves 100.
-    Returns (the six kernels' launches in this phase, summary dict)."""
+    Returns (the seven kernels' launches in this phase, summary dict)."""
     import torch.distributed as dist
     from scann_torch.parallel import build as build_mod
     from scann_torch.parallel import launch
@@ -3662,7 +3739,7 @@ def main():
     # 5. main path through the public entry points
     timer = StageTimer(torch)
     searcher.stage_hook = timer
-    pruned_sq.launches = 0
+    pruned_sq.launches = pruned_scan.launches_plan = 0
     points = []
     for leaves in SWEEP + (nl,):
         idx, dist, wall, stages, launched = timed_search(
@@ -3679,8 +3756,10 @@ def main():
             f"{stages}")
     searcher.stage_hook = None
     k1["launches"] = pruned_sq.launches
-    if k1["launches"] == 0:
-        raise AssertionError("the main path never launched K1")
+    plan_launches = pruned_scan.launches_plan
+    if k1["launches"] == 0 or plan_launches == 0:
+        raise AssertionError(f"the main path launched K1 {k1['launches']} "
+                             f"and the plan kernels {plan_launches} times")
     at100 = next(p for p in points if p["leaves"] == 100)["recall"]
     if at100 < RECALL_FLOOR_AT_100:
         raise AssertionError(f"recall@10 {at100:.4f} at leaves=100 is under "
@@ -3759,7 +3838,7 @@ def main():
                "mutation": mutation, "entry_points": entry,
                "sharded": sharded}
     log("summary " + json.dumps(summary))
-    # What the card makes of the six kernels at the main path's shapes
+    # What the card makes of the seven kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
     # tree-SQ's and tree-AH's row widths and at the widest.
     log("occupancy " + json.dumps({
@@ -3772,12 +3851,20 @@ def main():
         "fused_scan": {"d_pad": [recon_summary["d_pad"], GIST_DIM, 1024],
                        "the same at every d": True, **k5["occupancy"]},
         "merge_groups": {f"w {w}": o
-                         for w, o in k6["occupancy"].items()}}))
-    # library_ms is None for all six: no single PyTorch call computes a
+                         for w, o in k6["occupancy"].items()},
+        "pruned_plan": {f: _cuda.occupancy("pruned_plan", i) for i, f in
+                        enumerate(("radix_histogram", "radix_scatter",
+                                   "plan_bounds", "plan_emit"))}}))
+    # The plan kernels' line: their timing at the glove cell's shape
+    # (phase 6; the SIFT cell's is in the summary), their launches in the
+    # main path's sweep (phase 5).
+    plan = {**ah_summary["plan"], "launches": plan_launches}
+    # library_ms is None for all seven: no single PyTorch call computes a
     # gathered tile x query-group score with a packed per-32-slot top-k
     # (K1-K4), a product reduced to per-group maxima without the score
     # matrix (K5: the matmul + amax / argmax composition is timed above),
-    # or k masked-maximum passes over rewritten keys (K6).
+    # k masked-maximum passes over rewritten keys (K6), or inverts
+    # (query, leaf) pairs into leaf-major groups (the plan).
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"scann_torch/csrc/{name}.cu", "replaces": replaces,
@@ -3800,7 +3887,10 @@ def main():
             ("fused_scan", "scann_tpu/ops/fused_scan.py:58", k5,
              "wgmma m64n256k16 bf16, 4-stage cp.async ring"),
             ("merge_groups", "scann_tpu/ops/pruned_scan.py:705", k6,
-             "keys in registers, redux.sync passes"))]}))
+             "keys in registers, redux.sync passes"),
+            ("pruned_plan", None, plan,
+             "stable LSD radix sort by leaf (match_any ranks), run bounds, "
+             "a block a group"))]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C signature of each library's entry points (every pointer and the
 # stream as c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
@@ -50,6 +50,11 @@ SIGNATURES = {
     "merge_groups": {
         "merge_groups_topk": ([_P] * 4 + [_I] * 5 + [_P], _I),
         "merge_groups_occupancy": ([_I, _P], _I),
+    },
+    "pruned_plan": {
+        "pruned_plan_scratch_bytes": ([_I, _I, _P], _I),
+        "pruned_plan": ([_P] * 12 + [_L] + [_I] * 5 + [_P], _I),
+        "pruned_plan_occupancy": ([_I, _P], _I),
     },
 }
 

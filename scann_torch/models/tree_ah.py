@@ -4,7 +4,7 @@ Port of the product-quantization modes of scann_tpu/models/tree_ah.py.
 Rows are stored as AH codes of the residual x - c_leaf (dot product with a
 tree) or of x, 16 or 256 centers per block.  A batch scores only its
 selected leaves through the pruned path: tokenize -> plan
-(pruned_scan.invert) -> score -> merge (pruned_scan.merge_candidates, or
+(pruned_scan.work_plan) -> score -> merge (pruned_scan.merge_candidates, or
 merge_candidates_fused through K6 when fused_merge_enabled says so).  The
 scorer follows ``lookup_type``:
 
@@ -825,12 +825,12 @@ class TreeAHSearcher(base.Searcher):
                     self._p_max_ntiles)
                 merge_hot = leaves
             else:
-                g_pad, w_pad = pruned_scan.plan_capacities(
+                g_pad, _ = pruned_scan.plan_capacities(
                     nq, leaves, num_leaves, self._p_num_tiles,
                     self._p_max_ntiles)
-                plan = pruned_scan.invert(
+                plan = pruned_scan.work_plan(
                     leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles, g_pad, w_pad)
+                    self._p_max_ntiles, g_pad)
             p_bias = self._p_bias
             if restrict is not None:
                 # Allowlists fold into the per-slot bias plane, so disallowed

@@ -7,7 +7,7 @@ Two layouts, as in the JAX package:
   with more than one leaf): rows are stored as x = c_leaf + scale_row *
   int8[d], tile-major per leaf (256-slot tiles), and a batch scores only
   its selected leaves through the pruned path: tokenize -> plan
-  (pruned_scan.invert) -> score (K1, ops/pruned_sq.py) -> merge
+  (pruned_scan.work_plan) -> score (K1, ops/pruned_sq.py) -> merge
   (pruned_scan.merge_candidates, which adds the exact f32 q.c_leaf per
   pair).  Plans over MAX_PLAN_WORK items and the full scan run the dense
   masked scan over every slot instead.
@@ -376,12 +376,12 @@ class TreeXSearcher(base.Searcher):
                     self._p_max_ntiles)
                 merge_hot = leaves
             else:
-                g_pad, w_pad = pruned_scan.plan_capacities(
+                g_pad, _ = pruned_scan.plan_capacities(
                     nq, leaves, num_leaves, self._p_num_tiles,
                     self._p_max_ntiles)
-                plan = pruned_scan.invert(
+                plan = pruned_scan.work_plan(
                     leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles, g_pad, w_pad)
+                    self._p_max_ntiles, g_pad)
             bias2 = self._bias2
             if restrict is not None:
                 # Allowlists fold into the per-slot bias plane.

@@ -1,4 +1,4 @@
-"""The port's six kernels as ``torch.library`` custom ops.
+"""The port's hand-written kernels as ``torch.library`` custom ops.
 
 One op under the namespace ``scann_torch`` for each kernel entry point:
 
@@ -12,6 +12,7 @@ op                         K     CUDA implementation (csrc/)
 ``pruned_codes_score``     K4    pruned_codes.cu ``pruned_codes_score``
 ``fused_scan_groupmax``    K5    fused_scan.cu ``fused_scan_groupmax``
 ``merge_groups``           K6    merge_groups.cu ``merge_groups_topk``
+``pruned_plan``            plan  pruned_plan.cu ``pruned_plan``
 =========================  ====  ==========================================
 
 Each takes tensors, ints, floats and bools only (a ``WorkPlan`` travels as
@@ -20,8 +21,9 @@ kernel through ctypes on the current stream (or raises) and adds one to
 its module's launch counter (``pruned_sq.launches``,
 ``pruned_scan.launches``, ``pruned_lut.launches_lut``,
 ``pruned_lut.launches_codes``, ``fused_scan.launches``,
-``pruned_scan.launches_merge``; the two halves of K3 count once, at the
-scorer).  The CPU implementation is the plain torch version.  The fake
+``pruned_scan.launches_merge``, ``pruned_scan.launches_plan``; the two
+halves of K3 count once, at the scorer, and the plan's kernels once a
+plan).  The CPU implementation is the plain torch version.  The fake
 implementation gives the output shapes, so ``torch.export`` traces a
 search through the ops without reading their operands: an exported
 program holds calls to ``torch.ops.scann_torch.*``, and the process that
@@ -413,9 +415,63 @@ def _(packed, qg_nt, kgp, tile, k):
     return packed.new_empty(shape), packed.new_empty(shape)
 
 
+# ---------------------------------------------------------------- plan
+@torch.library.custom_op("scann_torch::pruned_plan", mutates_args=(),
+                         device_types="cpu")
+def pruned_plan(sel: Tensor, valid_sel: Tensor, tile_start: Tensor,
+                ntiles: Tensor, max_ntiles: int, g_pad: int
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
+                           Tensor]:
+    """The leaf-major work plan of a pruned batch, the fields of
+    ``pruned_scan.WorkPlan`` in order."""
+    return tuple(ps.invert(sel, valid_sel, tile_start, ntiles, max_ntiles,
+                           g_pad, g_pad * max_ntiles))
+
+
+def _plan_out(sel, max_ntiles: int, g_pad: int):
+    w_pad = g_pad * max_ntiles
+    shapes = ((g_pad, ps.QG), (g_pad,), (w_pad,), (w_pad,), (w_pad,),
+              tuple(sel.shape), tuple(sel.shape))
+    return tuple(sel.new_empty(s, dtype=torch.int32) for s in shapes)
+
+
+@pruned_plan.register_kernel("cuda")
+def _pruned_plan_cuda(sel, valid_sel, tile_start, ntiles, max_ntiles, g_pad):
+    from scann_torch import _cuda
+    dev = sel.device
+    b, l = sel.shape
+    p, nl = b * l, tile_start.shape[0]
+    if p == 0 or nl == 0 or max_ntiles < 1 or g_pad < 1:
+        raise ValueError(f"unsupported shapes: {b} x {l} pairs, {nl} "
+                         f"leaves, max_ntiles {max_ntiles}, g_pad {g_pad}")
+    _check("sel", sel, torch.int32, (b, l), dev)
+    _check("valid_sel", valid_sel, torch.bool, (b, l), dev)
+    _check("tile_start", tile_start, torch.int32, (nl,), dev)
+    _check("ntiles", ntiles, torch.int32, (nl,), dev)
+    nbytes = ctypes.c_int64()
+    lib = _cuda.library("pruned_plan")
+    err = lib.pruned_plan_scratch_bytes(p, nl, ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"pruned_plan scratch: "
+                           f"{_cuda.error_string(lib, err)} ({err})")
+    scratch = torch.empty((nbytes.value,), dtype=torch.uint8, device=dev)
+    out = _plan_out(sel, max_ntiles, g_pad)
+    _launch("pruned_plan", "pruned_plan", dev, sel.data_ptr(),
+            valid_sel.data_ptr(), tile_start.data_ptr(), ntiles.data_ptr(),
+            scratch.data_ptr(), *(t.data_ptr() for t in out), nbytes.value,
+            p, l, nl, g_pad, max_ntiles)
+    ps.launches_plan += 1
+    return out
+
+
+@pruned_plan.register_fake
+def _(sel, valid_sel, tile_start, ntiles, max_ntiles, g_pad):
+    return _plan_out(sel, max_ntiles, g_pad)
+
+
 OPS = (pruned_sq_score, pruned_rows_score, pruned_lut_build,
        pruned_lut_score, pruned_codes_score, fused_scan_groupmax,
-       merge_groups)
+       merge_groups, pruned_plan)
 
 _registering.__exit__(None, None, None)
 del _registering

@@ -10,13 +10,15 @@ mantissa bits, and ``merge_candidates`` (stratified gathers) or
 ``merge_candidates_fused`` (one top-k reduction per packed row) turns those
 survivors into each query's top-k.
 
-Two hand-written CUDA kernels live behind this module: ``score_work`` (K2,
+Three hand-written CUDA kernels live behind this module: ``score_work`` (K2,
 csrc/pruned_rows.cu, the port of the Pallas kernel ``score_work_pallas``:
-decoded bf16 rows of tree-AH in reconstruct mode) and ``merge_groups`` (K6,
-csrc/merge_groups.cu, the port of ``merge_groups_pallas``), each through
-its custom op (ops/library.py).  On CUDA tensors they launch their kernel
-or raise; on CPU tensors they run ``score_work_torch`` /
-``merge_groups_torch``.  The tree-SQ and LUT scorers
+decoded bf16 rows of tree-AH in reconstruct mode), ``merge_groups`` (K6,
+csrc/merge_groups.cu, the port of ``merge_groups_pallas``) and
+``work_plan`` (csrc/pruned_plan.cu: ``invert``'s plan built on the card
+with no host synchronisation), each through its custom op
+(ops/library.py).  On CUDA tensors they launch their kernels or raise; on
+CPU tensors they run ``score_work_torch`` / ``merge_groups_torch`` /
+``invert``.  The tree-SQ and LUT scorers
 live in ops/pruned_sq.py and ops/pruned_lut.py.
 
 Shapes, constants and path boundaries are the JAX package's, unchanged, so
@@ -53,10 +55,11 @@ _SENTINEL = 1 << 30
 _ID_BITS = _IDX_BITS + _TILE_BITS
 _ID_MASK = (1 << _ID_BITS) - 1
 
-# Kernel launches of K2 and K6, counted by their CUDA implementations in
-# ops/library.py (CPU calls never count).
+# Kernel launches of K2 and K6 and plans built on the card, counted by
+# their CUDA implementations in ops/library.py (CPU calls never count).
 launches = 0
 launches_merge = 0
+launches_plan = 0
 
 _WORK_CHUNK = 32
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
@@ -191,6 +194,20 @@ def invert_small(sel, valid_sel, tile_start, ntiles,
     pair_row = torch.zeros((b, l), dtype=torch.int32, device=dev)
     return WorkPlan(qg_query, leaf_flat, work_tile, work_qg, work_active,
                     pair_gid, pair_row)
+
+
+def work_plan(sel, valid_sel, tile_start, ntiles, max_ntiles: int,
+              g_pad: int) -> WorkPlan:
+    """invert()'s plan through the custom op ``pruned_plan``
+    (ops/library.py).  CPU tensors run invert itself; CUDA tensors launch
+    csrc/pruned_plan.cu (or raise), which builds the same plan bit for bit
+    with no host synchronisation.  Valid entries of ``sel`` must be leaf
+    ids in [0, num_leaves), distinct within a row."""
+    check_device(sel)
+    from scann_torch.ops import library
+    return WorkPlan(*library.pruned_plan(
+        sel.to(torch.int32).contiguous(), valid_sel.contiguous(), tile_start,
+        ntiles, max_ntiles, g_pad))
 
 
 def _pack(v, a, t):

@@ -20,7 +20,8 @@ from scann_torch.ops import pruned_sq
 def _plan(seed=0, nl=6, b=40, l=3):
     """A leaf-major plan of ``b`` queries over ``l`` of ``nl`` leaves of
     one or two tiles; returns (plan, number of tiles, the leaves' tile
-    counts, the generator)."""
+    counts, the generator, the plan's operands: sel, valid, tile_start,
+    ntiles, max_ntiles, g_pad)."""
     r = np.random.default_rng(seed)
     ntiles = r.integers(1, 3, nl).astype(np.int32)
     tile_start = np.concatenate([[0], np.cumsum(ntiles)[:-1]]).astype(
@@ -30,14 +31,15 @@ def _plan(seed=0, nl=6, b=40, l=3):
     g_pad, w_pad = ps.plan_capacities(b, l, nl, int(ntiles.sum()),
                                       int(ntiles.max()))
     t = torch.as_tensor
-    plan = ps.invert(t(sel.astype(np.int32)), t(valid), t(tile_start),
-                     t(ntiles), int(ntiles.max()), g_pad, w_pad)
-    return plan, int(ntiles.sum()), t(ntiles), r
+    args = (t(sel.astype(np.int32)), t(valid), t(tile_start), t(ntiles),
+            int(ntiles.max()), g_pad)
+    plan = ps.invert(*args, w_pad)
+    return plan, int(ntiles.sum()), t(ntiles), r, args
 
 
 def op_cases():
     """(op, args, plain) for every custom op at a small shape."""
-    plan, nt, _, r = _plan()
+    plan, nt, _, r, _ = _plan()
     t = torch.as_tensor
     d = 16
     q = t(r.standard_normal((40, d)).astype(np.float32)).to(torch.bfloat16)
@@ -45,7 +47,10 @@ def op_cases():
     rows8 = t(r.integers(-127, 128, (nt, 256, d)).astype(np.int8))
     scale = t(r.uniform(1e-3, 1e-2, (nt, 256, 1)).astype(np.float32))
     bias8 = t(-r.uniform(0, 1, (nt, 256, 1)).astype(np.float32))
-    p2, nt2, ntiles2, _ = _plan(seed=1)
+    p2, nt2, ntiles2, _, _ = _plan(seed=1)
+    # More pairs than a query group (invert's sorted plan, not
+    # invert_small's), some of them invalid.
+    *_, plan_args = _plan(seed=2, nl=9, b=70, l=4)
     q2 = q[p2.qg_query.long()]
     rows16 = t(r.standard_normal((nt2, 512, d)).astype(np.float32)).to(
         torch.bfloat16)
@@ -104,4 +109,7 @@ def op_cases():
             library.merge_groups, (packed, qg_nt, kgp, 512, 10),
             lambda: ps.merge_groups_torch(packed, qg_nt, kgp=kgp, tile=512,
                                           k=10)),
+        "pruned_plan": (
+            library.pruned_plan, plan_args,
+            lambda: ps.invert(*plan_args, plan_args[-1] * plan_args[-2])),
     }

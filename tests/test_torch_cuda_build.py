@@ -17,7 +17,8 @@ def test_every_signature_has_its_source_and_entry_points():
     sources = {f[:-3] for f in os.listdir(_cuda.CSRC) if f.endswith(".cu")}
     assert sources == set(_cuda.SIGNATURES)
     assert sources == {"pruned_sq", "pruned_lut", "pruned_codes",
-                       "pruned_rows", "fused_scan", "merge_groups"}
+                       "pruned_rows", "fused_scan", "merge_groups",
+                       "pruned_plan"}
     for name, fns in _cuda.SIGNATURES.items():
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert 'extern "C" const char* error_string' in text
@@ -36,9 +37,10 @@ def test_sources_ship_with_the_package():
     assert os.path.exists(os.path.join(_cuda.CSRC, "survivors.cuh"))
     for name in _cuda.SIGNATURES:
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
-        # Every scorer with the packed-survivor epilogue shares one header;
-        # whatever a source includes from csrc/ is there.
-        if name.startswith("pruned_"):
+        # Every scorer with the packed-survivor epilogue shares one header
+        # (the plan kernels score nothing); whatever a source includes from
+        # csrc/ is there.
+        if name.startswith("pruned_") and name != "pruned_plan":
             assert '#include "survivors.cuh"' in text
         for header in re.findall(r'#include "([^"]+)"', text):
             assert os.path.exists(os.path.join(_cuda.CSRC, header)), header
@@ -59,7 +61,8 @@ def test_new_kernels_state_what_they_replace():
     for name, replaced in (("pruned_sq", "score_work_pallas_sq"),
                            ("pruned_rows", "score_work_pallas"),
                            ("fused_scan", "fused_scan_groupmax"),
-                           ("merge_groups", "merge_groups_pallas")):
+                           ("merge_groups", "merge_groups_pallas"),
+                           ("pruned_plan", "Replaces no TPU kernel")):
         source = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert replaced in source and "What bounds it on the H100" in source
         text = _with_headers(name)
