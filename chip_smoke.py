@@ -1902,9 +1902,12 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
                    "bytes_per_vector": index_mb(s) * 1e6 / N_DB}
             if with_soar:
                 # The dedup's own time, on the inputs of the timed search.
+                # The search marks the dedup as a stage of its own after
+                # the merge's; the share is of the two together, what the
+                # merge stage held before the dedup had its own mark.
                 rec["dedup_ms"] = time_ms(torch, lambda: dedup(*calls[-1]))
-                rec["dedup_share_of_merge"] = (rec["dedup_ms"]
-                                               / stages["merge"])
+                rec["dedup_share_of_merge"] = (
+                    rec["dedup_ms"] / (stages["merge"] + stages["dedup"]))
                 if train == SOAR_TRAIN:
                     soar = s
             out[f"config4_{train}_{name}"] = rec

@@ -31,7 +31,9 @@ SOAR stores each row twice, in its primary leaf and in a secondary leaf
 chosen by orthogonality amplification (2n slots, the primary leaves capped
 at half the scorers' tile budget); every selection then keeps
 ceil(k_pre * overretrieve_factor) candidates and drops repeated ids
-(topk.dedup_candidates) before the best k_pre.  AVQ refits the centers
+(topk.dedup_candidates) before the best k_pre, in a ``dedup`` span and
+stage of its own after the selection's last (``merge`` or ``scan``);
+without SOAR no such span, mark or launch exists.  AVQ refits the centers
 after tokenization.  A batch may name its leaves (``pre_tokenized``), and
 query spilling masks the tokenizer's selection.
 
@@ -88,6 +90,10 @@ _DENSE_QUERY_BLOCK = 2048  # queries per block of the dense scan
 _PAD_PENALTY = fused_scan._PAD_PENALTY  # bias of padded / disallowed slots
 _GROUP = fused_scan.SUB  # slots per candidate group of the dense recon scan
 RECONSTRUCT = "reconstruct"
+
+# SOAR secondary slots laid out by builds and upserts, a number the host
+# already holds (no wait on the card).
+secondary_slots = 0
 
 _log = logging.getLogger("scann_torch")
 
@@ -187,14 +193,20 @@ class TreeAHSearcher(base.Searcher):
         return int(math.ceil(k_pre * soar.overretrieve_factor))
 
     def _dedup(self, vals, dpids, k_pre: int):
-        """SOAR: keep each row's best copy, then the best k_pre."""
+        """SOAR: keep each row's best copy, then the best k_pre, as the
+        ``dedup`` span and stage.  Without SOAR the candidates pass
+        through untouched."""
         if self._soar is None:
             return vals, dpids
-        vals, dpids = topk_ops.dedup_candidates(vals, dpids)
-        vals, pos = topk_ops.top_k(vals, min(k_pre, vals.shape[-1]))
-        return vals, torch.gather(dpids, -1, pos.long())
+        with profiling.span("dedup"):
+            vals, dpids = topk_ops.dedup_candidates(vals, dpids)
+            vals, pos = topk_ops.top_k(vals, min(k_pre, vals.shape[-1]))
+            dpids = torch.gather(dpids, -1, pos.long())
+            self._stage("dedup")
+        return vals, dpids
 
     def _build(self):
+        global secondary_slots
         x_dev = self._project_database(self._build_x_dev)
         n, d = x_dev.shape
         seed = self.config.seed
@@ -240,6 +252,7 @@ class TreeAHSearcher(base.Searcher):
             if tokens2 is not None:
                 # SOAR: each row also lives in its secondary leaf, encoded
                 # as the residual against that leaf's center; 2n slots.
+                secondary_slots += n
                 codes = np.concatenate([codes, self._encode_dataset(
                     self.partitioner.residualize(x_dev, tokens2[:, 1]),
                     x_dev)])
@@ -668,9 +681,8 @@ class TreeAHSearcher(base.Searcher):
                 # Restore the rank-invariant -||q||^2 of the centered query, so
                 # the values are true negated squared distances.
                 vals = vals - (q_c * q_c).sum(-1)[:, None]
-            vals, dpids = self._dedup(vals, dpids, k_pre)
             self._stage("scan")
-        return vals, dpids
+        return self._dedup(vals, dpids, k_pre)
 
     def _dense_select(self, queries, k_pre, leaves, full_scan, restrict,
                       pre_tokenized=None):
@@ -792,9 +804,8 @@ class TreeAHSearcher(base.Searcher):
                                 dpid_all[torch.clamp_min(slots, 0).long()], -1)
             if luts is not None:
                 vals = vals + luts.base[:, None]
-            vals, dpids = self._dedup(vals, dpids, k_pre)
             self._stage("scan")
-        return vals, dpids
+        return self._dedup(vals, dpids, k_pre)
 
     def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
                        pre_tokenized=None):
@@ -881,9 +892,8 @@ class TreeAHSearcher(base.Searcher):
             if l2:
                 # Restore the rank-invariant -||q||^2 of the centered query.
                 cand_vals = cand_vals - (q_c * q_c).sum(-1)[:, None]
-            cand_vals, dpids = self._dedup(cand_vals, dpids, k_pre)
             self._stage("merge")
-        return cand_vals, dpids
+        return self._dedup(cand_vals, dpids, k_pre)
 
     # ----------------------------------------------------------- mutation
     def _reset_mutation_maps(self, num_leaves: int):
@@ -981,6 +991,7 @@ class TreeAHSearcher(base.Searcher):
         self._build_recon()
 
     def _apply_upsert(self, ids: np.ndarray, vecs: np.ndarray):
+        global secondary_slots
         self._ensure_mutable_maps()
         raw = np.asarray(vecs, np.float32)
         # Encode in the (projected) index space; the reorder keeps the
@@ -1002,6 +1013,7 @@ class TreeAHSearcher(base.Searcher):
                 slot = self._free_slots.pop()
                 slots.append(slot)
                 self._table_add(int(i), int(slot))
+        secondary_slots += len(ids) * (tokens.shape[1] - 1)
         slot_arr = np.asarray(slots, np.int64)
         code_arr = np.concatenate(codes_per_col).astype(np.uint8)
         leaf_arr = tokens.T.reshape(-1).astype(np.int32)

@@ -27,6 +27,7 @@ from scann_torch.ops import distance as dist_ops
 from scann_torch.ops import kmeans as kmeans_ops
 from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
+from scann_torch.utils import profiling
 
 # Chunk size (database rows) for build-time tokenization sweeps.
 _TOKENIZE_CHUNK = 65536
@@ -178,9 +179,11 @@ class KMeansTreePartitioner(NamedTuple):
     def tokenize_database_soar(self, database, soar: cfg.SoarConfig):
         """SOAR's two centers per row, (n, 2) int32: the nearest, and the
         center minimizing ||x-c||^2 + lambda ((x-c) . r_hat)^2 with r_hat
-        the normalized primary residual."""
-        return _tokenize_soar_run(database, self.centers,
-                                  float(soar.lambda_))
+        the normalized primary residual.  A ``spill`` phase (inside the
+        build's ``partition``)."""
+        with profiling.phase("spill"):
+            return _tokenize_soar_run(database, self.centers,
+                                      float(soar.lambda_))
 
     def residualize(self, database, tokens):
         """x - c_token per row (f32 tensor on the centers' device)."""

@@ -10,16 +10,26 @@ into the ``scann_torch`` logger, and is a span besides.
 Spans (``span(name)``) mark the program's layers on the host: a
 ``search`` span around each ``search_batched_async`` call, inside it one
 span per search stage (``tokenize``, ``plan``, ``score``, ``merge``,
-``scan``, ``reorder``, ``finish``, each ending at its stage mark), a
+``scan``, ``dedup``, ``reorder``, ``finish``, each ending at its stage
+mark; ``dedup`` only under SOAR, after ``merge`` or ``scan``), a
 ``result`` span around ``PendingSearch.result``, and the index build:
-``build``, inside it ``partition``, ``quantize`` and ``layout`` (which
-holds the database's upload; a first search's lazy pruned layout is a
-``layout`` span too), and ``register`` for the first import of the
-custom ops and each kernel library's first load.  These set-up spans are
-``phase``s, which wait for the device at their close, so that a phase's
-seconds hold the device work it queued.  A ``search`` span and the
-``result`` span of the same search carry one batch id: a zero-length
-``scann_torch.batch.<id>`` range at the start of each.
+``build``, inside it ``partition`` (under SOAR a ``spill`` phase inside
+it: ``tokenize_database_soar``, the secondary assignment, is a ``spill``
+phase wherever it runs, in an upsert or the upper tree's build too),
+``quantize`` and ``layout`` (which holds the database's upload; a first
+search's lazy pruned layout is a ``layout`` span too), and ``register``
+for the first import of the custom ops and each kernel library's first
+load.  These set-up spans are ``phase``s, which wait for the device at
+their close, so that a phase's seconds hold the device work it queued.
+A ``search`` span and the ``result`` span of the same search carry one
+batch id: a zero-length ``scann_torch.batch.<id>`` range at the start of
+each.
+
+A counter beside the spans, a module integer that only grows (set it to
+0 to start a count), from a number the host already holds, spans on or
+off: ``models/tree_ah.secondary_slots`` (SOAR secondary slots laid out by
+builds and upserts); the kernels' launch counters are listed in
+ops/library.py.
 
 Spans are off unless ``enable_spans(True)`` or ``trace`` turns them on;
 off, a span costs one flag check.  On, a span is a profiler range named

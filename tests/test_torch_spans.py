@@ -1,7 +1,8 @@
 """The port's host spans (scann_torch/utils/profiling.py) on the CPU: the
-search span and its stage spans against the stage marks, the result span's
-batch id, a split search's nesting, the build and first-use totals, the
-off path, log_phase, and a torch.export program with spans on."""
+search span and its stage spans against the stage marks (SOAR's dedup
+among them), the result span's batch id, a split search's nesting, the
+build and first-use totals, the off path, log_phase, and a torch.export
+program with spans on."""
 
 import json
 import logging
@@ -19,7 +20,8 @@ from scann_torch.utils import profiling
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STAGES = ("tokenize", "plan", "score", "merge", "scan", "reorder", "finish")
+STAGES = ("tokenize", "plan", "score", "merge", "scan", "dedup", "reorder",
+          "finish")
 P = profiling.PREFIX
 
 
@@ -37,8 +39,9 @@ def _builder(kind, db):
     if kind == "brute_force":
         return b.score_brute_force()
     b = b.tree(num_leaves=16, num_leaves_to_search=4,
-               training_sample_size=len(db))
-    if kind == "tree_ah":
+               training_sample_size=len(db),
+               soar_lambda=1.5 if kind == "tree_ah_soar" else None)
+    if kind in ("tree_ah", "tree_ah_soar"):
         return b.score_ah(2, anisotropic_quantization_threshold=0.2) \
             .reorder(30)
     return b.score_brute_force(quantize="int8").reorder(30)
@@ -48,6 +51,9 @@ def _builder(kind, db):
 KINDS = {
     "tree_ah": (["tokenize", "plan", "score", "merge", "reorder", "finish"],
                 {"build", "partition", "quantize", "layout"}),
+    "tree_ah_soar": (["tokenize", "plan", "score", "merge", "dedup",
+                      "reorder", "finish"],
+                     {"build", "partition", "spill", "quantize", "layout"}),
     "tree_x": (["tokenize", "plan", "score", "merge", "reorder", "finish"],
                {"build", "partition", "quantize", "layout"}),
     "brute_force": (["scan", "finish"], {"build", "layout", "quantize"}),
@@ -172,7 +178,8 @@ def test_split_search_nests_its_sub_batches(built, spans_on, tmp_path,
 def test_build_totals(kind, built):
     _, totals = built[kind]
     assert set(totals) == KINDS[kind][1]
-    phases = sum(totals[n][0] for n in totals if n != "build")
+    # spill runs inside partition.
+    phases = sum(totals[n][0] for n in totals if n not in ("build", "spill"))
     assert 0 < phases <= totals["build"][0]
 
 
