@@ -5,7 +5,7 @@ Port of scann_tpu/serving.py:
   * SearchService collects concurrent single queries into one device
     batch (batch width, not host threads, fills the card), double-buffered:
     batch N+1 is enqueued on the device (``search_batched_async``) before
-    batch N's results are copied back;
+    batch N's results are read back;
   * SearchServer / serve() load a serialized index directory and serve
     search over HTTP.  Replication is horizontal: one server per card,
     each on the same directory.
@@ -113,7 +113,8 @@ class SearchService:
 
     def _loop(self):
         # Double-buffered: batch N+1 is enqueued before batch N's results
-        # are copied back, so the device does not idle across the copy.
+        # are read back (on a CUDA device their copy was enqueued with
+        # batch N), so the device does not idle between batches.
         dispatch = getattr(self._searcher, "search_batched_async", None)
         inflight = None
         while self._running:

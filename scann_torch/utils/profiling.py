@@ -28,8 +28,11 @@ each.
 A counter beside the spans, a module integer that only grows (set it to
 0 to start a count), from a number the host already holds, spans on or
 off: ``models/tree_ah.secondary_slots`` (SOAR secondary slots laid out by
-builds and upserts); the kernels' launch counters are listed in
-ops/library.py.
+builds and upserts); ``models/base.async_batches`` (CUDA batches enqueued
+with their result copy on the copy stream, one a sub-batch of a split
+batch) and ``models/base.result_waits`` (``PendingSearch.result`` calls
+whose result copy had not finished when they were made); the kernels'
+launch counters are listed in ops/library.py.
 
 Spans are off unless ``enable_spans(True)`` or ``trace`` turns them on;
 off, a span costs one flag check.  On, a span is a profiler range named
