@@ -445,11 +445,12 @@ def plan_operands(searcher, queries, leaves):
     from scann_torch.ops import pruned_scan
     part = searcher.partitioner
     leaf_ids, valid, _ = part.select_leaves(queries, leaves, None)
+    lay = searcher._layout
     g_pad, _ = pruned_scan.plan_capacities(
-        queries.shape[0], leaves, part.num_leaves, searcher._p_num_tiles,
-        searcher._p_max_ntiles)
-    return (leaf_ids, valid, searcher._p_tile_start, searcher._p_ntiles,
-            searcher._p_max_ntiles, g_pad)
+        queries.shape[0], leaves, part.num_leaves, lay.num_tiles,
+        lay.max_ntiles)
+    return (leaf_ids, valid, lay.tile_start, lay.ntiles, lay.max_ntiles,
+            g_pad)
 
 
 def pruned_plan(torch, searcher, queries, leaves):
@@ -513,7 +514,7 @@ def k1_inputs(torch, searcher, queries, leaves, measure_l2):
     q_bf = torch.nn.functional.pad(
         queries, (0, d_pad - queries.shape[1])).to(torch.bfloat16)
     qg_rows = q_bf[plan.qg_query.long()]
-    bias = searcher._bias2
+    bias = searcher._layout.bias
     if measure_l2:
         # Squared-L2 bias plane of the same index: -||x_hat||^2 per slot.
         rows = searcher.slot_rows.float() * searcher.slot_scale
@@ -579,7 +580,7 @@ def ah_inputs(torch, searcher, queries, leaves, measure_l2):
     else:
         tables = (searcher._p_cb, mean)
     q_in = q_bf if searcher._int8_lut else q_bf[plan.qg_query.long()]
-    return (plan, q_in, searcher._p_codes, *tables, searcher._p_bias)
+    return (plan, q_in, searcher._p_codes, *tables, searcher._layout.bias)
 
 
 def k3_plain(plan, q_bf, *rest, **kw):
@@ -1033,7 +1034,7 @@ def recon_k2_inputs(torch, searcher, queries, leaves, measure_l2):
     plan = pruned_plan(torch, searcher, queries, leaves)
     rows = searcher._p_rows
     _, q_bf = searcher._recon_queries(queries, rows.shape[-1])
-    bias = searcher._p_bias
+    bias = searcher._layout.bias
     if measure_l2:
         sq = (rows.float() ** 2).sum(-1, keepdim=True)
         bias = torch.where(bias > -1e20, -sq, bias).contiguous()
@@ -1295,13 +1296,13 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
         s = searchers[name]
         s._ensure_pruned()
         rh = s.reorder_helper
-        code_b = s._p_codes.numel() + s._p_bias.numel() * 4 \
-            + s._p_dpid.numel() * 4
+        code_b = s._p_codes.numel() + s._layout.bias.numel() * 4 \
+            + s._layout.dpid.numel() * 4
         reorder_b = sum(t.numel() * t.element_size() for t in (
             rh._db, rh._sq_norms, rh._leaf, rh._row_scale) if t is not None)
         log(f"tree-AH build {name}: {build_s[name]:.1f} s, "
             f"{s.partitioner.num_leaves} leaves, max_ntiles "
-            f"{s._p_max_ntiles}, {s._p_num_tiles} tiles, codes "
+            f"{s._layout.max_ntiles}, {s._layout.num_tiles} tiles, codes "
             f"{code_b / N_DB:.1f} B/vector, reorder {reorder_b / N_DB:.1f} "
             f"B/vector, quantization error "
             f"{s._quantization_error_sq ** 0.5:.4f}")
@@ -1332,9 +1333,9 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
                 f"{a3[0].work_tile.shape[0]}, active "
                 f"{int(a3[0].work_active.sum())}")
             if not measure_l2 and kpg == 8:    # the main path's block
-                k6_check(torch, k6, "tree_ah", a3[0], got, main._p_ntiles,
-                         pruned_scan.TILE, FUSED_MERGE_PRE,
-                         main._p_max_ntiles)
+                k6_check(torch, k6, "tree_ah", a3[0], got,
+                         main._layout.ntiles, pruned_scan.TILE,
+                         FUSED_MERGE_PRE, main._layout.max_ntiles)
             del got, want
             a4 = ah_inputs(torch, main_f, q_dev, LEAVES_TO_SEARCH,
                            measure_l2)
@@ -1522,12 +1523,13 @@ def recon_phase(torch, scann_torch, db, queries, truth, q_dev):
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    pruned_b = nbytes(s._p_rows, s._p_bias, s._p_dpid)
+    pruned_b = nbytes(s._p_rows, s._layout.bias, s._layout.dpid)
     scan_b = nbytes(s._recon_rows, s._recon_bias, s._recon_sq)
     reorder_b = nbytes(s.reorder_helper._db)
     log(f"reconstruct build: {build_s:.1f} s (both layouts), "
-        f"{s.partitioner.num_leaves} leaves, max_ntiles {s._p_max_ntiles}, "
-        f"{s._p_num_tiles} tiles; resident on the card: pruned rows "
+        f"{s.partitioner.num_leaves} leaves, max_ntiles "
+        f"{s._layout.max_ntiles}, {s._layout.num_tiles} tiles; resident "
+        f"on the card: pruned rows "
         f"{pruned_b / 1e6:.0f} MB ({pruned_b / N_DB:.1f} B/vector), "
         f"full-scan rows {scan_b / 1e6:.0f} MB ({scan_b / N_DB:.1f} "
         f"B/vector, {s._recon_rows.shape[0]} slots), reorder rows "
@@ -1868,7 +1870,7 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     def index_mb(s):
         rh = s.reorder_helper
         return sum(t.numel() * t.element_size() for t in (
-            s._p_codes, s._p_bias, s._p_dpid, s._p_rows,
+            s._p_codes, s._layout.bias, s._layout.dpid, s._p_rows,
             s.partitioner.centers, rh._db) if t is not None) / 1e6
 
     # 1. Config 4 with and without SOAR (int8 lookup: K3), at its own
@@ -2131,9 +2133,11 @@ SPARSE_EXACT_ROWS, SPARSE_EXACT_QUERIES = 100_000, 100
 def device_bytes(s):
     """Bytes of the index tensors a searcher holds on the card."""
     ts = [getattr(s, a, None) for a in (
-        "_db", "_sq_norms", "slot_rows", "slot_scale", "_bias2", "slot_leaf",
-        "slot_dpid", "_p_rows", "_p_bias", "_p_dpid", "_p_codes",
-        "_recon_rows", "_recon_bias")]
+        "_db", "_sq_norms", "slot_rows", "slot_scale", "slot_leaf",
+        "slot_dpid", "_p_rows", "_p_codes", "_recon_rows", "_recon_bias")]
+    layout = getattr(s, "_layout", None)
+    if layout is not None:
+        ts += [layout.bias, layout.dpid]
     index = getattr(s, "index", None)
     if index is not None:
         ts += [index.codes, index.slot_dpid, index.slot_leaf]
@@ -3682,12 +3686,13 @@ def main():
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     index_bytes = sum(t.numel() * t.element_size() for t in (
-        searcher.slot_rows, searcher.slot_scale, searcher._bias2,
-        searcher.slot_leaf, searcher.slot_dpid, searcher._p_tile_start,
-        searcher._p_ntiles, searcher.partitioner.centers))
+        searcher.slot_rows, searcher.slot_scale, searcher._layout.bias,
+        searcher.slot_leaf, searcher._layout.dpid, searcher._layout.tile_start,
+        searcher._layout.ntiles, searcher.partitioner.centers))
     nl = searcher.partitioner.num_leaves
     log(f"build {build_s:.1f} s: {nl} leaves, max_ntiles "
-        f"{searcher._p_max_ntiles}, {searcher._p_num_tiles} tiles, index "
+        f"{searcher._layout.max_ntiles}, {searcher._layout.num_tiles} tiles, "
+        f"index "
         f"{index_bytes / N_DB:.1f} B/vector")
     t0 = time.perf_counter()
     bf = scann_torch.builder(db, K, "dot_product").score_brute_force().build()
@@ -3726,8 +3731,9 @@ def main():
                 f"{k1['ms']:.3f} ms (plain {k1['plain_ms']:.3f} ms), bound "
                 f"{k1['bound_ms']:.4f} ms by {k1['bound_by']} "
                 f"({n_act} active items)")
-            k6_check(torch, k6, "tree_sq", plan, got, searcher._p_ntiles,
-                     searcher.slot_rows.shape[1], K, searcher._p_max_ntiles)
+            k6_check(torch, k6, "tree_sq", plan, got, searcher._layout.ntiles,
+                     searcher.slot_rows.shape[1], K,
+                     searcher._layout.max_ntiles)
         del got, want, plan, qg_rows, bias, args
     torch.cuda.empty_cache()
     k1["max_abs_err"] = max(k1["max_abs_err"],

@@ -25,6 +25,7 @@ import torch
 
 from scann_torch import config as cfg
 from scann_torch.ops import distance as dist_ops
+from scann_torch.ops import pruned_scan
 from scann_torch.ops import quantize as quant_ops
 from scann_torch.ops import topk as topk_ops
 from scann_torch.utils import profiling
@@ -445,6 +446,43 @@ class Searcher:
     @property
     def _pruned_available(self) -> bool:
         return False
+
+    def _dedup(self, vals, dpids, k_pre: int):
+        """Candidates after the selection's last stage; SOAR overrides it."""
+        return vals, dpids
+
+    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
+                       pre_tokenized=None):
+        """Leaf-gathered candidate selection: tokenize -> plan -> score ->
+        merge, one span and stage mark each, then the engine's dedup.  An
+        engine with a pruned_scan.PrunedLayout in ``_layout`` supplies
+        _pruned_tokenize(queries, leaves, pre_tokenized) -> (leaf ids, valid
+        mask, per-pair bias or None); _pruned_queries(queries) -> (the
+        scorer's queries, the queries of the squared-L2 restore or None,
+        whether the scorer takes them as gathered query groups);
+        _pruned_budget(k_pre) -> (k_fetch, kpg); and _pruned_score(plan,
+        queries, query groups, bias, kpg) -> the packed survivors."""
+        with profiling.span("tokenize"):
+            leaves = max(1, min(leaves, self.partitioner.num_leaves))
+            leaf_ids, valid_sel, pair_bias = self._pruned_tokenize(
+                queries, leaves, pre_tokenized)
+            self._stage("tokenize")
+        with profiling.span("plan"):
+            q_op, q_l2, grouped = self._pruned_queries(queries)
+            plan, bias, hot = pruned_scan.plan_batch(self._layout, leaf_ids,
+                                                     valid_sel, restrict)
+            qg_rows = q_op[plan.qg_query.long()] if grouped else None
+            k_fetch, kpg = self._pruned_budget(k_pre)
+            self._stage("plan")
+        with profiling.span("score"):
+            packed = self._pruned_score(plan, q_op, qg_rows, bias, kpg)
+            self._stage("score")
+        with profiling.span("merge"):
+            vals, dpids = pruned_scan.candidates(
+                self._layout, plan, packed, leaf_ids, valid_sel, k_fetch,
+                pair_bias, hot, q_l2)
+            self._stage("merge")
+        return self._dedup(vals, dpids, k_pre)
 
     def _register_centers(self, centers_np: np.ndarray):
         """Install a grown center set on the partitioner (its int8 copy

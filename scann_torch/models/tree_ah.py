@@ -3,10 +3,9 @@
 Port of the product-quantization modes of scann_tpu/models/tree_ah.py.
 Rows are stored as AH codes of the residual x - c_leaf (dot product with a
 tree) or of x, 16 or 256 centers per block.  A batch scores only its
-selected leaves through the pruned path: tokenize -> plan
-(pruned_scan.work_plan) -> score -> merge (pruned_scan.merge_candidates, or
-merge_candidates_fused through K6 when fused_merge_enabled says so).  The
-scorer follows ``lookup_type``:
+selected leaves through the pruned path shared with tree-SQ
+(Searcher._pruned_select over a pruned_scan.PrunedLayout): tokenize ->
+plan -> score -> merge.  The scorer follows ``lookup_type``:
 
 * int8 lookup over 4-bit codes: K3, the int8-LUT scorer (ops/pruned_lut.py);
 * float32 lookup, and 256 centers per block: K4, the decode scorer
@@ -87,7 +86,7 @@ _SCORE_CHUNK = 65536    # slots per chunk of the dense masked scan
 _ENCODE_CHUNK = 32768   # rows per encoding chunk (bounds the (chunk, B, J)
 # residual-stats arrays)
 _DENSE_QUERY_BLOCK = 2048  # queries per block of the dense scan
-_PAD_PENALTY = fused_scan._PAD_PENALTY  # bias of padded / disallowed slots
+_PAD_PENALTY = pruned_scan._PAD_PENALTY
 _GROUP = fused_scan.SUB  # slots per candidate group of the dense recon scan
 RECONSTRUCT = "reconstruct"
 
@@ -497,17 +496,12 @@ class TreeAHSearcher(base.Searcher):
                 and self.ah_cfg.clusters_per_block == 16)
 
     def _invalidate_pruned(self):
+        self._layout = None
         self._p_rows = None
-        self._p_bias = None
         self._p_codes = None
         self._p_cb = None
         self._p_csq = None
         self._p_mean = None
-        self._p_dpid = None
-        self._p_tile_start = None
-        self._p_ntiles = None
-        self._p_max_ntiles = 0
-        self._p_num_tiles = 0
 
     def _decode_mean(self):
         """Mean of the decoded bf16 rows over live slots (squared L2 only:
@@ -555,11 +549,12 @@ class TreeAHSearcher(base.Searcher):
         src = np.where(order >= 0, live[np.maximum(order, 0)], -1)
         dpid = np.where(src >= 0, h["dpid"][np.maximum(src, 0)], -1)
         dev = self.device
-        self._p_dpid = torch.from_numpy(dpid.astype(np.int32)).to(dev)
-        self._p_tile_start = torch.from_numpy(tile_start).to(dev)
-        self._p_ntiles = torch.from_numpy(ntiles).to(dev)
-        self._p_max_ntiles = int(ntiles.max())
-        self._p_num_tiles = num_tiles
+        layout = pruned_scan.PrunedLayout(
+            tile_start=torch.from_numpy(tile_start).to(dev),
+            ntiles=torch.from_numpy(ntiles).to(dev),
+            max_ntiles=int(ntiles.max()), num_tiles=num_tiles,
+            dpid=torch.from_numpy(dpid.astype(np.int32)).to(dev), bias=None,
+            tile=pruned_scan.TILE)
         if self._recon_mode:
             codes = np.where((src >= 0)[:, None],
                              h["codes"][np.maximum(src, 0)], 0).astype(
@@ -567,9 +562,9 @@ class TreeAHSearcher(base.Searcher):
             leaf = np.where(src >= 0, h["leaf"][np.maximum(src, 0)], 0)
             rows, sq = self._decode_chunks(codes, leaf.astype(np.int32),
                                            dpid.astype(np.int32))
-            self._p_bias = self._make_bias(sq, self._p_dpid).reshape(
-                num_tiles, pruned_scan.TILE, 1)
             self._p_rows = rows.reshape(num_tiles, pruned_scan.TILE, -1)
+            self._layout = layout._replace(bias=self._make_bias(
+                sq, layout.dpid).reshape(num_tiles, pruned_scan.TILE, 1))
             return
         if self.measure == cfg.SQUARED_L2 and self._recon_mean is None:
             self._recon_mean = self._decode_mean()
@@ -586,8 +581,8 @@ class TreeAHSearcher(base.Searcher):
                 np.where((src >= 0)[:, None], rows,
                          pruned_lut._PAD_CODE).astype(np.uint8), num_tiles)
         bias = np.where(dpid >= 0, 0.0, _PAD_PENALTY).astype(np.float32)
-        self._p_bias = torch.from_numpy(
-            bias.reshape(num_tiles, pruned_scan.TILE, 1)).to(dev)
+        layout = layout._replace(bias=torch.from_numpy(
+            bias.reshape(num_tiles, pruned_scan.TILE, 1)).to(dev))
         mean = torch.zeros((d_pad,), dtype=torch.float32, device=dev)
         if self._recon_mean is not None:
             mean[:self._recon_mean.shape[0]] = self._recon_mean
@@ -600,11 +595,11 @@ class TreeAHSearcher(base.Searcher):
         else:
             self._p_cb = pruned_lut.codes_table(codebook, b_pad)
         self._p_codes = torch.from_numpy(codes3).to(dev)
+        self._layout = layout
 
     @property
     def _pruned_built(self) -> bool:
-        return (self._p_rows if self._recon_mode else self._p_codes) \
-            is not None
+        return self._layout is not None
 
     # ------------------------------------------------------------- query
     def _default_leaves(self) -> int:
@@ -621,14 +616,10 @@ class TreeAHSearcher(base.Searcher):
         codes otherwise."""
         if (self._pruned_available and not full_scan
                 and leaves < self.partitioner.num_leaves):
-            num_leaves = self.partitioner.num_leaves
             self._ensure_pruned()
-            if self._pruned_built:
-                _, w_pad = pruned_scan.plan_capacities(
-                    nq, min(leaves, num_leaves), num_leaves,
-                    self._p_num_tiles, self._p_max_ntiles)
-                if w_pad <= pruned_scan.MAX_PLAN_WORK:
-                    return True
+            if (self._pruned_built
+                    and pruned_scan.fits(self._layout, nq, leaves)):
+                return True
         if self._recon_mode:
             self._ensure_recon_rows()
         else:
@@ -807,93 +798,40 @@ class TreeAHSearcher(base.Searcher):
             self._stage("scan")
         return self._dedup(vals, dpids, k_pre)
 
-    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
-                       pre_tokenized=None):
-        """Leaf-gathered candidate selection through K2, K3 or K4."""
-        with profiling.span("tokenize"):
-            partitioner = self.partitioner
-            num_leaves = partitioner.num_leaves
-            leaves = max(1, min(leaves, num_leaves))
-            nq = queries.shape[0]
-            recon_path = self._p_rows is not None
-            # The decoded rows already hold the leaf center.
-            residual_bias = self.residual and not recon_path
-            leaf_ids, valid_sel, center_sims = partitioner.select_leaves(
-                queries, leaves, pre_tokenized, pair_sims=residual_bias)
-            self._stage("tokenize")
+    def _pruned_tokenize(self, queries, leaves: int, pre_tokenized):
+        # q.c_leaf per pair in the residual LUT modes (reconstruct mode's
+        # rows hold the center).
+        residual_bias = self.residual and not self._recon_mode
+        leaf_ids, valid_sel, center_sims = self.partitioner.select_leaves(
+            queries, leaves, pre_tokenized, pair_sims=residual_bias)
+        return leaf_ids, valid_sel, center_sims if residual_bias else None
 
-        with profiling.span("plan"):
-            pair_bias = center_sims if residual_bias else None
-            d_pad = (self._p_rows.shape[-1] if recon_path
-                     else self._p_mean.shape[0])
-            q_c, q_bf = self._recon_queries(queries, d_pad)
-            merge_hot = pruned_scan.HOT_LEAVES
-            if nq * leaves <= pruned_scan.QG:
-                # Small-batch fast path: one group per pair, no sorts, and an
-                # all-hot merge (the full-survivor gather is tiny).
-                plan = pruned_scan.invert_small(
-                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles)
-                merge_hot = leaves
-            else:
-                g_pad, _ = pruned_scan.plan_capacities(
-                    nq, leaves, num_leaves, self._p_num_tiles,
-                    self._p_max_ntiles)
-                plan = pruned_scan.work_plan(
-                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles, g_pad)
-            p_bias = self._p_bias
-            if restrict is not None:
-                # Allowlists fold into the per-slot bias plane, so disallowed
-                # slots never take survivor capacity.
-                dp = self._p_dpid
-                allow = restrict[torch.clamp(dp, 0,
-                                             restrict.shape[0] - 1).long()]
-                allow = allow & (dp >= 0)
-                p_bias = p_bias + torch.where(allow.reshape(p_bias.shape), 0.0,
-                                              _PAD_PENALTY)
-            # K3 takes the batch's queries whole (its LUT pre-pass builds one
-            # LUT per query); K2 and K4 take the gathered query groups.
-            qg_rows = (None if self._int8_lut and not recon_path
-                       else q_bf[plan.qg_query.long()])   # (G_pad, QG, d_pad)
-            l2 = self.measure == cfg.SQUARED_L2
-            k_fetch = self._k_fetch(k_pre)
-            kpg = self._kpg_override or _survivors_per_group(
-                k_fetch, self._num_slots, num_leaves)
-            self._stage("plan")
-        with profiling.span("score"):
-            if recon_path:
-                packed = pruned_scan.score_work(
-                    plan, qg_rows, self._p_rows, p_bias, measure_l2=l2,
-                    kpg=kpg)
-            elif self._int8_lut:
-                packed = pruned_lut.score_work_lut(
-                    plan, q_bf, self._p_codes, self._p_cb, self._p_csq,
-                    p_bias, measure_l2=l2, kpg=kpg)
-            else:
-                packed = pruned_lut.score_work_codes(
-                    plan, qg_rows, self._p_codes, self._p_cb, self._p_mean,
-                    p_bias, measure_l2=l2, kpg=kpg)
-            self._stage("score")
-        with profiling.span("merge"):
-            if pruned_scan.fused_merge_enabled(k_fetch):
-                cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
-                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                    self._p_ntiles, self._p_max_ntiles, k_fetch,
-                    pair_bias=pair_bias)
-            else:
-                cand_vals, cand_slots = pruned_scan.merge_candidates(
-                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                    self._p_ntiles, self._p_max_ntiles, k_fetch,
-                    pair_bias=pair_bias, hot=merge_hot)
-            dpids = torch.where(
-                cand_slots >= 0,
-                self._p_dpid[torch.clamp_min(cand_slots, 0).long()], -1)
-            if l2:
-                # Restore the rank-invariant -||q||^2 of the centered query.
-                cand_vals = cand_vals - (q_c * q_c).sum(-1)[:, None]
-            self._stage("merge")
-        return self._dedup(cand_vals, dpids, k_pre)
+    def _pruned_queries(self, queries):
+        # Centered; K3 takes the batch whole (its LUT pre-pass builds one
+        # LUT a query), K2 and K4 the gathered query groups.
+        d_pad = (self._p_rows.shape[-1] if self._recon_mode
+                 else self._p_mean.shape[0])
+        q_c, q_bf = self._recon_queries(queries, d_pad)
+        return (q_bf, q_c if self.measure == cfg.SQUARED_L2 else None,
+                self._recon_mode or not self._int8_lut)
+
+    def _pruned_budget(self, k_pre: int):
+        k_fetch = self._k_fetch(k_pre)
+        return k_fetch, self._kpg_override or _survivors_per_group(
+            k_fetch, self._num_slots, self.partitioner.num_leaves)
+
+    def _pruned_score(self, plan, q_bf, qg_rows, bias, kpg: int):
+        l2 = self.measure == cfg.SQUARED_L2
+        if self._recon_mode:
+            return pruned_scan.score_work(plan, qg_rows, self._p_rows, bias,
+                                          measure_l2=l2, kpg=kpg)
+        if self._int8_lut:
+            return pruned_lut.score_work_lut(
+                plan, q_bf, self._p_codes, self._p_cb, self._p_csq, bias,
+                measure_l2=l2, kpg=kpg)
+        return pruned_lut.score_work_codes(
+            plan, qg_rows, self._p_codes, self._p_cb, self._p_mean, bias,
+            measure_l2=l2, kpg=kpg)
 
     # ----------------------------------------------------------- mutation
     def _reset_mutation_maps(self, num_leaves: int):

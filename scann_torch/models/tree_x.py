@@ -6,11 +6,11 @@ Two layouts, as in the JAX package:
 * residual per-row int8 leaves (tree-SQ, ``score_brute_force("int8")``
   with more than one leaf): rows are stored as x = c_leaf + scale_row *
   int8[d], tile-major per leaf (256-slot tiles), and a batch scores only
-  its selected leaves through the pruned path: tokenize -> plan
-  (pruned_scan.work_plan) -> score (K1, ops/pruned_sq.py) -> merge
-  (pruned_scan.merge_candidates, which adds the exact f32 q.c_leaf per
-  pair).  Plans over MAX_PLAN_WORK items and the full scan run the dense
-  masked scan over every slot instead.
+  its selected leaves through the pruned path shared with tree-AH
+  (Searcher._pruned_select over a pruned_scan.PrunedLayout): tokenize ->
+  plan -> score (K1, ops/pruned_sq.py) -> merge, which adds the exact f32
+  q.c_leaf per pair.  Plans over MAX_PLAN_WORK items and the full scan run
+  the dense masked scan over every slot instead.
 * dense leaf-sorted rows for everything else: float32 or bfloat16 leaves,
   a single-leaf tree, and int8 leaves whose partition outgrew the pruned
   tile budget (global per-dimension int8 multipliers, ops/quantize.py).
@@ -52,7 +52,6 @@ _ENCODE_CHUNK = 131072
 _DENSE_QUERY_BLOCK = 2048  # queries per block of the dense scan (bounds
 # the (queries, chunk) f32 intermediates)
 _SQ_TILE = 256          # slots per leaf tile of the tree-SQ layout
-_PAD_PENALTY = -1e30    # bias of padded / disallowed slots
 
 _log = logging.getLogger("scann_torch")
 
@@ -215,18 +214,17 @@ class TreeXSearcher(base.Searcher):
             dpid_t = torch.from_numpy(dpid).to(dev)
             bias = torch.where(dpid_t >= 0,
                                -sq if l2 else torch.zeros_like(sq),
-                               _PAD_PENALTY)
+                               pruned_scan._PAD_PENALTY)
         self.slot_rows = rows.reshape(total_tiles, _SQ_TILE, d_pad)
         self.slot_scale = scale.reshape(total_tiles, _SQ_TILE, 1)
-        self._bias2 = bias.reshape(total_tiles, _SQ_TILE, 1)
         self._sq_norms = sq if l2 else None
         self._inv_mult = None
         self.slot_leaf = leaf_t
-        self.slot_dpid = dpid_t
-        self._p_tile_start = torch.from_numpy(tile_start).to(dev)
-        self._p_ntiles = torch.from_numpy(ntiles).to(dev)
-        self._p_max_ntiles = int(ntiles.max())
-        self._p_num_tiles = num_tiles
+        self._layout = pruned_scan.PrunedLayout(
+            tile_start=torch.from_numpy(tile_start).to(dev),
+            ntiles=torch.from_numpy(ntiles).to(dev),
+            max_ntiles=int(ntiles.max()), num_tiles=num_tiles, dpid=dpid_t,
+            bias=bias.reshape(total_tiles, _SQ_TILE, 1), tile=_SQ_TILE)
         self._num_slots = int((dpid >= 0).sum())
         self._chunk = chunk_tiles * _SQ_TILE
         self._sq_mode = True
@@ -244,14 +242,11 @@ class TreeXSearcher(base.Searcher):
                            pre_tokenized=None):
         """``pre_tokenized``: optional (q, L) int32 leaves to search per
         query in place of the tokenizer's, -1 entries unused."""
-        num_leaves = self.partitioner.num_leaves
-        if self._sq_mode and not full_scan and leaves < num_leaves:
-            _, w_pad = pruned_scan.plan_capacities(
-                queries.shape[0], min(leaves, num_leaves), num_leaves,
-                self._p_num_tiles, self._p_max_ntiles)
-            if w_pad <= pruned_scan.MAX_PLAN_WORK:
-                return self._pruned_select(queries, k_pre, leaves, restrict,
-                                           pre_tokenized)
+        if (self._sq_mode and not full_scan
+                and leaves < self.partitioner.num_leaves
+                and pruned_scan.fits(self._layout, queries.shape[0], leaves)):
+            return self._pruned_select(queries, k_pre, leaves, restrict,
+                                       pre_tokenized)
         return self._dense_select(queries, k_pre, leaves, restrict,
                                   pre_tokenized)
 
@@ -287,7 +282,7 @@ class TreeXSearcher(base.Searcher):
         with profiling.span("scan"):
             rows = self.slot_rows.reshape(-1, self.slot_rows.shape[-1])
             leaf_all = self.slot_leaf.long()
-            dpid_all = self.slot_dpid
+            dpid_all = self._layout.dpid if self._sq_mode else self.slot_dpid
             q_sq = (queries * queries).sum(-1)
             sq_res = self._sq_mode
             if sq_res:
@@ -345,79 +340,29 @@ class TreeXSearcher(base.Searcher):
                             dpid_all[torch.clamp_min(slots, 0).long()], -1)
         return vals, dpids
 
-    def _pruned_select(self, queries, k_pre: int, leaves: int, restrict,
-                       pre_tokenized=None):
-        """Leaf-gathered exact selection through the K1 scorer."""
-        with profiling.span("tokenize"):
-            partitioner = self.partitioner
-            num_leaves = partitioner.num_leaves
-            leaves = max(1, min(leaves, num_leaves))
-            nq = queries.shape[0]
-            leaf_ids, valid_sel, _ = partitioner.select_leaves(
-                queries, leaves, pre_tokenized)
-            # Exact f32 q.c_leaf of the f32 centers joins per (query, leaf) at
-            # merge time, whatever tokenized the query (int8 centers, an upper
-            # tree or the caller).
-            c_sel = partitioner.centers[leaf_ids.long()]       # (nq, L, d)
-            pair_bias = torch.bmm(c_sel, queries[:, :, None])[:, :, 0]
-            l2 = self.measure == cfg.SQUARED_L2
-            if l2:
-                pair_bias = 2.0 * pair_bias
-            self._stage("tokenize")
+    def _pruned_tokenize(self, queries, leaves: int, pre_tokenized):
+        # The exact f32 q.c_leaf of the f32 centers, whatever tokenized the
+        # query (int8 centers, an upper tree or the caller).
+        leaf_ids, valid_sel, _ = self.partitioner.select_leaves(
+            queries, leaves, pre_tokenized)
+        c_sel = self.partitioner.centers[leaf_ids.long()]       # (nq, L, d)
+        pair_bias = torch.bmm(c_sel, queries[:, :, None])[:, :, 0]
+        if self.measure == cfg.SQUARED_L2:
+            pair_bias = 2.0 * pair_bias
+        return leaf_ids, valid_sel, pair_bias
 
-        with profiling.span("plan"):
-            d_pad = self.slot_rows.shape[-1]
-            q_bf = torch.nn.functional.pad(
-                queries, (0, d_pad - queries.shape[1])).to(torch.bfloat16)
-            merge_hot = pruned_scan.HOT_LEAVES
-            if nq * leaves <= pruned_scan.QG:
-                plan = pruned_scan.invert_small(
-                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles)
-                merge_hot = leaves
-            else:
-                g_pad, _ = pruned_scan.plan_capacities(
-                    nq, leaves, num_leaves, self._p_num_tiles,
-                    self._p_max_ntiles)
-                plan = pruned_scan.work_plan(
-                    leaf_ids, valid_sel, self._p_tile_start, self._p_ntiles,
-                    self._p_max_ntiles, g_pad)
-            bias2 = self._bias2
-            if restrict is not None:
-                # Allowlists fold into the per-slot bias plane.
-                dp = self.slot_dpid
-                allow = restrict[torch.clamp(dp, 0,
-                                             restrict.shape[0] - 1).long()]
-                allow = allow & (dp >= 0)
-                bias2 = bias2 + torch.where(allow.reshape(bias2.shape), 0.0,
-                                            _PAD_PENALTY)
-            qg_rows = q_bf[plan.qg_query.long()]
-            k_fetch = min(k_pre, self.slot_dpid.shape[0])
-            # kpg=4 keeps the in-group collision loss under ~1e-3 at k=10.
-            kpg = 4 if k_fetch <= 64 else 8
-            self._stage("plan")
-        with profiling.span("score"):
-            packed = pruned_sq.score_work_sq(
-                plan, qg_rows, self.slot_rows, self.slot_scale, bias2,
-                measure_l2=l2, kpg=kpg)
-            self._stage("score")
-        with profiling.span("merge"):
-            tile = self.slot_rows.shape[1]
-            if pruned_scan.fused_merge_enabled(k_fetch):
-                cand_vals, cand_slots = pruned_scan.merge_candidates_fused(
-                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                    self._p_ntiles, self._p_max_ntiles, k_fetch,
-                    pair_bias=pair_bias, tile=tile)
-            else:
-                cand_vals, cand_slots = pruned_scan.merge_candidates(
-                    plan, packed, leaf_ids, valid_sel, self._p_tile_start,
-                    self._p_ntiles, self._p_max_ntiles, k_fetch,
-                    pair_bias=pair_bias, hot=merge_hot, tile=tile)
-            dpids = torch.where(
-                cand_slots >= 0,
-                self.slot_dpid[torch.clamp_min(cand_slots, 0).long()], -1)
-            if l2:
-                # Restore the rank-invariant -||q||^2 (true squared distances).
-                cand_vals = cand_vals - (queries * queries).sum(-1)[:, None]
-            self._stage("merge")
-        return cand_vals, dpids
+    def _pruned_queries(self, queries):
+        d_pad = self.slot_rows.shape[-1]
+        q_bf = torch.nn.functional.pad(
+            queries, (0, d_pad - queries.shape[1])).to(torch.bfloat16)
+        return q_bf, queries if self.measure == cfg.SQUARED_L2 else None, True
+
+    def _pruned_budget(self, k_pre: int):
+        # kpg=4 keeps the in-group collision loss under ~1e-3 at k=10.
+        k_fetch = min(k_pre, self._layout.dpid.shape[0])
+        return k_fetch, 4 if k_fetch <= 64 else 8
+
+    def _pruned_score(self, plan, q_bf, qg_rows, bias, kpg: int):
+        return pruned_sq.score_work_sq(
+            plan, qg_rows, self.slot_rows, self.slot_scale, bias,
+            measure_l2=self.measure == cfg.SQUARED_L2, kpg=kpg)

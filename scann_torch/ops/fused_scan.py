@@ -42,7 +42,7 @@ launches = 0
 QT = 128    # queries per kernel block: the wrapper pads a batch to it
 BS = 2048   # slots per kernel block: callers pad the rows to a multiple
 SUB = 256   # slots per candidate group (one survivor each)
-_PAD_PENALTY = -1e30
+_PAD_PENALTY = ps._PAD_PENALTY
 _SLOT_CHUNK = 65536   # slots per step of the plain version
 _QUERY_BLOCK = 2048   # queries per step of the plain version
 

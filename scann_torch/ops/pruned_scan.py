@@ -10,6 +10,9 @@ mantissa bits, and ``merge_candidates`` (stratified gathers) or
 ``merge_candidates_fused`` (one top-k reduction per packed row) turns those
 survivors into each query's top-k.
 
+Both pruned engines (tree-AH and tree-SQ) hold their layout in one
+``PrunedLayout`` and share ``fits``, ``plan_batch`` and ``candidates``.
+
 Three hand-written CUDA kernels live behind this module: ``score_work`` (K2,
 csrc/pruned_rows.cu, the port of the Pallas kernel ``score_work_pallas``:
 decoded bf16 rows of tree-AH in reconstruct mode), ``merge_groups`` (K6,
@@ -50,6 +53,7 @@ MAX_PLAN_WORK = 100_000  # work-item budget of one plan; larger plans take
 # the dense masked scan (kept equal to the JAX package's boundary)
 HOT_LEAVES = 8  # leaves per query (by tokenization rank) merged at full
 # survivor width; colder leaves contribute each group's top-1 only
+_PAD_PENALTY = -1e30  # bias of padded / disallowed slots
 
 _SENTINEL = 1 << 30
 _ID_BITS = _IDX_BITS + _TILE_BITS
@@ -607,6 +611,76 @@ def merge_candidates_fused(plan: WorkPlan, packed, sel, valid_sel,
     slots = slots.reshape(b, l * k)
     top_vals, pos = topk_ops.top_k(vals, min(k_fetch, l * k))
     return top_vals, torch.gather(slots, -1, pos.long())
+
+
+# ------------------------------------------------- the shared pruned stages
+class PrunedLayout(NamedTuple):
+    """A pruned engine's tile-major slot layout, built once per layout."""
+    tile_start: torch.Tensor  # (num_leaves,) int32 first tile of each leaf
+    ntiles: torch.Tensor      # (num_leaves,) int32 tiles of each leaf
+    max_ntiles: int
+    num_tiles: int
+    dpid: torch.Tensor        # (tiles * tile,) int32 datapoint id, -1 pad
+    bias: torch.Tensor        # (tiles, tile, 1) f32 per-slot bias plane
+    tile: int                 # slots per tile: TILE, or 256 in tree-SQ
+
+
+def fits(layout: PrunedLayout, nq: int, leaves: int) -> bool:
+    """True when the plan stays within MAX_PLAN_WORK items (read at call
+    time); larger plans take the dense masked scan."""
+    num_leaves = layout.ntiles.shape[0]
+    _, w_pad = plan_capacities(nq, min(leaves, num_leaves), num_leaves,
+                               layout.num_tiles, layout.max_ntiles)
+    return w_pad <= MAX_PLAN_WORK
+
+
+def plan_batch(layout: PrunedLayout, sel, valid_sel, restrict=None):
+    """(plan, bias plane, hot leaves) of (B, L) selections: invert_small
+    and an all-hot merge (the full-survivor gather is tiny) at B * L <=
+    QG, else work_plan.  An allowlist folds into the bias plane, so
+    disallowed slots never take survivor capacity."""
+    b, l = sel.shape
+    hot = HOT_LEAVES
+    if b * l <= QG:
+        plan = invert_small(sel, valid_sel, layout.tile_start, layout.ntiles,
+                            layout.max_ntiles)
+        hot = l
+    else:
+        g_pad, _ = plan_capacities(b, l, layout.ntiles.shape[0],
+                                   layout.num_tiles, layout.max_ntiles)
+        plan = work_plan(sel, valid_sel, layout.tile_start, layout.ntiles,
+                         layout.max_ntiles, g_pad)
+    bias = layout.bias
+    if restrict is not None:
+        dp = layout.dpid
+        allow = restrict[torch.clamp(dp, 0, restrict.shape[0] - 1).long()]
+        allow = allow & (dp >= 0)
+        bias = bias + torch.where(allow.reshape(bias.shape), 0.0,
+                                  _PAD_PENALTY)
+    return plan, bias, hot
+
+
+def candidates(layout: PrunedLayout, plan: WorkPlan, packed, sel, valid_sel,
+               k_fetch: int, pair_bias, hot: int, q_l2=None):
+    """Each query's best ``k_fetch`` (values, datapoint ids; -inf and -1
+    dead) through the merge fused_merge_enabled picks.  Under squared L2
+    ``q_l2`` holds the queries the scorer took, whose -||q||^2 is
+    restored so the values are negated squared distances."""
+    if fused_merge_enabled(k_fetch):
+        vals, slots = merge_candidates_fused(
+            plan, packed, sel, valid_sel, layout.tile_start, layout.ntiles,
+            layout.max_ntiles, k_fetch, pair_bias=pair_bias,
+            tile=layout.tile)
+    else:
+        vals, slots = merge_candidates(
+            plan, packed, sel, valid_sel, layout.tile_start, layout.ntiles,
+            layout.max_ntiles, k_fetch, pair_bias=pair_bias, hot=hot,
+            tile=layout.tile)
+    dpids = torch.where(slots >= 0,
+                        layout.dpid[torch.clamp_min(slots, 0).long()], -1)
+    if q_l2 is not None:
+        vals = vals - (q_l2 * q_l2).sum(-1)[:, None]
+    return vals, dpids
 
 
 def build_layout_host(leaf: np.ndarray, num_leaves: int, seed: int = 0,

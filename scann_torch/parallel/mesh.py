@@ -192,7 +192,7 @@ class ShardedTreeAHSearcher:
             # Tree-SQ: no codes; the residual rows re-derive from the
             # database (the sq format stores exactly them).
             slot_leaf = searcher.slot_leaf.cpu().numpy()
-            slot_dpid = searcher.slot_dpid.cpu().numpy()
+            slot_dpid = searcher._layout.dpid.cpu().numpy()
             codes = np.zeros((slot_leaf.shape[0], 0), np.uint8)
             codebook = None
         else:

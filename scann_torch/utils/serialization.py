@@ -123,7 +123,8 @@ def collect_assets(searcher):
     elif tname == "TreeXSearcher":
         put("slot_rows", searcher.slot_rows)
         put("slot_leaf", searcher.slot_leaf)
-        put("slot_dpid", searcher.slot_dpid)
+        put("slot_dpid", searcher._layout.dpid if searcher._sq_mode
+            else searcher.slot_dpid)
         put("tx_inv_mult", searcher._inv_mult)
         put("tx_sq_norms", searcher._sq_norms)
         put("datapoint_to_token",
@@ -133,12 +134,12 @@ def collect_assets(searcher):
         if searcher._sq_mode:
             # Residual int8 tile-major leaves (the pruned path).
             meta["tx_mode"] = "residual_int8"
-            meta["max_ntiles"] = searcher._p_max_ntiles
-            meta["num_tiles"] = searcher._p_num_tiles
+            meta["max_ntiles"] = searcher._layout.max_ntiles
+            meta["num_tiles"] = searcher._layout.num_tiles
             put("tx_scale", searcher.slot_scale)
-            put("tx_bias2", searcher._bias2)
-            put("tx_tile_start", searcher._p_tile_start)
-            put("tx_ntiles", searcher._p_ntiles)
+            put("tx_bias2", searcher._layout.bias)
+            put("tx_tile_start", searcher._layout.tile_start)
+            put("tx_ntiles", searcher._layout.ntiles)
         put_partitioner(searcher.partitioner)
     else:
         raise ValueError(f"cannot serialize searcher type {tname}")
@@ -308,20 +309,22 @@ def _restore_searcher(blob: dict, arrays: dict, docids, dev):
         s.quantize_mode = scann_config.brute_force.quantize
         s.slot_rows = tensor("slot_rows")
         s.slot_leaf = tensor("slot_leaf")
-        s.slot_dpid = tensor("slot_dpid")
+        dpid = tensor("slot_dpid")
         s._inv_mult = tensor("tx_inv_mult")
         s._sq_norms = tensor("tx_sq_norms")
         s._num_slots = meta["num_slots"]
         s._chunk = meta["chunk"]
         s._sq_mode = meta.get("tx_mode") == "residual_int8"
         if s._sq_mode:
+            from scann_torch.ops import pruned_scan
             tile = s.slot_rows.shape[1]
             s.slot_scale = tensor("tx_scale").reshape(-1, tile, 1)
-            s._bias2 = tensor("tx_bias2").reshape(-1, tile, 1)
-            s._p_tile_start = tensor("tx_tile_start")
-            s._p_ntiles = tensor("tx_ntiles")
-            s._p_max_ntiles = meta["max_ntiles"]
-            s._p_num_tiles = meta["num_tiles"]
+            s._layout = pruned_scan.PrunedLayout(
+                tensor("tx_tile_start"), tensor("tx_ntiles"),
+                meta["max_ntiles"], meta["num_tiles"], dpid,
+                tensor("tx_bias2").reshape(-1, tile, 1), tile)
+        else:
+            s.slot_dpid = dpid
         s.datapoint_to_token = arrays["datapoint_to_token"]
         s.partitioner = partitioner()
         if s.reorder_helper is not None and s.reorder_helper._leaf is not None:

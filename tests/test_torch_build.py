@@ -94,15 +94,20 @@ def test_residual_encode_and_layout(measure):
     assert ts._build_sq(torch.from_numpy(x), tokens)
     np.testing.assert_array_equal(ts.slot_rows.numpy(),
                                   np.asarray(js.slot_rows))
-    for name in ("slot_leaf", "slot_dpid", "_p_tile_start", "_p_ntiles"):
-        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+    lay = ts._layout
+    for name, got in (("slot_leaf", ts.slot_leaf), ("slot_dpid", lay.dpid),
+                      ("_p_tile_start", lay.tile_start),
+                      ("_p_ntiles", lay.ntiles)):
+        np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(js, name)), name)
-    for name in ("slot_scale", "_bias2"):
-        np.testing.assert_allclose(getattr(ts, name).numpy(),
+    for name, got in (("slot_scale", ts.slot_scale), ("_bias2", lay.bias)):
+        np.testing.assert_allclose(got.numpy(),
                                    np.asarray(getattr(js, name)),
                                    rtol=1e-5, atol=1e-5, err_msg=name)
     if measure == "squared_l2":
         np.testing.assert_allclose(ts._sq_norms.numpy(),
                                    np.asarray(js._sq_norms), rtol=1e-5)
-    for name in ("_p_max_ntiles", "_p_num_tiles", "_num_slots", "_chunk"):
-        assert getattr(ts, name) == getattr(js, name), name
+    for name, got in (("_p_max_ntiles", lay.max_ntiles),
+                      ("_p_num_tiles", lay.num_tiles),
+                      ("_num_slots", ts._num_slots), ("_chunk", ts._chunk)):
+        assert got == getattr(js, name), name

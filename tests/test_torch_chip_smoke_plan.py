@@ -23,8 +23,8 @@ def test_plan_check_holds_the_main_paths_plan():
     ops = chip_smoke.plan_operands(s, q, 4)
     leaf_ids, valid, _ = s.partitioner.select_leaves(q, 4)
     assert torch.equal(ops[0], leaf_ids) and torch.equal(ops[1], valid)
-    assert ops[-1] == ps.plan_capacities(64, 4, 20, s._p_num_tiles,
-                                         s._p_max_ntiles)[0]
+    assert ops[-1] == ps.plan_capacities(64, 4, 20, s._layout.num_tiles,
+                                         s._layout.max_ntiles)[0]
     rec = chip_smoke.plan_check(torch, s, q, 4, "a CPU tree-SQ index")
     assert rec["bit_equal"] and rec["launches"] == 0
     assert (rec["queries"], rec["leaves"], rec["num_leaves"]) == (64, 4, 20)

@@ -181,12 +181,15 @@ def test_fused_merge_policy_reads_the_environment_at_call_time(monkeypatch):
     assert tps._BIG_NEG_F == jps._BIG_NEG_F == -2.0 ** 127
 
 
+@pytest.mark.parametrize("engine,tile", [("tree_sq", 256), ("tree_ah", 512)])
 def test_tree_sq_search_with_the_fused_merge_on_in_both_packages(
-        tmp_path, monkeypatch):
-    """End to end on a JAX-built tree-SQ index (256-slot tiles, pair bias
-    q.c_leaf): with both packages' switches on, the same ids and
-    distances; and the port's fused merge finds what its stratified merge
-    finds."""
+        tmp_path, monkeypatch, engine, tile):
+    """End to end on a JAX-built index, through the merge both engines
+    share: tree-SQ (256-slot tiles, pair bias q.c_leaf) and tree-AH (int8
+    lookup through K3's plain version, 512-slot tiles, pair bias q.c_leaf
+    of its residual codes).  With both packages' switches on, the same
+    ids and distances; and the port's fused merge finds what its
+    stratified merge finds."""
     import scann_tpu
     import scann_torch
     r = np.random.default_rng(4)
@@ -197,10 +200,11 @@ def test_tree_sq_search_with_the_fused_merge_on_in_both_packages(
          + 0.5 * r.standard_normal((150, 32))).astype(np.float32)
     db /= np.linalg.norm(db, axis=1, keepdims=True)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    js = (scann_tpu.builder(db, 10, "dot_product")
-          .tree(num_leaves=32, num_leaves_to_search=6,
-                training_sample_size=4000)
-          .score_brute_force(quantize="int8").build())
+    b = scann_tpu.builder(db, 10, "dot_product").tree(
+        num_leaves=32, num_leaves_to_search=6, training_sample_size=4000)
+    js = (b.score_brute_force(quantize="int8") if engine == "tree_sq"
+          else b.score_ah(2, anisotropic_quantization_threshold=0.2,
+                          training_sample_size=4000)).build()
     js.serialize(str(tmp_path))
     ts = scann_torch.load_searcher(str(tmp_path), device="cpu")
     off = ts.search_batched(q, leaves_to_search=6)
@@ -214,7 +218,7 @@ def test_tree_sq_search_with_the_fused_merge_on_in_both_packages(
             calls.append(k.get("tile")), _f(*a, **k))[1])
     wi, wd = js.search_batched(q, leaves_to_search=6)
     gi, gd = ts.search_batched(q, leaves_to_search=6)
-    assert calls == [256]
+    assert calls == [tile]
     # By membership: two candidates of different leaves whose totals tie
     # to the last bit of the f32 pair bias may swap places.
     agree = (wi[:, :, None] == gi[:, None, :]).any(-1).mean()

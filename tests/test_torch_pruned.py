@@ -270,6 +270,47 @@ def test_merge_candidates_equal_given_same_packed(hot, small):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("tile", [256, 512])
+def test_plan_batch_and_fits_on_both_tile_sizes(tile, monkeypatch):
+    """The shared plan stage over a PrunedLayout of either engine's tile:
+    an allowlist marks exactly the disallowed live slots with
+    _PAD_PENALTY; B x L <= QG takes invert_small with every leaf hot,
+    larger batches the plan with HOT_LEAVES; fits flips at
+    MAX_PLAN_WORK."""
+    r = np.random.default_rng(tile)
+    nl = 9
+    leaf = np.repeat(np.arange(nl), r.integers(1, 3 * tile, nl))
+    order, tile_start, ntiles, num_tiles = tps.build_layout_host(
+        leaf, nl, seed=0, tile=tile)
+    dpid = torch.from_numpy(order.astype(np.int32))
+    bias = torch.where(dpid >= 0, 0.0, tps._PAD_PENALTY).reshape(
+        num_tiles, tile, 1)
+    layout = tps.PrunedLayout(
+        torch.from_numpy(tile_start), torch.from_numpy(ntiles),
+        int(ntiles.max()), num_tiles, dpid, bias, tile)
+    allow = torch.from_numpy(r.random(len(leaf)) < 0.5)
+    live = dpid >= 0
+    for b, l in ((32, 4), (96, 5)):
+        sel, valid = _selection(r, b, l, nl)
+        args = (torch.from_numpy(sel), torch.from_numpy(valid))
+        small = b * l <= tps.QG
+        plan, got, hot = tps.plan_batch(layout, *args, allow)
+        want = _torch_plan(sel, valid, tile_start, ntiles, small)
+        assert all(torch.equal(g, w) for g, w in zip(plan, want))
+        assert hot == (l if small else tps.HOT_LEAVES)
+        added = (got - bias).reshape(-1)
+        np.testing.assert_array_equal(
+            added[live].numpy(), np.where(
+                allow[dpid[live].long()].numpy(), 0.0,
+                np.float32(tps._PAD_PENALTY)))
+        assert tps.plan_batch(layout, *args)[1] is bias
+    _, w_pad = tps.plan_capacities(96, 5, nl, num_tiles, int(ntiles.max()))
+    monkeypatch.setattr(tps, "MAX_PLAN_WORK", w_pad)
+    assert tps.fits(layout, 96, 5)
+    monkeypatch.setattr(tps, "MAX_PLAN_WORK", w_pad - 1)
+    assert not tps.fits(layout, 96, 5)
+
+
 def test_build_layout_host_identical():
     r = np.random.default_rng(9)
     leaf = r.integers(0, 12, 3000)

@@ -232,12 +232,14 @@ def test_decoded_layouts_equal_on_a_jax_built_index(measure, tree, tmp_path):
         return
     js._ensure_pruned()
     ts._ensure_pruned()
-    hold(ts._p_rows, ts._p_bias, js._p_rows, js._p_bias)
-    assert ts._p_bias.shape == (ts._p_num_tiles, tps.TILE, 1)
-    for name in ("_p_dpid", "_p_tile_start", "_p_ntiles"):
-        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+    lay = ts._layout
+    hold(ts._p_rows, lay.bias, js._p_rows, js._p_bias)
+    assert lay.bias.shape == (lay.num_tiles, tps.TILE, 1)
+    for name, got in (("_p_dpid", lay.dpid), ("_p_tile_start", lay.tile_start),
+                      ("_p_ntiles", lay.ntiles)):
+        np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(js, name)))
-    assert ts._p_max_ntiles == js._p_max_ntiles
+    assert lay.max_ntiles == js._p_max_ntiles
 
 
 def test_port_built_layout_takes_the_same_random_slot_order():

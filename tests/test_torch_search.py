@@ -129,7 +129,7 @@ def test_build_parity_and_cross_load(data, measure, tmp_path):
     js = _tree(scann_tpu.builder(db, 10, measure)).build()
     ts = _tree(scann_torch.builder(db, 10, measure, device="cpu")).build()
     assert ts.slot_rows.dtype == torch.int8
-    assert ts.slot_dpid.dtype == ts._p_tile_start.dtype == torch.int32
+    assert ts._layout.dpid.dtype == ts._layout.tile_start.dtype == torch.int32
     for leaves in (2, 6):
         rj = _recall(js.search_batched(q, leaves_to_search=leaves)[0], truth)
         got = ts.search_batched(q, leaves_to_search=leaves)

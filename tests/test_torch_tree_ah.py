@@ -191,13 +191,13 @@ def _flush_fault_rows(ts, jax_cand, port_cand):
     slot of the group), what a flushed survivor unpacks to, and the port
     holds in its place another slot of that same group of that leaf.  A
     disagreement of any other kind leaves its row held."""
-    dpid = ts._p_dpid.numpy()
+    dpid = ts._layout.dpid.numpy()
     live = np.nonzero(dpid >= 0)[0]
     pos = np.full(int(dpid.max()) + 1, -1, np.int64)
     pos[dpid[live]] = live
-    ntiles = ts._p_ntiles.numpy()
+    ntiles = ts._layout.ntiles.numpy()
     tile_leaf = np.repeat(np.arange(len(ntiles)), ntiles)
-    tile0 = ts._p_tile_start.numpy()
+    tile0 = ts._layout.tile_start.numpy()
 
     def identity(i):
         tile, slot = divmod(pos[i], tps.TILE)
