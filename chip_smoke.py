@@ -506,6 +506,86 @@ def plan_check(torch, searcher, queries, leaves, what):
     return rec
 
 
+def merge_operands(torch, searcher, queries, leaves, k_pre):
+    """The operands of the main path's merge for this batch, as
+    _pruned_select makes them (the engine's tokenize, plan, budget and
+    scorer, no allowlist): (args, keywords) of pruned_scan.select_merge and
+    merge_ids_torch."""
+    from scann_torch.ops import pruned_scan
+    lay = searcher._layout
+    queries = searcher._project_queries(queries)
+    leaves = max(1, min(leaves, searcher.partitioner.num_leaves))
+    leaf_ids, valid, pair_bias = searcher._pruned_tokenize(queries, leaves,
+                                                           None)
+    q_op, q_l2, grouped = searcher._pruned_queries(queries)
+    plan, bias, hot = pruned_scan.plan_batch(lay, leaf_ids, valid)
+    qg_rows = q_op[plan.qg_query.long()] if grouped else None
+    k_fetch, kpg = searcher._pruned_budget(k_pre)
+    packed = searcher._pruned_score(plan, q_op, qg_rows, bias, kpg)
+    q_norm = None if q_l2 is None else (q_l2 * q_l2).sum(-1)
+    args = (packed, plan.work_active, plan.pair_gid, plan.pair_row,
+            leaf_ids.to(torch.int32).contiguous(), valid.contiguous(),
+            lay.tile_start, lay.ntiles, lay.dpid,
+            None if pair_bias is None else pair_bias.contiguous(), q_norm)
+    return args, dict(max_ntiles=lay.max_ntiles, k_fetch=k_fetch, hot=hot,
+                      tile=lay.tile)
+
+
+def merge_check(torch, searcher, queries, leaves, k_pre, what):
+    """The merge of the main path's operands (pruned_scan.select_merge: the
+    selection kernel on CUDA tensors, the path candidates takes there)
+    against merge_ids_torch on the same operands, values and ids bit for
+    bit; on the card exactly one kernel launch, both timed, the byte bound
+    (merge_breakdown.bound_bytes) and the occupancy.  The check's own
+    launches are not counted.  Returns the record."""
+    from scann_torch import _cuda
+    from scann_torch.ops import pruned_scan
+    from scann_torch.tools import merge_breakdown
+    args, kw = merge_operands(torch, searcher, queries, leaves, k_pre)
+    packed, sel = args[0], args[4]
+    mnt, tile, k_fetch = kw["max_ntiles"], kw["tile"], kw["k_fetch"]
+    kgp, gp = packed.shape[-1] // mnt, tile // pruned_scan.SUBP
+    n = pruned_scan.merge_width(sel.shape[1], kw["hot"], mnt, kgp, gp)
+    path = pruned_scan.merge_path(k_fetch, n, kgp, gp, mnt)
+    if queries.is_cuda and path != "select":
+        raise AssertionError(f"merge of {what}: the main path takes the "
+                             f"{path} merge, not the selection kernel")
+    before = pruned_scan.launches_select
+    got = pruned_scan.select_merge(*args, **kw)
+    launched = pruned_scan.launches_select - before
+    want = pruned_scan.merge_ids_torch(*args, **kw)
+    for name, g, w in zip(("values", "ids"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"merge of {what}: {name} differ from "
+                                 f"merge_ids_torch")
+    b, l = sel.shape
+    k = got[0].shape[1]
+    rec = {"queries": b, "leaves": l, "hot": min(kw["hot"], l),
+           "max_ntiles": mnt, "kgp": kgp, "n": n, "k": k,
+           "live": float((got[1] >= 0).float().mean()), "bit_equal": True,
+           "max_abs_err": 0.0, "launches": launched}
+    if queries.is_cuda:
+        if launched != 1:
+            raise AssertionError(f"merge of {what}: {launched} selection "
+                                 f"kernel calls, want 1")
+        bounds = dict(kw)
+        del bounds["k_fetch"]
+        rec["ms"] = time_ms(torch,
+                            lambda: pruned_scan.select_merge(*args, **kw))
+        rec["plain_ms"] = time_ms(torch, lambda: pruned_scan.merge_ids_torch(
+            *args, **kw), reps=PLAIN_TIMING_REPS)
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            merge_breakdown.bound_bytes(args, bounds, k_fetch), 0.0)
+        rec["occupancy"] = _cuda.occupancy("pruned_merge", n, k)
+        log(f"merge of {what} ({b} queries x {l} leaves, {kw['hot']} hot, "
+            f"max_ntiles {mnt}, kgp {kgp}, n {n}, k {k}): bit-equal to "
+            f"merge_ids_torch; {rec['ms']:.3f} ms (plain "
+            f"{rec['plain_ms']:.3f} ms), bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']}; occupancy {rec['occupancy']}")
+    pruned_scan.launches_select = before
+    return rec
+
+
 def k1_inputs(torch, searcher, queries, leaves, measure_l2):
     """The exact K1 inputs the main path builds for this batch."""
     part = searcher.partitioner
@@ -897,6 +977,13 @@ def sift_phase(torch, scann_torch):
             out["plan"] = plan_check(
                 torch, s, torch.as_tensor(queries, device="cuda"),
                 SIFT_SWEEP[0], f"SIFT tree-SQ at leaves={SIFT_SWEEP[0]}")
+        else:
+            # The selection kernel at the SIFT cell's shape (k_fetch 40).
+            out["select_merge"] = merge_check(
+                torch, s, torch.as_tensor(queries, device="cuda"),
+                SIFT_SWEEP[0], reorder,
+                f"SIFT tree-SQ + reorder({reorder}) at leaves="
+                f"{SIFT_SWEEP[0]}")
         s.stage_hook = timer
         pruned_sq.launches = 0
         for leaves in SIFT_SWEEP:
@@ -1312,6 +1399,9 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
     # The plan kernels at the glove cell's shape (this index, leaves 100).
     plan = plan_check(torch, main, q_dev, LEAVES_TO_SEARCH,
                       f"tree-AH at leaves={LEAVES_TO_SEARCH}")
+    # The selection kernel at the glove cell's shape (k_fetch 100).
+    merge = merge_check(torch, main, q_dev, LEAVES_TO_SEARCH, AH_REORDER,
+                        f"tree-AH at leaves={LEAVES_TO_SEARCH}")
 
     # Kernel phase: K3 and K4 at the main path's inputs.
     k3, k4 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
@@ -1494,8 +1584,8 @@ def tree_ah_phase(torch, scann_torch, db, queries, truth, q_dev, k6, work):
         refusal = "no error"
     except ValueError as e:
         refusal = f"ValueError: {e}"
-    return k3, k4, {"build_s": build_s, "plan": plan, "points": points,
-                    "dense": dense,
+    return k3, k4, {"build_s": build_s, "plan": plan,
+                    "select_merge": merge, "points": points, "dense": dense,
                     "merge": merges, "b_pad": main._p_codes.shape[-1] * 2,
                     "k4_d_pad": main_f._p_mean.shape[0],
                     "reference_assets": (ref_dir, ref_ids, ref_save_s,
@@ -1864,7 +1954,8 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     out = {}
     launches = {"pruned_sq": 0, "pruned_rows": 0, "pruned_lut": 0,
                 "pruned_codes": 0, "fused_scan": 0}
-    pruned_scan.launches_plan = 0     # read once, at the phase's end
+    # read once, at the phase's end
+    pruned_scan.launches_plan = pruned_scan.launches_select = 0
     timer = StageTimer(torch)
 
     def index_mb(s):
@@ -1940,6 +2031,10 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
     log(f"K3 vs plain on the SOAR layout (kpg {kpg}, "
         f"{int(a3[0].work_active.sum())} active items): bit-equal")
     del a3, got, want
+    # The selection kernel at the SOAR cell's shape (k_fetch 300).
+    out["select_merge"] = merge_check(
+        torch, soar, q_dev, SOAR_LEAVES, SOAR_REORDER,
+        f"SOAR tree-AH at leaves={SOAR_LEAVES}")
 
     # 4. Search parameters on the config-4 SOAR index, each held by rule
     # on every row.
@@ -2108,6 +2203,7 @@ def search_features_phase(torch, scann_torch, db, queries, truth, q_dev):
         s = None
         torch.cuda.empty_cache()
     launches["pruned_plan"] = pruned_scan.launches_plan
+    launches["pruned_merge"] = pruned_scan.launches_select
     out["launches"] = launches
     log(f"phase 12 launches: {launches}")
     return launches, out
@@ -2244,7 +2340,8 @@ def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
     out = {}
     launches = {"pruned_sq": 0, "pruned_rows": 0, "pruned_lut": 0,
                 "pruned_codes": 0, "fused_scan": 0}
-    pruned_scan.launches_plan = 0     # read once, at the phase's end
+    # read once, at the phase's end
+    pruned_scan.launches_plan = pruned_scan.launches_select = 0
     errs = {}
     timer = StageTimer(torch)
 
@@ -2588,6 +2685,7 @@ def encodings_phase(torch, scann_torch, glove, gist, sift, wide_summary):
                              "product")
     out["sparse"] = sp
     launches["pruned_plan"] = pruned_scan.launches_plan
+    launches["pruned_merge"] = pruned_scan.launches_select
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 13 launches: {launches}; {out['seconds']:.1f} s")
@@ -2714,7 +2812,8 @@ def mutation_phase(torch, scann_torch, db, queries, ah_at100):
     from scann_torch.ops import pruned_scan
     t_phase = time.perf_counter()
     launches = {"pruned_rows": 0, "pruned_lut": 0, "fused_scan": 0}
-    pruned_scan.launches_plan = 0     # read once, at the phase's end
+    # read once, at the phase's end
+    pruned_scan.launches_plan = pruned_scan.launches_select = 0
     errs = {}
     out = {}
     q_dev = torch.as_tensor(queries, device="cuda")
@@ -3006,6 +3105,7 @@ def mutation_phase(torch, scann_torch, db, queries, ah_at100):
     out["f"] = bf
     log(f"14f brute force with docids against numpy exact: {bf}")
     launches["pruned_plan"] = pruned_scan.launches_plan
+    launches["pruned_merge"] = pruned_scan.launches_select
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 14 launches: {launches}; {out['seconds']:.1f} s")
@@ -3024,7 +3124,8 @@ _KERNEL_COUNTERS = (
     ("pruned_codes", "pruned_lut", "launches_codes"),
     ("fused_scan", "fused_scan", "launches"),
     ("merge_groups", "pruned_scan", "launches_merge"),
-    ("pruned_plan", "pruned_scan", "launches_plan"))
+    ("pruned_plan", "pruned_scan", "launches_plan"),
+    ("pruned_merge", "pruned_scan", "launches_select"))
 
 # Run in a fresh process: reload each exported program with only
 # scann_torch.export, search the queries, and report the kernels each
@@ -3065,7 +3166,7 @@ json.dump(out, open(sys.argv[2], "w"))
 
 
 def kernel_counts():
-    """The seven kernels' launch counters, by kernel name."""
+    """The eight kernels' launch counters, by kernel name."""
     import importlib
     return {name: getattr(importlib.import_module(f"scann_torch.ops.{mod}"),
                           attr) for name, mod, attr in _KERNEL_COUNTERS}
@@ -3749,6 +3850,7 @@ def main():
     timer = StageTimer(torch)
     searcher.stage_hook = timer
     pruned_sq.launches = pruned_scan.launches_plan = 0
+    pruned_scan.launches_select = 0
     points = []
     for leaves in SWEEP + (nl,):
         idx, dist, wall, stages, launched = timed_search(
@@ -3766,9 +3868,13 @@ def main():
     searcher.stage_hook = None
     k1["launches"] = pruned_sq.launches
     plan_launches = pruned_scan.launches_plan
-    if k1["launches"] == 0 or plan_launches == 0:
-        raise AssertionError(f"the main path launched K1 {k1['launches']} "
-                             f"and the plan kernels {plan_launches} times")
+    merge_launches = pruned_scan.launches_select
+    if k1["launches"] == 0 or plan_launches == 0 or \
+            merge_launches != plan_launches:
+        raise AssertionError(f"the main path launched K1 {k1['launches']}, "
+                             f"the plan kernels {plan_launches} and the "
+                             f"selection kernel {merge_launches} times (one "
+                             f"a plan)")
     at100 = next(p for p in points if p["leaves"] == 100)["recall"]
     if at100 < RECALL_FLOOR_AT_100:
         raise AssertionError(f"recall@10 {at100:.4f} at leaves=100 is under "
@@ -3847,9 +3953,13 @@ def main():
                "mutation": mutation, "entry_points": entry,
                "sharded": sharded}
     log("summary " + json.dumps(summary))
-    # What the card makes of the seven kernels at the main path's shapes
+    # What the card makes of the eight kernels at the main path's shapes
     # (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerSM); K6 at
-    # tree-SQ's and tree-AH's row widths and at the widest.
+    # tree-SQ's and tree-AH's row widths and at the widest; the selection
+    # kernel at the three cells' shapes.
+    merges = {"glove tree-AH": ah_summary["select_merge"],
+              "SOAR": features["select_merge"],
+              "SIFT tree-SQ": sift_summary["select_merge"]}
     log("occupancy " + json.dumps({
         "pruned_sq": {"d_pad": d_pad, "kpg": 4, **k1["occupancy"]},
         "pruned_rows": {"d_pad": recon_summary["d_pad"], "kpg": 8,
@@ -3863,17 +3973,23 @@ def main():
                          for w, o in k6["occupancy"].items()},
         "pruned_plan": {f: _cuda.occupancy("pruned_plan", i) for i, f in
                         enumerate(("radix_histogram", "radix_scatter",
-                                   "plan_bounds", "plan_emit"))}}))
-    # The plan kernels' line: their timing at the glove cell's shape
-    # (phase 6; the SIFT cell's is in the summary), their launches in the
-    # main path's sweep (phase 5).
+                                   "plan_bounds", "plan_emit"))},
+        "pruned_merge": {f"{what}: n {m['n']}, k {m['k']}": m["occupancy"]
+                         for what, m in merges.items()}}))
+    # The plan kernels' and the selection kernel's lines: their timing at
+    # the glove cell's shape (phase 6; the SIFT cell's, and the merge's at
+    # the SOAR cell's, are in the summary), their launches in the main
+    # path's sweep (phase 5).
     plan = {**ah_summary["plan"], "launches": plan_launches}
-    # library_ms is None for all seven: no single PyTorch call computes a
+    merge = {**ah_summary["select_merge"], "launches": merge_launches}
+    # library_ms is None for all eight: no single PyTorch call computes a
     # gathered tile x query-group score with a packed per-32-slot top-k
     # (K1-K4), a product reduced to per-group maxima without the score
     # matrix (K5: the matmul + amax / argmax composition is timed above),
-    # k masked-maximum passes over rewritten keys (K6), or inverts
-    # (query, leaf) pairs into leaf-major groups (the plan).
+    # k masked-maximum passes over rewritten keys (K6), inverts (query,
+    # leaf) pairs into leaf-major groups (the plan), or assembles hot and
+    # cold survivors into one exact top k with ids (the merge: its plain
+    # version's core is torch.topk over materialized int64 keys).
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"scann_torch/csrc/{name}.cu", "replaces": replaces,
@@ -3899,7 +4015,10 @@ def main():
              "keys in registers, redux.sync passes"),
             ("pruned_plan", None, plan,
              "stable LSD radix sort by leaf (match_any ranks), run bounds, "
-             "a block a group"))]}))
+             "a block a group"),
+            ("pruned_merge", None, merge,
+             "a block a query: keys in shared memory, byte radix select, "
+             "bitonic sort of the k winners"))]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

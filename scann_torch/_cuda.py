@@ -56,6 +56,10 @@ SIGNATURES = {
         "pruned_plan": ([_P] * 12 + [_L] + [_I] * 5 + [_P], _I),
         "pruned_plan_occupancy": ([_I, _P], _I),
     },
+    "pruned_merge": {
+        "pruned_merge": ([_P] * 12 + [_I] * 8 + [_P], _I),
+        "pruned_merge_occupancy": ([_I, _I, _P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -13,6 +13,7 @@ op                         K     CUDA implementation (csrc/)
 ``fused_scan_groupmax``    K5    fused_scan.cu ``fused_scan_groupmax``
 ``merge_groups``           K6    merge_groups.cu ``merge_groups_topk``
 ``pruned_plan``            plan  pruned_plan.cu ``pruned_plan``
+``pruned_merge``           merge pruned_merge.cu ``pruned_merge``
 =========================  ====  ==========================================
 
 Each takes tensors, ints, floats and bools only (a ``WorkPlan`` travels as
@@ -21,9 +22,10 @@ kernel through ctypes on the current stream (or raises) and adds one to
 its module's launch counter (``pruned_sq.launches``,
 ``pruned_scan.launches``, ``pruned_lut.launches_lut``,
 ``pruned_lut.launches_codes``, ``fused_scan.launches``,
-``pruned_scan.launches_merge``, ``pruned_scan.launches_plan``; the two
-halves of K3 count once, at the scorer, and the plan's kernels once a
-plan).  The CPU implementation is the plain torch version.  The fake
+``pruned_scan.launches_merge``, ``pruned_scan.launches_plan``,
+``pruned_scan.launches_select``; the two halves of K3 count once, at the
+scorer, and the plan's kernels once a plan).  The CPU implementation is
+the plain torch version.  The fake
 implementation gives the output shapes, so ``torch.export`` traces a
 search through the ops without reading their operands: an exported
 program holds calls to ``torch.ops.scann_torch.*``, and the process that
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import types
+from typing import Optional
 
 import torch
 
@@ -469,9 +472,95 @@ def _(sel, valid_sel, tile_start, ntiles, max_ntiles, g_pad):
     return _plan_out(sel, max_ntiles, g_pad)
 
 
+# ---------------------------------------------------------------- merge
+@torch.library.custom_op("scann_torch::pruned_merge", mutates_args=(),
+                         device_types="cpu")
+def pruned_merge(packed: Tensor, work_active: Tensor, pair_gid: Tensor,
+                 pair_row: Tensor, sel: Tensor, valid_sel: Tensor,
+                 tile_start: Tensor, ntiles: Tensor, dpid: Tensor,
+                 pair_bias: Optional[Tensor], q_norm: Optional[Tensor],
+                 max_ntiles: int, k_fetch: int, hot: int,
+                 tile: int) -> tuple[Tensor, Tensor]:
+    """Each query's top min(k_fetch, n) merge candidates as (values,
+    datapoint ids), ``pruned_scan.merge_ids_torch``."""
+    return ps.merge_ids_torch(
+        packed, work_active, pair_gid, pair_row, sel, valid_sel, tile_start,
+        ntiles, dpid, pair_bias, q_norm, max_ntiles=max_ntiles,
+        k_fetch=k_fetch, hot=hot, tile=tile)
+
+
+def _merge_out(packed, sel, max_ntiles: int, k_fetch: int, hot: int,
+               tile: int):
+    b, l = sel.shape
+    n = ps.merge_width(l, hot, max_ntiles, packed.shape[-1] // max_ntiles,
+                       tile // ps.SUBP)
+    k = min(k_fetch, n)
+    return (packed.new_empty((b, k), dtype=torch.float32),
+            packed.new_empty((b, k), dtype=torch.int32))
+
+
+@pruned_merge.register_kernel("cuda")
+def _pruned_merge_cuda(packed, work_active, pair_gid, pair_row, sel,
+                       valid_sel, tile_start, ntiles, dpid, pair_bias, q_norm,
+                       max_ntiles, k_fetch, hot, tile):
+    del work_active
+    dev = packed.device
+    b, l = sel.shape
+    g_pad, qg, w = packed.shape
+    hot = min(hot, l)
+    kgp, gp = w // max(max_ntiles, 1), tile // ps.SUBP
+    n = ps.merge_width(l, hot, max_ntiles, kgp, gp)
+    if (qg != ps.QG or max_ntiles < 1 or w != max_ntiles * kgp
+            or tile != gp * ps.SUBP or hot < 1
+            or not ps.select_fits(n, min(k_fetch, n), kgp, gp, max_ntiles)):
+        raise ValueError(
+            f"unsupported merge: {qg} rows a group (needs {ps.QG}), w {w}, "
+            f"max_ntiles {max_ntiles} (needs <= {ps.MAX_NTILES}), tile "
+            f"{tile}, hot {hot} of {l} leaves, {n} candidates (needs <= "
+            f"{ps._SELECT_MAX_N}), k_fetch {k_fetch} (k needs 1 to "
+            f"{ps._SELECT_MAX_K}), kgp {kgp} and tile/32 {gp} (need "
+            f"multiples of 4)")
+    _check("packed", packed, torch.int32, (g_pad, qg, w), dev)
+    for name, t, dtype in (("pair_gid", pair_gid, torch.int32),
+                           ("pair_row", pair_row, torch.int32),
+                           ("sel", sel, torch.int32),
+                           ("valid_sel", valid_sel, torch.bool)):
+        _check(name, t, dtype, (b, l), dev)
+    nl = tile_start.shape[0]
+    _check("tile_start", tile_start, torch.int32, (nl,), dev)
+    _check("ntiles", ntiles, torch.int32, (nl,), dev)
+    _check("dpid", dpid, torch.int32, (dpid.shape[0],), dev)
+    if pair_bias is not None:
+        _check("pair_bias", pair_bias, torch.float32, (b, l), dev)
+    if q_norm is not None:
+        _check("q_norm", q_norm, torch.float32, (b,), dev)
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start on a 16-byte boundary (the "
+                         "kernel reads it 16 bytes at a time)")
+    vals, ids = _merge_out(packed, sel, max_ntiles, k_fetch, hot, tile)
+    if b == 0:
+        return vals, ids
+    _launch("pruned_merge", "pruned_merge", dev, packed.data_ptr(),
+            pair_gid.data_ptr(), pair_row.data_ptr(), sel.data_ptr(),
+            valid_sel.data_ptr(), tile_start.data_ptr(), ntiles.data_ptr(),
+            dpid.data_ptr(),
+            None if pair_bias is None else pair_bias.data_ptr(),
+            None if q_norm is None else q_norm.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), b, l, hot, max_ntiles, kgp, gp, tile,
+            vals.shape[1])
+    ps.launches_select += 1
+    return vals, ids
+
+
+@pruned_merge.register_fake
+def _(packed, work_active, pair_gid, pair_row, sel, valid_sel, tile_start,
+      ntiles, dpid, pair_bias, q_norm, max_ntiles, k_fetch, hot, tile):
+    return _merge_out(packed, sel, max_ntiles, k_fetch, hot, tile)
+
+
 OPS = (pruned_sq_score, pruned_rows_score, pruned_lut_build,
        pruned_lut_score, pruned_codes_score, fused_scan_groupmax,
-       merge_groups, pruned_plan)
+       merge_groups, pruned_plan, pruned_merge)
 
 _registering.__exit__(None, None, None)
 del _registering

@@ -13,16 +13,17 @@ survivors into each query's top-k.
 Both pruned engines (tree-AH and tree-SQ) hold their layout in one
 ``PrunedLayout`` and share ``fits``, ``plan_batch`` and ``candidates``.
 
-Three hand-written CUDA kernels live behind this module: ``score_work`` (K2,
+Four hand-written CUDA kernels live behind this module: ``score_work`` (K2,
 csrc/pruned_rows.cu, the port of the Pallas kernel ``score_work_pallas``:
 decoded bf16 rows of tree-AH in reconstruct mode), ``merge_groups`` (K6,
-csrc/merge_groups.cu, the port of ``merge_groups_pallas``) and
-``work_plan`` (csrc/pruned_plan.cu: ``invert``'s plan built on the card
-with no host synchronisation), each through its custom op
-(ops/library.py).  On CUDA tensors they launch their kernels or raise; on
-CPU tensors they run ``score_work_torch`` / ``merge_groups_torch`` /
-``invert``.  The tree-SQ and LUT scorers
-live in ops/pruned_sq.py and ops/pruned_lut.py.
+csrc/merge_groups.cu, the port of ``merge_groups_pallas``), ``work_plan``
+(csrc/pruned_plan.cu: ``invert``'s plan built on the card with no host
+synchronisation) and ``select_merge`` (csrc/pruned_merge.cu: the merge,
+the id lookup and the squared-L2 restore in one kernel), each through its
+custom op (ops/library.py).  On CUDA tensors they launch their kernels or
+raise; on CPU tensors they run ``score_work_torch`` /
+``merge_groups_torch`` / ``invert`` / ``merge_ids_torch``.  The tree-SQ and
+LUT scorers live in ops/pruned_sq.py and ops/pruned_lut.py.
 
 Shapes, constants and path boundaries are the JAX package's, unchanged, so
 both packages take the same path on the same batch.
@@ -31,6 +32,7 @@ both packages take the same path on the same batch.
 from __future__ import annotations
 
 import os
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -59,11 +61,13 @@ _SENTINEL = 1 << 30
 _ID_BITS = _IDX_BITS + _TILE_BITS
 _ID_MASK = (1 << _ID_BITS) - 1
 
-# Kernel launches of K2 and K6 and plans built on the card, counted by
-# their CUDA implementations in ops/library.py (CPU calls never count).
+# Kernel launches of K2 and K6, plans built on the card and merges of the
+# selection kernel, counted by their CUDA implementations in
+# ops/library.py (CPU calls never count).
 launches = 0
 launches_merge = 0
 launches_plan = 0
+launches_select = 0
 
 _WORK_CHUNK = 32
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
@@ -353,7 +357,7 @@ def merge_candidates(plan: WorkPlan, packed, sel, valid_sel, tile_start,
     and -1.  pair_bias: optional (B, L) per-(query, leaf) additive term."""
     b, l = sel.shape
     dev = packed.device
-    g_pad = plan.qg_query.shape[0]
+    g_pad = packed.shape[0]
     kgp = packed.shape[-1] // max_ntiles
     gp = tile // SUBP
     hot = min(hot, l)
@@ -660,27 +664,102 @@ def plan_batch(layout: PrunedLayout, sel, valid_sel, restrict=None):
     return plan, bias, hot
 
 
+# --------------------------------------------------- the selection kernel
+# csrc/pruned_merge.cu computes merge_ids_torch in one launch.  Its limits
+# (the kernel states the same): k = min(k_fetch, n) candidates kept of n =
+# merge_width(...) a query, 16-byte loads of kgp- and gp-word slices.
+_SELECT_MAX_K = 1024
+_SELECT_MAX_N = 49_152
+
+
+def merge_width(l: int, hot: int, max_ntiles: int, kgp: int, gp: int) -> int:
+    """Candidates a query of merge_candidates: every survivor of its hot
+    leaves, one a group of each cold leaf."""
+    hot = min(hot, l)
+    return hot * max_ntiles * kgp + (l - hot) * gp
+
+
+def select_fits(n: int, k: int, kgp: int, gp: int, max_ntiles: int) -> bool:
+    """True when csrc/pruned_merge.cu takes a merge of ``n`` candidates
+    keeping ``k``."""
+    return (1 <= k <= min(n, _SELECT_MAX_K) and n <= _SELECT_MAX_N
+            and kgp % 4 == 0 and gp % 4 == 0 and max_ntiles <= MAX_NTILES)
+
+
+def merge_path(k_fetch: int, n: int, kgp: int, gp: int,
+               max_ntiles: int) -> str:
+    """The merge ``candidates`` takes: "fused" (K6, by fused_merge_enabled),
+    "select" (the selection kernel's op, within its limits) or "plain"
+    (merge_ids_torch)."""
+    if fused_merge_enabled(k_fetch):
+        return "fused"
+    if select_fits(n, min(k_fetch, n), kgp, gp, max_ntiles):
+        return "select"
+    return "plain"
+
+
+def _ids(dpid, vals, slots, q_norm):
+    """Datapoint ids of merged slots (-1 dead) and the squared-L2 restore:
+    values less each query's ||q||^2 when ``q_norm`` is given."""
+    dpids = torch.where(slots >= 0, dpid[torch.clamp_min(slots, 0).long()],
+                        -1)
+    if q_norm is not None:
+        vals = vals - q_norm[:, None]
+    return vals, dpids
+
+
+def merge_ids_torch(packed, work_active, pair_gid, pair_row, sel, valid_sel,
+                    tile_start, ntiles, dpid, pair_bias, q_norm, *,
+                    max_ntiles: int, k_fetch: int, hot: int, tile: int):
+    """Plain version of the selection kernel: merge_candidates over the
+    plan fields it reads, then the id lookup and the restore (_ids).
+    Returns (vals (B, k), dpids (B, k) int32)."""
+    plan = types.SimpleNamespace(pair_gid=pair_gid, pair_row=pair_row,
+                                 work_active=work_active)
+    vals, slots = merge_candidates(plan, packed, sel, valid_sel, tile_start,
+                                   ntiles, max_ntiles, k_fetch,
+                                   pair_bias=pair_bias, hot=hot, tile=tile)
+    return _ids(dpid, vals, slots, q_norm)
+
+
+def select_merge(packed, work_active, pair_gid, pair_row, sel, valid_sel,
+                 tile_start, ntiles, dpid, pair_bias, q_norm, *,
+                 max_ntiles: int, k_fetch: int, hot: int, tile: int):
+    """merge_ids_torch through the custom op ``pruned_merge``
+    (ops/library.py): CPU tensors run it; CUDA tensors launch
+    csrc/pruned_merge.cu (or raise), bit-equal, with no host
+    synchronisation.  The merge must be within select_fits."""
+    check_device(packed)
+    from scann_torch.ops import library
+    return library.pruned_merge(
+        packed, work_active, pair_gid, pair_row,
+        sel.to(torch.int32).contiguous(), valid_sel.contiguous(), tile_start,
+        ntiles, dpid, None if pair_bias is None else pair_bias.contiguous(),
+        q_norm, max_ntiles, k_fetch, hot, tile)
+
+
 def candidates(layout: PrunedLayout, plan: WorkPlan, packed, sel, valid_sel,
                k_fetch: int, pair_bias, hot: int, q_l2=None):
     """Each query's best ``k_fetch`` (values, datapoint ids; -inf and -1
-    dead) through the merge fused_merge_enabled picks.  Under squared L2
-    ``q_l2`` holds the queries the scorer took, whose -||q||^2 is
-    restored so the values are negated squared distances."""
-    if fused_merge_enabled(k_fetch):
+    dead) through the merge merge_path picks.  Under squared L2 ``q_l2``
+    holds the queries the scorer took, whose -||q||^2 is restored so the
+    values are negated squared distances."""
+    q_norm = None if q_l2 is None else (q_l2 * q_l2).sum(-1)
+    kgp = packed.shape[-1] // layout.max_ntiles
+    gp = layout.tile // SUBP
+    n = merge_width(sel.shape[1], hot, layout.max_ntiles, kgp, gp)
+    path = merge_path(k_fetch, n, kgp, gp, layout.max_ntiles)
+    if path == "fused":
         vals, slots = merge_candidates_fused(
             plan, packed, sel, valid_sel, layout.tile_start, layout.ntiles,
             layout.max_ntiles, k_fetch, pair_bias=pair_bias,
             tile=layout.tile)
-    else:
-        vals, slots = merge_candidates(
-            plan, packed, sel, valid_sel, layout.tile_start, layout.ntiles,
-            layout.max_ntiles, k_fetch, pair_bias=pair_bias, hot=hot,
-            tile=layout.tile)
-    dpids = torch.where(slots >= 0,
-                        layout.dpid[torch.clamp_min(slots, 0).long()], -1)
-    if q_l2 is not None:
-        vals = vals - (q_l2 * q_l2).sum(-1)[:, None]
-    return vals, dpids
+        return _ids(layout.dpid, vals, slots, q_norm)
+    merge = select_merge if path == "select" else merge_ids_torch
+    return merge(packed, plan.work_active, plan.pair_gid, plan.pair_row, sel,
+                 valid_sel, layout.tile_start, layout.ntiles, layout.dpid,
+                 pair_bias, q_norm, max_ntiles=layout.max_ntiles,
+                 k_fetch=k_fetch, hot=hot, tile=layout.tile)
 
 
 def build_layout_host(leaf: np.ndarray, num_leaves: int, seed: int = 0,

@@ -47,7 +47,7 @@ def op_cases():
     rows8 = t(r.integers(-127, 128, (nt, 256, d)).astype(np.int8))
     scale = t(r.uniform(1e-3, 1e-2, (nt, 256, 1)).astype(np.float32))
     bias8 = t(-r.uniform(0, 1, (nt, 256, 1)).astype(np.float32))
-    p2, nt2, ntiles2, _, _ = _plan(seed=1)
+    p2, nt2, ntiles2, _, args2 = _plan(seed=1)
     # More pairs than a query group (invert's sorted plan, not
     # invert_small's), some of them invalid.
     *_, plan_args = _plan(seed=2, nl=9, b=70, l=4)
@@ -74,6 +74,16 @@ def op_cases():
     w = p2.work_tile, p2.work_qg, p2.work_active
     w1 = plan.work_tile, plan.work_qg, plan.work_active
     g1, g2 = plan.qg_query.shape[0], p2.qg_query.shape[0]
+    # The merge of p2's packed survivors: 2 of its 3 leaves hot, a pair
+    # bias, the squared-L2 restore and padded slots (id -1).
+    sel2, valid2, ts2 = args2[:3]
+    dpid2 = t(np.where(r.random(nt2 * 512) < 0.9,
+                       r.permutation(nt2 * 512), -1).astype(np.int32))
+    bias2 = t(r.standard_normal(tuple(sel2.shape)).astype(np.float32))
+    norm2 = t(r.uniform(0, 2, sel2.shape[0]).astype(np.float32))
+    merge_args = (packed, p2.work_active, p2.pair_gid, p2.pair_row, sel2,
+                  valid2, ts2, ntiles2, dpid2, bias2, norm2,
+                  int(ntiles2.max()), 10, 2, 512)
     return {
         "pruned_sq_score": (
             library.pruned_sq_score,
@@ -112,4 +122,9 @@ def op_cases():
         "pruned_plan": (
             library.pruned_plan, plan_args,
             lambda: ps.invert(*plan_args, plan_args[-1] * plan_args[-2])),
+        "pruned_merge": (
+            library.pruned_merge, merge_args,
+            lambda: ps.merge_ids_torch(
+                *merge_args[:11], max_ntiles=merge_args[11], k_fetch=10,
+                hot=2, tile=512)),
     }

@@ -18,7 +18,7 @@ def test_every_signature_has_its_source_and_entry_points():
     assert sources == set(_cuda.SIGNATURES)
     assert sources == {"pruned_sq", "pruned_lut", "pruned_codes",
                        "pruned_rows", "fused_scan", "merge_groups",
-                       "pruned_plan"}
+                       "pruned_plan", "pruned_merge"}
     for name, fns in _cuda.SIGNATURES.items():
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert 'extern "C" const char* error_string' in text
@@ -62,7 +62,8 @@ def test_new_kernels_state_what_they_replace():
                            ("pruned_rows", "score_work_pallas"),
                            ("fused_scan", "fused_scan_groupmax"),
                            ("merge_groups", "merge_groups_pallas"),
-                           ("pruned_plan", "Replaces no TPU kernel")):
+                           ("pruned_plan", "Replaces no TPU kernel"),
+                           ("pruned_merge", "Replaces no Pallas kernel")):
         source = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert replaced in source and "What bounds it on the H100" in source
         text = _with_headers(name)

@@ -9,10 +9,11 @@ card (no JAX needed)::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda_entry_points.py
 
-Tolerances are those of tests/test_torch_cuda.py: K3's LUT, K6 and the
-plan are bit-equal, K5's group maxima within 1e-5 relative plus 1e-5 with
-slot ids >= 99.9% equal, K1 / K2 / K4 unpacked values within 2^-14
-relative plus 1e-6 and packed identities >= 99.9% equal."""
+Tolerances are those of tests/test_torch_cuda.py: K3's LUT, K6, the
+plan and the selection kernel are bit-equal, K5's group maxima within
+1e-5 relative plus 1e-5 with slot ids >= 99.9% equal, K1 / K2 / K4
+unpacked values within 2^-14 relative plus 1e-6 and packed identities
+>= 99.9% equal."""
 
 import os
 import subprocess
@@ -55,6 +56,7 @@ _COUNTERS = {
     "fused_scan_groupmax": (fused_scan, "launches"),
     "merge_groups": (ps, "launches_merge"),
     "pruned_plan": (ps, "launches_plan"),
+    "pruned_merge": (ps, "launches_select"),
 }
 
 
@@ -86,7 +88,8 @@ def test_op_launches_its_kernel_and_matches_plain(cuda, name):
         assert getattr(*counter) == before + 1
     got = tuple(g.cpu() for g in got) if isinstance(got, tuple) \
         else got.cpu()
-    if name in ("merge_groups", "pruned_lut_build", "pruned_plan"):
+    if name in ("merge_groups", "pruned_lut_build", "pruned_plan",
+                "pruned_merge"):
         # K6 reads a fully written block here (the plain K2's output).
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     elif name == "fused_scan_groupmax":

@@ -153,10 +153,11 @@ def test_reloaded_export_equals_live_and_jax_export(exported, name):
 
 def test_export_holds_the_kernel_ops(exported):
     _, _, _, paths, _, _ = exported
-    want = {"tree_sq": {"pruned_plan", "pruned_sq_score"},
+    want = {"tree_sq": {"pruned_plan", "pruned_sq_score", "pruned_merge"},
             "tree_ah": {"pruned_plan", "pruned_lut_build",
-                        "pruned_lut_score"},
-            "reconstruct": {"pruned_plan", "pruned_rows_score"},
+                        "pruned_lut_score", "pruned_merge"},
+            "reconstruct": {"pruned_plan", "pruned_rows_score",
+                            "pruned_merge"},
             "brute_force": set()}
     for name, ops in want.items():
         ep = torch.export.load(os.path.join(paths[name],
@@ -209,13 +210,13 @@ def test_op_opcheck_and_plain_equal(name):
 def test_cpu_calls_count_no_launch_and_other_devices_refuse():
     before = (pruned_sq.launches, ps.launches, pruned_lut.launches_lut,
               pruned_lut.launches_codes, fused_scan.launches,
-              ps.launches_merge, ps.launches_plan)
+              ps.launches_merge, ps.launches_plan, ps.launches_select)
     for op, args, _ in op_cases.op_cases().values():
         op(*args)
     assert before == (pruned_sq.launches, ps.launches,
                       pruned_lut.launches_lut, pruned_lut.launches_codes,
                       fused_scan.launches, ps.launches_merge,
-                      ps.launches_plan)
+                      ps.launches_plan, ps.launches_select)
     rows = torch.zeros((1, 2048, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_scan.fused_scan_groupmax(

@@ -311,6 +311,64 @@ def test_plan_batch_and_fits_on_both_tile_sizes(tile, monkeypatch):
     assert not tps.fits(layout, 96, 5)
 
 
+# (k_fetch, SCANN_TORCH_FUSED_MERGE, limit overrides, merge) on a CPU
+# merge of 2,112 candidates a query (8 hot leaves of 2 tiles x 128
+# survivors, 4 cold leaves of 16 groups).
+_PATHS = {
+    "kernel_within_limits": (100, "0", {}, "select"),
+    "k_at_the_limit": (100, "0", {"_SELECT_MAX_K": 100}, "select"),
+    "k_one_above_the_limit": (101, "0", {"_SELECT_MAX_K": 100}, "plain"),
+    "n_at_the_limit": (100, "0", {"_SELECT_MAX_N": 2112}, "select"),
+    "n_one_above_the_limit": (100, "0", {"_SELECT_MAX_N": 2111}, "plain"),
+    "k_above_n_k_limit_above_n": (5000, "0", {"_SELECT_MAX_K": 2112},
+                                  "select"),
+    "k_above_n_n_above_the_k_limit": (5000, "0", {}, "plain"),
+    "k6_switch_on_k_32": (32, "1", {}, "fused"),
+    "k6_switch_on_k_33": (33, "1", {}, "select"),
+    "k6_switch_off_k_32": (32, "0", {}, "select"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PATHS))
+def test_candidates_path_choice(name, monkeypatch):
+    """``candidates`` takes the selection kernel's op up to its limits, the
+    plain merge above them and K6 only with its switch on and k_fetch <=
+    32; every path gives the plain merge's answer (K6 its own), and a CPU
+    merge launches nothing."""
+    from scann_torch.tools.merge_breakdown import merge_case
+    k_fetch, switch, limits, path = _PATHS[name]
+    monkeypatch.setenv("SCANN_TORCH_FUSED_MERGE", switch)
+    for attr, value in limits.items():
+        monkeypatch.setattr(tps, attr, value)
+    args, kw = merge_case(7, 60, 12, 2, 512, 8, num_leaves=30,
+                          device="cpu")
+    packed, work_active, pair_gid, pair_row, sel, valid = args[:6]
+    n = tps.merge_width(12, kw["hot"], 2, 128, 16)
+    assert n == 2112
+    assert tps.merge_path(k_fetch, n, 128, 16, 2) == path
+    calls = []
+    for fn in ("select_merge", "merge_ids_torch", "merge_candidates_fused"):
+        real = getattr(tps, fn)
+        monkeypatch.setattr(tps, fn, lambda *a, _f=real, _n=fn, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    layout = tps.PrunedLayout(args[6], args[7], 2, int(args[7].sum()),
+                              args[8], None, 512)
+    plan = tps.WorkPlan(None, None, None, None, work_active, pair_gid,
+                        pair_row)
+    before = tps.launches_select
+    vals, ids = tps.candidates(layout, plan, packed, sel, valid, k_fetch,
+                               args[9], kw["hot"])
+    assert tps.launches_select == before
+    want = {"select": "select_merge", "plain": "merge_ids_torch",
+            "fused": "merge_candidates_fused"}[path]
+    assert calls[0] == want
+    assert ids.dtype == torch.int32 and vals.shape == ids.shape
+    if path != "fused":
+        w = tps.merge_ids_torch(*args, k_fetch=k_fetch, **kw)
+        assert vals.shape == (60, min(k_fetch, n))
+        assert torch.equal(vals, w[0]) and torch.equal(ids, w[1])
+
+
 def test_build_layout_host_identical():
     r = np.random.default_rng(9)
     leaf = r.integers(0, 12, 3000)
